@@ -3,32 +3,43 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain-PyTorch twin at the shapes the main paths give
-it, then drives the two main paths through the payload entry point at
-the flagship preset's full width (1.2B parameters, random weights from a
-seed):
+Builds the port's CUDA kernels (flash forward, flash backward dQ and
+dK/dV, paged decode) from the sources in this checkout, holds each
+against its plain-PyTorch twin at the shapes the main paths give it,
+then drives the main paths through their entry points at full width
+(random weights from a seed):
 
-- ``infer --mode forward`` (batch 8, seq 128) — flash-forward kernel;
+- ``infer --mode forward`` at the flagship preset (1.2B; batch 8,
+  seq 128) — flash-forward kernel;
 - ``infer --mode decode`` (batch 8, a 32-token prompt) — the flash
   kernel on a prefill that fits no Pallas block;
 - ``infer --mode serve --paged`` (16 requests, 8 lanes, prompt 128, up
   to 128 new tokens, greedy) — paged-decode kernel, one launch per layer
   per decode step;
+- ``train``: 6 steps of ``train.make_train_step`` at the reference's
+  training preset (0.55B: d_model 1536, 16 heads of 96, 12 layers;
+  batch 8 x seq 1024) — per step and layer one flash forward with LSE,
+  one dQ and one dK/dV launch;
+- ``train-remat``: the same preset at seq 2048 with ``remat``, 2 steps
+  (two forward launches per layer per step);
+- ``train-payload``: ``train_payload.main`` for 6 steps with
+  checkpoints, then a restart that resumes and trains to step 9 (the
+  payload's own config, head_dim 16);
 
-with each kernel's launch count zeroed just before its path runs and
-read just after, so the run shows the path went through the kernel.
-It prints one line per phase, a ``{"kernels": [...]}`` JSON line, the
-card's name and power limit, and as its last line
-``{"ok": true, "device": {...}}``. Any failed check raises and the
-script exits non-zero; without a CUDA device, or outside the repo
-checkout, it exits non-zero before printing any result.
+with the launch counts zeroed just before each path runs and read just
+after, so the run shows each path went through its kernels. It prints
+one line per phase, a ``{"kernels": [...]}`` JSON line, the card's name
+and power limit, and as its last line ``{"ok": true, "device": {...}}``.
+Any failed check raises and the script exits non-zero; without a CUDA
+device, or outside the repo checkout, it exits non-zero before printing
+any result.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -43,6 +54,29 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # kernel vs plain twin: bf16 outputs round once at the end of a tiled
 # online softmax vs an einsum/softmax chain; fp32 only reorders sums
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# the forward's LSE is fp32 from the same fp32 scores on both sides
+LSE_TOL = 1e-4
+# backward kernels vs the plain backward, as a share of each gradient's
+# largest magnitude: bf16 outputs round once (2^-9 relative) on both
+# sides, fp32 only reorders sums. The control — the kernel's gradient
+# rounded to CONTROL_BITS_BWD significant bits (bf16 keeps 8) — must
+# land above the bf16 limit, which shows the check tells a kernel that
+# loses precision.
+BWD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+CONTROL_BITS_BWD = 4
+# the reference's training preset (bench.py) and its batch
+TRAIN_PRESET = dict(vocab=32768, d_model=1536, n_heads=16, n_layers=12,
+                    d_ff=6144, max_seq=1024)
+TRAIN_B, TRAIN_S = 8, 1024
+# f32 train step, kernels vs plain attention: loss relative, gradients as
+# a share of each leaf's largest magnitude. Params after one AdamW step:
+# the first Adam update is g / (|g| + eps), so an element whose gradient
+# lies within summation-order noise of 0 may step the other way — two
+# runs then sit up to 2 lr apart there (7.2e-5 seen at lr 3e-4 on an
+# H100, with the gradients within 1.3e-6). So: every element within
+# 2 lr, and all but F32_PARAM_SHARE of them within F32_PARAM_TOL.
+F32_LOSS_TOL, F32_GRAD_TOL = 1e-5, 1e-4
+F32_PARAM_TOL, F32_PARAM_SHARE = 1e-6, 1e-4
 # full-model logits, kernel path vs plain path, bf16: each layer's bf16
 # rounding of the attention output compounds over 16 layers; held to a
 # fraction of the logit scale. On an H100 the sound reading is 0.0140
@@ -120,46 +154,205 @@ def check_close(label: str, got, want, dtype: str) -> float:
 # phase 2: flash kernel against its plain twin
 # ---------------------------------------------------------------------------
 
+def live_pairs(S: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the mask keeps: the work a flash kernel must
+    do on these inputs."""
+    if not causal:
+        return S * S
+    if window is None:
+        return S * (S + 1) // 2
+    return sum(min(i + 1, window) for i in range(S))
+
+
+def sdpa_mask(torch, S, window):
+    """The banded causal mask as SDPA's boolean ``attn_mask``."""
+    ids = torch.arange(S, device="cuda")
+    return (ids[None, :] <= ids[:, None]) & (ids[None, :] > ids[:, None]
+                                             - window)
+
+
 def flash_cases(torch):
-    from tpushare_torch.workloads.ops.attention import (flash_attention,
+    from tpushare_torch.workloads.ops.attention import (flash_attention_fwd,
                                                         flash_attention_plain)
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = [  # (label, B, S, H, Hkv, hd, dtype)
-        ("main-path", 8, 128, 16, 16, 128, "bfloat16"),
-        ("flagship", 2, 128, 16, 16, 128, "bfloat16"),
-        ("flagship", 2, 512, 16, 16, 128, "bfloat16"),
-        ("flagship", 2, 2048, 16, 16, 128, "bfloat16"),
-        ("gqa", 2, 512, 16, 4, 128, "bfloat16"),
-        ("hd64", 2, 512, 16, 16, 64, "bfloat16"),
-        ("odd-S", 2, 300, 16, 16, 128, "bfloat16"),
-        ("flagship", 2, 512, 16, 16, 128, "float32"),
-        ("gqa-hd64-odd", 1, 77, 4, 2, 64, "float32"),
+    cases = [  # (label, B, S, H, Hkv, hd, dtype, window, with_lse)
+        ("main-path", 8, 128, 16, 16, 128, "bfloat16", None, False),
+        ("flagship", 2, 128, 16, 16, 128, "bfloat16", None, False),
+        ("flagship", 2, 512, 16, 16, 128, "bfloat16", None, False),
+        ("flagship", 2, 2048, 16, 16, 128, "bfloat16", None, False),
+        ("gqa", 2, 512, 16, 4, 128, "bfloat16", None, False),
+        ("hd64", 2, 512, 16, 16, 64, "bfloat16", None, False),
+        ("odd-S", 2, 300, 16, 16, 128, "bfloat16", None, False),
+        ("flagship", 2, 512, 16, 16, 128, "float32", None, False),
+        ("gqa-hd64-odd", 1, 77, 4, 2, 64, "float32", None, False),
+        ("train-lse", 8, 1024, 16, 16, 96, "bfloat16", None, True),
+        ("train-window", 8, 1024, 16, 16, 96, "bfloat16", 256, True),
+        ("train-gqa", 8, 1024, 16, 4, 96, "bfloat16", None, True),
+        ("train-f32", 2, 1024, 16, 16, 96, "float32", None, True),
+        ("payload-hd16", 8, 64, 8, 8, 16, "bfloat16", None, True),
+        ("hd96", 2, 512, 16, 16, 96, "bfloat16", None, False),
     ]
     rows = []
-    for label, B, S, H, Hkv, hd, dtype in cases:
+    for label, B, S, H, Hkv, hd, dtype, window, with_lse in cases:
         dt = getattr(torch, dtype)
 
         def rn(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(dt)
         q, k, v = rn(B, S, H, hd), rn(B, S, Hkv, hd), rn(B, S, Hkv, hd)
-        got = flash_attention(q, k, v)
+
+        def kernel():
+            return flash_attention_fwd(q, k, v, window=window,
+                                       with_lse=with_lse)
+
+        def plain():
+            return flash_attention_plain(q, k, v, window=window,
+                                         with_lse=with_lse)
+        got, want = kernel(), plain()
         torch.cuda.synchronize()
+        extra = {}
+        if with_lse:
+            (got, lse), (want, want_lse) = got, want
+            lse_err = max_err(lse, want_lse)
+            if not lse_err <= LSE_TOL:
+                raise RuntimeError(f"flash {label}: lse differs by "
+                                   f"{lse_err} > {LSE_TOL}")
+            extra = dict(lse_max_abs_err=lse_err)
         err = check_close(f"flash {label} {B}x{S}x{H}/{Hkv}x{hd} {dtype}",
-                          got, flash_attention_plain(q, k, v), dtype)
-        ms = time_ms(lambda: flash_attention(q, k, v))
-        plain_ms = time_ms(lambda: flash_attention_plain(q, k, v))
+                          got, want, dtype)
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = sdpa_mask(torch, S, window) if window else None
         sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=Hkv != H))
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=Hkv != H))
         elem = q.element_size()
         n_bytes = elem * (2 * B * S * H * hd + 2 * B * S * Hkv * hd)
-        flops = 4 * B * H * hd * S * (S + 1) // 2     # causal pairs only
+        if with_lse:
+            n_bytes += 4 * B * H * S
+        flops = 4 * B * H * hd * live_pairs(S, True, window)
         bms, by = bound_ms(n_bytes, flops, dtype)
         row = dict(case=label, B=B, S=S, H=H, Hkv=Hkv, hd=hd, dtype=dtype,
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   library_ms=sdpa_ms, bound_ms=bms, bound_by=by)
+                   window=window, lse=with_lse, max_abs_err=err, **extra,
+                   ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
+                   bound_ms=bms, bound_by=by)
         phase("flash-vs-plain", **row)
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# flash backward (K2 dQ, K3 dK/dV) against its plain twin
+# ---------------------------------------------------------------------------
+
+def bwd_cases(torch):
+    """dQ and dK/dV kernels against ``flash_attention_bwd_plain`` (both
+    fed the kernel forward's o and lse) and against autograd through
+    ``flash_attention_plain``; times each kernel alone, the plain
+    backward, and SDPA's backward as the library yardstick."""
+    from tpushare_torch.workloads.ops.attention import (
+        flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_plain, flash_bwd_dkv, flash_bwd_dq)
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = [  # (label, B, S, H, Hkv, hd, dtype, causal, window)
+        ("main-path", TRAIN_B, TRAIN_S, 16, 16, 96, "bfloat16", True, None),
+        ("gqa-16:4", TRAIN_B, TRAIN_S, 16, 4, 96, "bfloat16", True, None),
+        ("window-256", TRAIN_B, TRAIN_S, 16, 16, 96, "bfloat16", True, 256),
+        ("full", 2, TRAIN_S, 16, 16, 96, "bfloat16", False, None),
+        ("f32", 2, TRAIN_S, 16, 16, 96, "float32", True, None),
+        ("odd-S", 2, 300, 16, 16, 96, "bfloat16", True, None),
+        ("payload-hd16", 8, 64, 8, 8, 16, "bfloat16", True, None),
+    ]
+    rows = []
+    for label, B, S, H, Hkv, hd, dtype, causal, window in cases:
+        dt = getattr(torch, dtype)
+
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dt)
+        q, k, v, do = rn(B, S, H, hd), rn(B, S, Hkv, hd), rn(B, S, Hkv, hd), \
+            rn(B, S, H, hd)
+        o, lse = flash_attention_fwd(q, k, v, causal, window, with_lse=True)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+        def dq_kernel():
+            return flash_bwd_dq(q, k, v, do, lse, delta, causal, window)
+
+        def dkv_kernel():
+            return flash_bwd_dkv(q, k, v, do, lse, delta, causal, window)
+
+        def plain():
+            return flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                             window)
+        got = (dq_kernel(), *dkv_kernel())
+        want = plain()
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        auto = torch.autograd.grad(
+            flash_attention_plain(*leaves, causal=causal, window=window),
+            leaves, do)
+        torch.cuda.synchronize()
+        tol = BWD_TOL[dtype]
+        errs = {}
+        for name, g, w, a in zip(("dq", "dk", "dv"), got, want, auto):
+            scale = w.float().abs().max().item()
+            rel = max_err(g, w) / scale
+            rel_auto = max_err(g, a) / scale
+            if not (rel <= tol and rel_auto <= tol):
+                raise RuntimeError(
+                    f"flash bwd {label} {name}: {rel} / {rel_auto} of scale "
+                    f"{scale} vs the plain backward / autograd > {tol}")
+            errs[name] = (rel, rel_auto, max_err(g, w))
+        controls = {}
+        if label == "main-path":
+            for b in (7, 6, 5, CONTROL_BITS_BWD):
+                controls[f"control_rel_err_b{b}"] = max(
+                    max_err(round_to_bits(torch, g, b), w)
+                    / w.float().abs().max().item()
+                    for g, w in zip(got, want))
+            if not controls[f"control_rel_err_b{CONTROL_BITS_BWD}"] > tol:
+                raise RuntimeError(f"the {CONTROL_BITS_BWD}-bit control "
+                                   "passes the backward check")
+        dq_ms = time_ms(dq_kernel)
+        dkv_ms = time_ms(dkv_kernel)
+        plain_ms = time_ms(plain, reps=5, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        mask = sdpa_mask(torch, S, window) if window else None
+        ot = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=Hkv != H)
+        dot = do.transpose(1, 2)
+        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True))
+        elem = q.element_size()
+        q_bytes, kv_bytes = elem * B * S * H * hd, elem * B * S * Hkv * hd
+        stat_bytes = 4 * B * H * S
+        pairs = live_pairs(S, causal, window)
+        product = 2 * B * H * hd * pairs          # one S x S x hd product
+        # dq: reads q, k, v, dO, lse, delta, writes dq; q k^T, dO v^T, dS k
+        dq_b = bound_ms(3 * q_bytes + 2 * kv_bytes + 2 * stat_bytes,
+                        3 * product, dtype)
+        # dkv: the same reads, writes dk, dv; + P^T dO and dS^T q
+        dkv_b = bound_ms(2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes,
+                         4 * product, dtype)
+        # the whole backward: reads q, k, v, o, dO, lse; writes dq, dk,
+        # dv; five products at the least
+        bwd_b = bound_ms(4 * q_bytes + 4 * kv_bytes + stat_bytes,
+                         5 * product, dtype)
+        row = dict(case=label, B=B, S=S, H=H, Hkv=Hkv, hd=hd, dtype=dtype,
+                   causal=causal, window=window, tol=tol,
+                   dq_rel_err=errs["dq"][0], dk_rel_err=errs["dk"][0],
+                   dv_rel_err=errs["dv"][0],
+                   autograd_rel_err=max(e[1] for e in errs.values()),
+                   dq_max_abs_err=errs["dq"][2],
+                   dkv_max_abs_err=max(errs["dk"][2], errs["dv"][2]),
+                   dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms,
+                   library_ms=sdpa_bwd_ms, dq_bound_ms=dq_b[0],
+                   dq_bound_by=dq_b[1], dkv_bound_ms=dkv_b[0],
+                   dkv_bound_by=dkv_b[1], bwd_bound_ms=bwd_b[0],
+                   bwd_bound_by=bwd_b[1], **controls)
+        phase("flash-bwd-vs-plain", **row)
         rows.append(row)
     return rows
 
@@ -309,6 +502,7 @@ def decode_path(torch, build, infer):
     phase("decode", tokens_per_s=res["tokens_per_s"], prompt=32,
           flash_launches=launches["flash_fwd"],
           paged_launches=launches["paged_decode"])
+    return launches
 
 
 def serve_path(torch, build, infer):
@@ -395,6 +589,214 @@ def small_f32_identity(torch, build):
           prefill_flash_launches=prefill_launches, identical=True)
 
 
+# ---------------------------------------------------------------------------
+# the training paths
+# ---------------------------------------------------------------------------
+
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def clone_state(torch, state):
+    from tpushare_torch.workloads.train import tree_map
+    return {"params": tree_map(torch.clone, state["params"]),
+            "opt": {"mu": tree_map(torch.clone, state["opt"]["mu"]),
+                    "nu": tree_map(torch.clone, state["opt"]["nu"]),
+                    "count": state["opt"]["count"]},
+            "step": state["step"]}
+
+
+def train_setup(torch, cfg, seed, B, S):
+    from tpushare_torch.workloads.models.transformer import init_params
+    from tpushare_torch.workloads.train import init_state, make_optimizer
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    opt = make_optimizer()
+    state = init_state(init_params(gen, cfg, "cuda"), opt)
+    inputs = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device="cuda")
+    return opt, state, inputs, torch.roll(inputs, -1, dims=1)
+
+
+def run_steps(torch, step, state, inputs, targets, n):
+    """n steps; per-step host wall (each ended by a synchronize) and
+    losses."""
+    times, losses = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, loss = step(state, inputs, targets)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    return state, times, losses
+
+
+def train_path(torch, build, smi):
+    """6 steps of make_train_step at the reference's training preset:
+    exactly 12 launches of each flash kernel per step, no fallback, a
+    finite falling loss."""
+    from tpushare_torch.workloads.models.transformer import (
+        TransformerConfig, forward_flops, param_count)
+    from tpushare_torch.workloads.ops import registry
+    from tpushare_torch.workloads.train import make_train_step
+    cfg = TransformerConfig(**TRAIN_PRESET)
+    opt, state, inputs, targets = train_setup(torch, cfg, 6, TRAIN_B,
+                                              TRAIN_S)
+    step = make_train_step(cfg, opt, "cuda")
+    n = 6
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    registry.reset_fallbacks()
+    state, times, losses = run_steps(torch, step, state, inputs, targets, n)
+    launches = dict(build.LAUNCHES)
+    fallbacks = registry.fallback_counts()
+    want = {k: n * cfg.n_layers for k in TRAIN_KERNELS}
+    if {k: launches[k] for k in TRAIN_KERNELS} != want or \
+            launches["paged_decode"]:
+        raise RuntimeError(f"train launches {launches} != {want}: some "
+                           "layer's attention missed the kernels")
+    if fallbacks:
+        raise RuntimeError(f"train path fell back: {fallbacks}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"train losses not finite and falling: {losses}")
+    step_s = statistics.median(times[1:])
+    flops = 3 * forward_flops(cfg, TRAIN_B, TRAIN_S)
+    phase("train", params_b=param_count(cfg) / 1e9, batch=TRAIN_B,
+          seq=TRAIN_S, steps=n, first_loss=losses[0], last_loss=losses[-1],
+          step_ms=step_s * 1e3, first_step_ms=times[0] * 1e3,
+          tokens_per_s=TRAIN_B * TRAIN_S / step_s,
+          mfu=flops / step_s / PEAK_FLOPS["bfloat16"],
+          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+          **{f"{k}_per_step": launches[k] / n for k in TRAIN_KERNELS},
+          fallbacks=len(fallbacks), card=repr(smi))
+    return launches
+
+
+def train_remat_path(torch, build):
+    """The same preset at seq 2048 with remat: the first loss equals a
+    non-remat step's on the same batch, and the forward kernel runs twice
+    per layer per step (forward + recompute)."""
+    from tpushare_torch.workloads.models.transformer import TransformerConfig
+    from tpushare_torch.workloads.train import make_train_step
+    S = 2 * TRAIN_S
+    cfg = TransformerConfig(**{**TRAIN_PRESET, "max_seq": S})
+    rcfg = dataclasses.replace(cfg, remat=True)
+    opt, state, inputs, targets = train_setup(torch, cfg, 7, TRAIN_B, S)
+    torch.cuda.reset_peak_memory_stats()
+    plain_state, _, plain_losses = run_steps(
+        torch, make_train_step(cfg, opt, "cuda"), clone_state(torch, state),
+        inputs, targets, 1)
+    plain_peak = torch.cuda.max_memory_allocated()
+    del plain_state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n = 2
+    build.reset_launches()
+    state, times, losses = run_steps(
+        torch, make_train_step(rcfg, opt, "cuda"), state, inputs, targets, n)
+    launches = dict(build.LAUNCHES)
+    want = {"flash_fwd": 2 * n * cfg.n_layers,
+            "flash_bwd_dq": n * cfg.n_layers,
+            "flash_bwd_dkv": n * cfg.n_layers}
+    if {k: launches[k] for k in TRAIN_KERNELS} != want:
+        raise RuntimeError(f"remat launches {launches} != {want}")
+    if losses[0] != plain_losses[0]:
+        raise RuntimeError(f"remat loss {losses[0]} != non-remat "
+                           f"{plain_losses[0]} on the same batch")
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"remat losses not finite: {losses}")
+    phase("train-remat", batch=TRAIN_B, seq=S, steps=n, first_loss=losses[0],
+          plain_first_loss=plain_losses[0], last_loss=losses[-1],
+          step_ms=times[-1] * 1e3,
+          tokens_per_s=TRAIN_B * S / times[-1],
+          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+          plain_peak_mem_gib=plain_peak / 2 ** 30,
+          **{f"{k}_per_step": launches[k] / n for k in TRAIN_KERNELS})
+    return launches
+
+
+def train_f32_parity(torch, build):
+    """A 2-layer GQA f32 config: one step through the kernels and one
+    through ``attn_impl="xla"`` from the same state agree."""
+    from tpushare_torch.workloads.models.transformer import TransformerConfig
+    from tpushare_torch.workloads.train import (loss_and_grads,
+                                                make_train_step,
+                                                tree_leaves)
+    cfg = TransformerConfig(vocab=512, d_model=384, n_heads=4, n_kv_heads=2,
+                            n_layers=2, d_ff=768, max_seq=256,
+                            dtype=torch.float32)
+    plain_cfg = dataclasses.replace(cfg, attn_impl="xla")
+    opt, state, inputs, targets = train_setup(torch, cfg, 8, 4, 256)
+    before = dict(build.LAUNCHES)
+    _, k_grads = loss_and_grads(state["params"], inputs, targets, cfg)
+    _, p_grads = loss_and_grads(state["params"], inputs, targets, plain_cfg)
+    grad_err = max(max_err(a, b) / b.abs().max().item() for a, b in
+                   zip(tree_leaves(k_grads), tree_leaves(p_grads)))
+    del k_grads, p_grads
+    k_state, k_loss1 = make_train_step(cfg, opt, "cuda")(
+        clone_state(torch, state), inputs, targets)
+    p_state, p_loss1 = make_train_step(plain_cfg, opt, "cuda")(
+        clone_state(torch, state), inputs, targets)
+    kernel_launches = build.LAUNCHES["flash_bwd_dkv"] - before[
+        "flash_bwd_dkv"]
+    loss_err = abs(k_loss1.item() - p_loss1.item()) / abs(p_loss1.item())
+    pairs = list(zip(tree_leaves(k_state["params"]),
+                     tree_leaves(p_state["params"])))
+    param_err = max(max_err(a, b) for a, b in pairs)
+    off = sum(int(((a - b).abs() > F32_PARAM_TOL).sum()) for a, b in pairs)
+    off_share = off / sum(a.numel() for a, _ in pairs)
+    lr = opt.lr_at(0)
+    phase("train-f32-parity", hd=cfg.head_dim, heads=f"{cfg.n_heads}:"
+          f"{cfg.kv_heads}", loss=p_loss1.item(), loss_rel_err=loss_err,
+          grad_rel_err=grad_err, param_max_abs_err=param_err,
+          params_off_share=off_share, loss_tol=F32_LOSS_TOL,
+          grad_tol=F32_GRAD_TOL, param_tol=F32_PARAM_TOL,
+          param_share_tol=F32_PARAM_SHARE, param_max_tol=2 * lr,
+          kernel_dkv_launches=kernel_launches)
+    if kernel_launches != 2 * cfg.n_layers:
+        raise RuntimeError("the f32 kernel step did not run the backward "
+                           f"kernels ({kernel_launches} dK/dV launches)")
+    if not (loss_err <= F32_LOSS_TOL and grad_err <= F32_GRAD_TOL
+            and param_err <= 2 * lr and off_share <= F32_PARAM_SHARE):
+        raise RuntimeError("f32 train step: kernels and plain attention "
+                           "disagree beyond the stated tolerances")
+
+
+def train_payload_path(torch, build):
+    """``train_payload.main``: 6 steps with a checkpoint every 3, then a
+    restart that resumes from step 6 and trains to 9 — the payload's own
+    config (head_dim 16) through the kernels."""
+    import contextlib
+    import io
+    import tempfile
+    from tpushare_torch.workloads import train_payload
+    build.reset_launches()
+    outs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for steps in ("6", "9"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = train_payload.main(["--checkpoint-dir", tmp, "--steps",
+                                         steps, "--save-every", "3"])
+            print(buf.getvalue(), end="", flush=True)
+            if rc != 0:
+                raise RuntimeError(f"train_payload exited {rc}")
+            outs.append(buf.getvalue())
+    launches = dict(build.LAUNCHES)
+    if "resumed from step 6" not in outs[1] or "resumed" in outs[0]:
+        raise RuntimeError("the payload restart did not resume from step 6")
+    losses = [float(line.rsplit("=", 1)[1]) for out in outs
+              for line in out.splitlines() if "final loss=" in line]
+    n_layers = 4
+    want = {k: 9 * n_layers for k in TRAIN_KERNELS}
+    if {k: launches[k] for k in TRAIN_KERNELS} != want:
+        raise RuntimeError(f"payload launches {launches} != {want}")
+    if not losses[1] < losses[0]:
+        raise RuntimeError(f"payload loss did not fall: {losses}")
+    phase("train-payload", resumed_from=6, final_loss_6=losses[0],
+          final_loss_9=losses[1],
+          **{f"{k}_launches": launches[k] for k in TRAIN_KERNELS})
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -422,31 +824,64 @@ def main() -> int:
           **{f"build_{k}_s": v for k, v in built.items()})
 
     flash_rows = flash_cases(torch)
+    bwd_rows = bwd_cases(torch)
     paged_rows = paged_cases(torch)
-    fwd_launches, _, _ = forward_path(torch, build, infer)
-    decode_path(torch, build, infer)
-    serve_launches = serve_path(torch, build, infer)
+    paths = {}
+    paths["forward"], _, _ = forward_path(torch, build, infer)
+    paths["decode"] = decode_path(torch, build, infer)
+    paths["serve"] = serve_path(torch, build, infer)
     small_f32_identity(torch, build)
+    paths["train"] = train_path(torch, build, smi)
+    paths["train-remat"] = train_remat_path(torch, build)
+    train_f32_parity(torch, build)
+    paths["train-payload"] = train_payload_path(torch, build)
 
-    def kernel_line(name, source, replaces, launches, row, checked_in):
-        return {"name": name, "route": "cuda", "source": source,
+    def by_path(name):
+        return {p: n[name] for p, n in paths.items() if n[name]}
+
+    def kernel_line(name, source, replaces, row, checked_in, **fields):
+        counts = by_path(name)
+        line = {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "checked_in": checked_in,
-                "launches": launches,
-                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+                "launches": sum(counts.values()),
+                "launches_by_path": counts}
+        for key in ("max_abs_err", "ms", "bound_ms", "bound_by"):
+            line[key] = row[fields.get(key, key)]
+        line["plain_ms"] = row["plain_ms"]
+        line["library_ms"] = row["library_ms"]
+        line["shape"] = {k: row[k] for k in ("B", "S", "H", "Hkv", "hd",
+                                               "ps", "P", "dtype")
+                         if k in row}
+        return line
 
+    bwd = bwd_rows[0]
+    train_fwd = next(r for r in flash_rows if r["case"] == "train-lse")
     kernels = [
         kernel_line("flash_fwd", "tpushare_torch/workloads/kernels/flash_fwd.cu",
-                    "tpushare/workloads/ops/attention.py:94",
-                    fwd_launches["flash_fwd"], flash_rows[0],
-                    "flash-vs-plain, forward-logits, decode, f32-identity"),
+                    "tpushare/workloads/ops/attention.py:94", flash_rows[0],
+                    "flash-vs-plain, forward-logits, decode, f32-identity, "
+                    "train-f32-parity"),
+        kernel_line("flash_bwd_dq",
+                    "tpushare_torch/workloads/kernels/flash_bwd.cu",
+                    "tpushare/workloads/ops/attention.py:245", bwd,
+                    "flash-bwd-vs-plain, train-f32-parity",
+                    max_abs_err="dq_max_abs_err", ms="dq_ms",
+                    bound_ms="dq_bound_ms", bound_by="dq_bound_by"),
+        kernel_line("flash_bwd_dkv",
+                    "tpushare_torch/workloads/kernels/flash_bwd.cu",
+                    "tpushare/workloads/ops/attention.py:300", bwd,
+                    "flash-bwd-vs-plain, train-f32-parity",
+                    max_abs_err="dkv_max_abs_err", ms="dkv_ms",
+                    bound_ms="dkv_bound_ms", bound_by="dkv_bound_by"),
         kernel_line("paged_decode",
                     "tpushare_torch/workloads/kernels/paged_decode.cu",
-                    "tpushare/workloads/ops/registry.py:617",
-                    serve_launches["paged_decode"], paged_rows[0],
+                    "tpushare/workloads/ops/registry.py:617", paged_rows[0],
                     "paged-vs-plain, serve, f32-identity"),
     ]
+    # the forward on the training path: the LSE launch at the train shape
+    kernels[0]["train_shape"] = {k: train_fwd[k] for k in (
+        "B", "S", "H", "Hkv", "hd", "dtype", "max_abs_err", "ms",
+        "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,12 @@ At the flagship preset (1.2B, bf16, random weights from a seed) this
 profiles, with ``torch.profiler`` (CPU + CUDA activities):
 
 - ``forward``: three batch-8 x seq-128 forwards;
-- ``decode``: the paged serving engine's decode chunks with 8 lanes busy.
+- ``decode``: the paged serving engine's decode chunks with 8 lanes busy;
+
+and at the reference's training preset (0.55B: d_model 1536, 16 heads of
+96, 12 layers, bf16; batch 8 x seq 1024):
+
+- ``train``: one ``train.make_train_step`` step after a warm-up step.
 
 For each it prints one JSON line: host wall time per step, device busy
 time per step (the sum of the device-side kernel and copy times), the
@@ -107,6 +112,27 @@ def main() -> int:
         return eng.stats["lane_steps"]
     profile(torch, chunks,
             lambda after: (after - before) // lanes, "decode")
+    del eng, params
+    torch.cuda.empty_cache()
+
+    from tpushare_torch.workloads.models.transformer import TransformerConfig
+    from tpushare_torch.workloads.train import (init_state, make_optimizer,
+                                                make_train_step)
+    tcfg = TransformerConfig(vocab=32768, d_model=1536, n_heads=16,
+                             n_layers=12, d_ff=6144, max_seq=1024)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    opt = make_optimizer()
+    state = init_state(init_params(gen, tcfg, "cuda"), opt)
+    inputs = torch.randint(0, tcfg.vocab, (8, 1024), generator=gen,
+                           device="cuda")
+    targets = torch.roll(inputs, -1, dims=1)
+    step = make_train_step(tcfg, opt, "cuda")
+    state, _ = step(state, inputs, targets)         # warm-up
+
+    def train_step():
+        step(state, inputs, targets)
+        return 1
+    profile(torch, train_step, lambda n: n, "train")
     return 0
 
 

@@ -120,8 +120,8 @@ def test_paged_rows(kw, expect):
 @pytest.mark.parametrize("kind,kw", [
     ("prefill", dict(impl="splash", seq=4096, platform="cuda")),
     ("prefill", dict(impl="flash", platform="cpu")),
-    ("prefill", dict(impl="flash", window=8, platform="cuda")),
-    ("prefill", dict(impl="kernel", window=8, platform="cuda")),
+    ("prefill", dict(impl="splash", window=8, platform="cuda")),
+    ("prefill", dict(impl="kernel", window=8, platform="cpu")),
     ("prefill", dict(impl="paged", platform="cuda")),
     ("paged", dict(impl="paged", platform="cpu")),
     ("paged", dict(impl="flash", platform="cuda")),
@@ -132,13 +132,17 @@ def test_explicit_impls_that_cannot_run_raise(kind, kw):
 
 
 def test_windowed_config_on_cuda_raises_under_auto():
-    """The plain path never runs on the card unasked: until the banded
-    grid is ported, auto raises instead of degrading (and counts
-    nothing)."""
+    """The plain path never runs on the card unasked: a window the flash
+    kernels cannot honour (one without causal masking) raises under auto
+    instead of degrading, and counts nothing; a causal window runs the
+    banded kernel."""
     registry.reset_fallbacks()
-    with pytest.raises(registry.KernelUnavailable, match="attn_impl='xla'"):
+    with pytest.raises(ValueError, match="causal"):
         registry.select_attention(registry.KIND_PREFILL, seq=128, window=8,
-                                  platform="cuda")
+                                  platform="cuda", causal=False)
+    choice = registry.select_attention(registry.KIND_PREFILL, seq=128,
+                                       window=8, platform="cuda")
+    assert (choice.impl, choice.reason) == ("flash", "window:flash-banded")
     assert registry.fallback_counts() == {}
 
 

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels against their plain-PyTorch twins, on an
-NVIDIA GPU. Marked ``cuda``: a CUDA kernel has no CPU mode, so these skip
-on a host without a card. The file imports no JAX, so it runs on a GPU
+"""The port's CUDA kernels (flash forward, flash backward dQ and dK/dV,
+paged decode) against their plain-PyTorch twins, on an NVIDIA GPU.
+Marked ``cuda``: a CUDA kernel has no CPU mode, so these skip on a host
+without a card. The file imports no JAX, so it runs on a GPU
 machine that has only the port's dependencies:
 
     python -m pytest tests/test_torch_kernels.py -q -m cuda
@@ -112,8 +113,73 @@ def test_generate_prefills_an_untiled_prompt_through_the_kernel(plen):
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_cannot_take():
     dev = card()
-    q = torch.zeros((1, 8, 2, 32), dtype=torch.bfloat16, device=dev)
+    q = torch.zeros((1, 8, 2, 48), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         attention.flash_attention(q, q, q)
-    with pytest.raises(NotImplementedError):
-        attention.flash_attention(q, q, q, window=4)
+    q = torch.zeros((1, 8, 2, 32), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="causal"):
+        attention.flash_attention(q, q, q, causal=False, window=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention.flash_attention(q.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), q, q)
+
+
+# ---------------------------------------------------------------------------
+# the flash backward (K2 dQ, K3 dK/dV) and the forward's LSE and window
+# ---------------------------------------------------------------------------
+
+BWD_CASES = [  # B, S, H, Hkv, hd, dtype, causal, window
+    (2, 128, 4, 4, 64, "float32", True, None),
+    (2, 300, 4, 2, 96, "float32", True, None),      # partial tile, GQA
+    (2, 200, 4, 2, 16, "float32", True, 48),        # window, payload hd
+    (1, 130, 4, 1, 32, "float32", False, None),     # full attention
+    (2, 256, 8, 2, 128, "bfloat16", True, 100),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,hd,dtype,causal,window", BWD_CASES)
+def test_flash_backward_kernels_match_plain(B, S, H, Hkv, hd, dtype, causal,
+                                            window):
+    dev, dt = card(), getattr(torch, dtype)
+    rng = np.random.default_rng(8)
+    q, do = (randn(rng, (B, S, H, hd), dt, dev) for _ in range(2))
+    k, v = (randn(rng, (B, S, Hkv, hd), dt, dev) for _ in range(2))
+    before = dict(build.LAUNCHES)
+    o, lse = attention.flash_attention_fwd(q, k, v, causal, window,
+                                           with_lse=True)
+    got = attention.flash_attention_bwd(q, k, v, o, lse, do, causal, window)
+    assert {n: build.LAUNCHES[n] - before[n] for n in
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")} == \
+        {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    po, plse = attention.flash_attention_plain(q, k, v, causal, window,
+                                               with_lse=True)
+    want = attention.flash_attention_bwd_plain(q, k, v, po, plse, do, causal,
+                                               window)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-4)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        scale = max(1.0, w.float().abs().max().item())
+        torch.testing.assert_close(g.float(), w.float(),
+                                   atol=TOL[dtype] * scale, rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_training_backward_runs_the_kernels():
+    """Autograd through ``flash_attention`` on the card: one LSE forward,
+    one dQ and one dK/dV launch, and the plain twins' gradients."""
+    dev = card()
+    rng = np.random.default_rng(9)
+    q = randn(rng, (2, 96, 4, 32), torch.float32, dev).requires_grad_()
+    k = randn(rng, (2, 96, 2, 32), torch.float32, dev).requires_grad_()
+    v = randn(rng, (2, 96, 2, 32), torch.float32, dev).requires_grad_()
+    do = randn(rng, (2, 96, 4, 32), torch.float32, dev)
+    before = dict(build.LAUNCHES)
+    got = torch.autograd.grad(attention.flash_attention(q, k, v, window=40),
+                              (q, k, v), do)
+    assert build.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert build.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    want = torch.autograd.grad(
+        attention.flash_attention_plain(q, k, v, window=40), (q, k, v), do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)

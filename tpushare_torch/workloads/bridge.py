@@ -1,4 +1,4 @@
-"""Carry reference weights across: a numpy tree -> the port's tensors.
+"""Carry reference state across: numpy trees -> the port's tensors.
 
 The reference's parameters are a pytree of ``jax.Array`` leaves; the
 caller converts each leaf with ``np.asarray`` and hands the resulting
@@ -45,3 +45,12 @@ def params_from_numpy(tree, device: str | torch.device = "cuda"):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
+
+
+def adamw_state_from_numpy(mu, nu, count,
+                           device: str | torch.device = "cuda") -> dict:
+    """An optax AdamW state — its ``ScaleByAdamState`` moments ``mu`` and
+    ``nu`` (numpy trees shaped like the params) and its update ``count``
+    — as the port's optimizer state (``train.AdamW.init``'s layout)."""
+    return {"mu": params_from_numpy(mu, device),
+            "nu": params_from_numpy(nu, device), "count": int(count)}

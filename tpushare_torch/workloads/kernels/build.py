@@ -14,9 +14,10 @@ tests import every module of the port and have no ``nvcc``.
 ``build()`` compiles several at once, one ``nvcc`` process per source,
 all started together.
 
-``LAUNCHES`` counts kernel launches by name: each wrapper adds one
-exactly where it launches its kernel, so a run can show that the main
-path went through the kernels.
+``LAUNCHES`` counts kernel launches by kernel name (``KERNELS``; the
+``flash_bwd`` library holds two kernels): each wrapper adds one exactly
+where it launches its kernel, so a run can show that the main path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -32,28 +33,44 @@ from pathlib import Path
 
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
-SOURCES = {"flash_fwd": "flash_fwd.cu", "paged_decode": "paged_decode.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
+           "paged_decode": "paged_decode.cu"}
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# exported entry point and its argument types, per kernel
+# exported entry points and their argument types, per library
 _SIGNATURES = {
-    # q, k, v, o, B, S, H, Hkv, hd, causal, is_bf16, scale, stream
-    "flash_fwd": ("tpushare_flash_fwd",
-                  [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    # q, k, v, o, lse (null = none), B, S, H, Hkv, hd, causal, window,
+    # is_bf16, scale, stream
+    "flash_fwd": {"tpushare_flash_fwd":
+                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                   _P]},
+    "flash_bwd": {
+        # q, k, v, dout, lse, delta, dq, B, S, H, Hkv, hd, causal, window,
+        # is_bf16, scale, stream
+        "tpushare_flash_bwd_dq":
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+             _P],
+        # q, k, v, dout, lse, delta, dk, dv, B, S, H, Hkv, hd, causal,
+        # window, is_bf16, scale, stream
+        "tpushare_flash_bwd_dkv":
+            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+             _F, _P]},
     # q, kp, vp, tables, table_stride, n_table, kv_lens, o,
     # B, H, Hkv, hd, page_size, is_bf16, scale, stream
-    "paged_decode": ("tpushare_paged_decode",
+    "paged_decode": {"tpushare_paged_decode":
                      [_P, _P, _P, _P, _I, _I, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _F, _P]),
+                      _I, _I, _I, _I, _I, _I, _F, _P]},
 }
 
 # return code of an entry point asked for a shape/dtype it has no
 # instantiation for (anything else non-zero is a cudaError_t)
 UNSUPPORTED = -1
 
-LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
+# launch counters, one per kernel (the flash_bwd library holds two)
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_decode")
+LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -130,10 +147,10 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             lib.tpushare_cuda_error.argtypes = [ctypes.c_int]
             lib.tpushare_cuda_error.restype = ctypes.c_char_p
             _libs[name] = lib

@@ -1,13 +1,20 @@
-// Causal flash-attention forward for Hopper (sm_90a).
+// Flash-attention forward for Hopper (sm_90a).
 //
 // Replaces tpushare/workloads/ops/attention.py::_fwd_kernel (reached
-// through _flash_fwd_rows and the public flash_attention), forward only:
-// no LSE output and no sliding window in this version.
+// through _flash_fwd_rows and the public flash_attention), with its
+// optional LSE output and its sliding-window band.
 //
 // What it computes, per query head row (b, h) of q (B, S, H, hd) against
-// k/v (B, S, Hkv, hd): softmax(q k^T * hd^-0.5 masked causal) v, with the
-// masked scores set to the finite -1e30 as the reference does, the
-// running max / sum / accumulator in fp32, and the output in q's dtype.
+// k/v (B, S, Hkv, hd): softmax(q k^T * hd^-0.5 masked) v, causal or
+// full, with the masked scores set to the finite -1e30 as the reference
+// does, the running max / sum / accumulator in fp32, and the output in
+// q's dtype. When ``lse`` is not null it also writes each row's
+// log-sum-exp m + log(l) as fp32 into a (B, H, S) array: the residual
+// the backward kernels (flash_bwd.cu) recompute probabilities from.
+// ``window`` > 0 (causal only) keeps key j for query i when
+// i - window < j <= i: the K loop then runs over the band's tiles only,
+// [max(q0 - window + 1, 0) / BN, q_last / BN], which is what the
+// reference's compact banded grid computes.
 // GQA is native: head h reads K/V head h / (H / Hkv), nothing repeated.
 // The tensors stay in the model's (B, S, heads, hd) layout; the kernel
 // computes its own offsets, so the wrapper makes no transposed copies.
@@ -18,8 +25,10 @@
 // block of the score tile and a 4 x (hd/16) block of the accumulator,
 // rows reduced across the 16 threads that share them with warp
 // shuffles. The K/V loop stops at the causal diagonal (block-level skip,
-// as the reference's _block_live); a partial last tile is masked, so any
-// S works. Query tiles launch heaviest first.
+// as the reference's _block_live) and, with a window, starts at the
+// band's first tile; a partial last tile is masked, so any S works.
+// Query tiles launch heaviest first. Head dims 16, 32, 64, 96 and 128
+// (every config of the repo) are instantiated.
 //
 // Bound on this card: at the forward's shapes (S <= 2048, hd 128) the
 // causal FLOPs over bf16 tensor-core peak exceed the bytes over HBM
@@ -62,8 +71,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                     int Hkv, int causal, float scale) {
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int S, int H, int Hkv,
+                     int causal, int window, float scale) {
   constexpr int QS = HD + 1;
   constexpr int PS = BN + 1;
   constexpr int DJ = HD / 16;   // accumulator columns per thread
@@ -105,8 +115,10 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   const int q_last = min(q0 + BM, S) - 1;
-  const int n_tiles = causal ? q_last / BN + 1 : (S + BN - 1) / BN;
-  for (int t = 0; t < n_tiles; ++t) {
+  const int t_first =
+      causal && window > 0 ? max(q0 - window + 1, 0) / BN : 0;
+  const int t_end = causal ? q_last / BN + 1 : (S + BN - 1) / BN;
+  for (int t = t_first; t < t_end; ++t) {
     const int k0 = t * BN;
     __syncthreads();   // the previous tile's readers are done
     for (int i = tid; i < BN * HD; i += THREADS) {
@@ -146,7 +158,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kj = k0 + tx + 16 * j;
-        const bool keep = kj < S && (!causal || kj <= qi);
+        const bool keep = kj < S && (!causal || (kj <= qi &&
+                                   (window <= 0 || kj > qi - window)));
         s[i][j] = keep ? s[i][j] * scale : MASKED;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -194,14 +207,16 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int j = 0; j < DJ; ++j)
         ob[(size_t)qi * q_step + tx + 16 * j] = from_f32<T>(acc[i][j] / l[i]);
+      if (lse != nullptr && tx == 0)
+        lse[(size_t)row * S + qi] = m[i] + logf(l[i]);
     }
   }
 }
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int H, int Hkv, int causal, float scale,
-                   cudaStream_t stream) {
+                   float* lse, int B, int S, int H, int Hkv, int causal,
+                   int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -210,34 +225,48 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + BM - 1) / BM, B * H);
   flash_fwd_kernel<T, HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, Hkv, causal,
-      scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, Hkv, causal,
+      window, scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int S, int H, int Hkv, int hd, int causal,
+             int window, float scale, cudaStream_t st) {
+  switch (hd) {
+    case 16: return launch<T, 16>(q, k, v, o, lse, B, S, H, Hkv, causal,
+                                  window, scale, st);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, S, H, Hkv, causal,
+                                  window, scale, st);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, S, H, Hkv, causal,
+                                  window, scale, st);
+    case 96: return launch<T, 96>(q, k, v, o, lse, B, S, H, Hkv, causal,
+                                  window, scale, st);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, S, H, Hkv, causal,
+                                    window, scale, st);
+  }
+  return -1;
 }
 
 }  // namespace
 
+// lse: null, or fp32 (B, H, S); window: 0 = none (causal only)
 extern "C" int tpushare_flash_fwd(const void* q, const void* k,
-                                  const void* v, void* o, int B, int S,
-                                  int H, int Hkv, int hd, int causal,
-                                  int is_bf16, float scale, void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || B * H > 65535)
+                                  const void* v, void* o, void* lse, int B,
+                                  int S, int H, int Hkv, int hd, int causal,
+                                  int window, int is_bf16, float scale,
+                                  void* stream) {
+  if (B < 1 || S < 1 || Hkv < 1 || H % Hkv != 0 || B * H > 65535 ||
+      window < 0 || (window > 0 && !causal))
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (hd == 64)
-      return launch<__nv_bfloat16, 64>(q, k, v, o, B, S, H, Hkv, causal,
-                                       scale, st);
-    if (hd == 128)
-      return launch<__nv_bfloat16, 128>(q, k, v, o, B, S, H, Hkv, causal,
-                                        scale, st);
-  } else {
-    if (hd == 64)
-      return launch<float, 64>(q, k, v, o, B, S, H, Hkv, causal, scale, st);
-    if (hd == 128)
-      return launch<float, 128>(q, k, v, o, B, S, H, Hkv, causal, scale, st);
-  }
-  return -1;
+  float* l = static_cast<float*>(lse);
+  if (is_bf16)
+    return dispatch<__nv_bfloat16>(q, k, v, o, l, B, S, H, Hkv, hd, causal,
+                                   window, scale, st);
+  return dispatch<float>(q, k, v, o, l, B, S, H, Hkv, hd, causal, window,
+                         scale, st);
 }
 
 extern "C" const char* tpushare_cuda_error(int code) {

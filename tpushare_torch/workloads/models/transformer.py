@@ -10,10 +10,15 @@ reference's pytree layout, so weights cross over leaf for leaf
 (``workloads/bridge.py``).
 
 Attention goes through the port's kernel registry (``ops/registry.py``):
-on a CUDA tensor the registry picks the hand-written flash-forward
-kernel where the reference would pick a Pallas kernel, and on a CPU
-tensor (the tests) the plain-PyTorch twin, which is the reference's fp32
-einsum branch op for op.
+on a CUDA tensor the registry picks the hand-written flash kernels
+(forward, and the dQ / dK/dV backward when a gradient is taken) where
+the reference would pick a Pallas kernel, and on a CPU tensor (the
+tests) the plain-PyTorch twin, which is the reference's fp32 einsum
+branch op for op.
+
+``loss_fn`` is the reference's training loss; ``cfg.remat`` recomputes
+each layer in the backward (``torch.utils.checkpoint``), the counterpart
+of the reference's ``jax.checkpoint`` around the scanned layer.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from tpushare_torch.device import resolve_device
 from tpushare_torch.workloads.ops.attention import flash_attention_plain
@@ -33,10 +39,9 @@ from tpushare_torch.workloads.ops.registry import (KIND_PREFILL,
 class TransformerConfig:
     """Every field of the reference's ``TransformerConfig`` with the same
     name, default and meaning; ``dtype`` is a torch dtype. Fields whose
-    machinery lies outside this slice of the port (``remat``,
-    ``kv_int8``, ``attn_window`` on the kernel path, ``ragged_decode``)
-    are carried so configs compare field for field; the entry points
-    that cannot serve them reject them."""
+    machinery lies outside the ported slices (``kv_int8``,
+    ``ragged_decode``) are carried so configs compare field for field;
+    the entry points that cannot serve them reject them."""
 
     vocab: int = 2048
     d_model: int = 256
@@ -99,8 +104,7 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
     if generator.device.type != dev.type:
         raise ValueError(f"generator lives on {generator.device}, params on "
                          f"{dev}: draw the weights where they are used")
-    L, D, F_, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
-    KD = cfg.kv_dim
+    shapes = param_shapes(cfg)
 
     def dense(shape, fan_in):
         w = torch.randn(shape, generator=generator, device=dev,
@@ -110,21 +114,32 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig,
     def ones(shape):
         return torch.ones(shape, device=dev, dtype=cfg.dtype)
 
+    # draws in the order embed, the layer matrices (fan-in = dim 1), out
+    embed = dense(shapes["embed"], cfg.d_model)
+    layers = {name: ones(shape) if name.startswith("ln")
+              else dense(shape, shape[1])
+              for name, shape in shapes["layers"].items()}
     return {
-        "embed": dense((V, D), D),
+        "embed": embed,
+        "layers": layers,
+        "norm_f": ones(shapes["norm_f"]),
+        "out": dense(shapes["out"], cfg.d_model),
+    }
+
+
+def param_shapes(cfg: TransformerConfig) -> dict:
+    """The parameter dict's tree of shapes, without allocating."""
+    L, D, F_, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
+    KD = cfg.kv_dim
+    return {
+        "embed": (V, D),
         "layers": {
-            "wq": dense((L, D, D), D),
-            "wk": dense((L, D, KD), D),
-            "wv": dense((L, D, KD), D),
-            "wo": dense((L, D, D), D),
-            "w1": dense((L, D, F_), D),
-            "w3": dense((L, D, F_), D),
-            "w2": dense((L, F_, D), F_),
-            "ln1": ones((L, D)),
-            "ln2": ones((L, D)),
+            "wq": (L, D, D), "wk": (L, D, KD), "wv": (L, D, KD),
+            "wo": (L, D, D), "w1": (L, D, F_), "w3": (L, D, F_),
+            "w2": (L, F_, D), "ln1": (L, D), "ln2": (L, D),
         },
-        "norm_f": ones((D,)),
-        "out": dense((D, V), D),
+        "norm_f": (D,),
+        "out": (D, V),
     }
 
 
@@ -221,20 +236,54 @@ def layer_block(x: torch.Tensor, lp: dict, cfg: TransformerConfig,
     return x, aux
 
 
-def forward(params: dict, tokens: torch.Tensor,
-            cfg: TransformerConfig) -> torch.Tensor:
-    """tokens (B, S) int -> logits (B, S, vocab) float32."""
+def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+            attn_fn=None,
+            positions: torch.Tensor | None = None) -> torch.Tensor:
+    """tokens (B, S) int -> logits (B, S, vocab) float32.
+
+    ``attn_fn(q, k, v) -> o`` overrides the attention core, and
+    ``positions`` (S,) overrides each slot's RoPE position — the
+    reference's hooks, with its meaning. With ``cfg.remat`` and a
+    gradient being taken, each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant): the backward recomputes
+    it from its input instead of keeping its intermediates."""
     S = tokens.shape[1]
     cos, sin = rope_tables(cfg, S, tokens.device)
+    if positions is not None:
+        cos, sin = cos[positions], sin[positions]
 
     def attn_core(q, k, v):
+        if attn_fn is not None:
+            return attn_fn(q, k, v), None
         return attention(q, k, v, cfg), None
 
+    def layer(x, lp):
+        return layer_block(x, lp, cfg, cos, sin, attn_core)[0]
+
+    # unbind, not per-layer indexing: its backward stacks the layers'
+    # gradients once instead of scattering each into a zeroed full stack
+    stacks = {name: w.unbind(0) for name, w in params["layers"].items()}
+    remat = cfg.remat and torch.is_grad_enabled()
     x = embed_lookup(params["embed"], tokens)
     for i in range(cfg.n_layers):
-        x, _ = layer_block(x, layer_params(params, i), cfg, cos, sin,
-                           attn_core)
+        lp = {name: ws[i] for name, ws in stacks.items()}
+        x = (checkpoint(layer, x, lp, use_reentrant=False) if remat
+             else layer(x, lp))
     return lm_head(params, x)
+
+
+def loss_fn(params: dict, inputs: torch.Tensor, targets: torch.Tensor,
+            cfg: TransformerConfig, attn_fn=None,
+            positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean cross entropy of (B, S) targets given (B, S) inputs, from
+    fp32 logits through an fp32 log-softmax, as the reference computes
+    it. Inputs and targets keep identical shapes (callers shift
+    outside)."""
+    logits = forward(params, inputs, cfg, attn_fn=attn_fn,
+                     positions=positions)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    return -ll.mean()
 
 
 def embed_lookup(e: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -34,12 +34,13 @@ import threading
 from typing import Any, Callable
 
 from tpushare_torch import consts
-from tpushare_torch.workloads.ops.attention import (flash_attention,
+from tpushare_torch.workloads.ops.attention import (check_window,
+                                                    flash_attention,
                                                     flash_attention_plain)
 from tpushare_torch.workloads.ops.paged_attention import (paged_decode,
                                                           xla_paged_read)
 
-IMPL_FLASH = "flash"      # kernels/flash_fwd.cu
+IMPL_FLASH = "flash"      # kernels/flash_fwd.cu, flash_bwd.cu
 IMPL_SPLASH = "splash"    # no Hopper counterpart yet
 IMPL_PAGED = "paged"      # kernels/paged_decode.cu
 IMPL_RAGGED = "ragged"    # no Hopper counterpart yet
@@ -165,15 +166,13 @@ def decide(kind: str, *, seq: int | None = None, window: int | None = None,
         raise KernelUnavailable(
             IMPL_FLASH, kind, f"the flash kernel needs a CUDA device "
             f"(platform {platform!r})")
-    if window is not None:
-        raise KernelUnavailable(
-            IMPL_FLASH, kind, "the flash kernel's sliding-window grid is "
-            "not ported yet", advice="pin attn_impl='xla' to run the "
-            "plain path on the card")
     if impl == IMPL_FLASH:
         return IMPL_FLASH, "explicit:flash"
-    # auto/kernel: the kernel serves any S, GQA and head_dim; the one
-    # distinct row marks where the reference would run splash
+    # auto/kernel: the kernel serves any S, GQA, head_dim and window; the
+    # distinct rows mark the banded grid and where the reference would
+    # run splash
+    if window is not None:
+        return IMPL_FLASH, "window:flash-banded"
     if (seq is not None and seq >= SPLASH_MIN_SEQ and n_kv_heads == n_heads
             and head_dim is not None and head_dim % SPLASH_HEAD_DIM == 0):
         return IMPL_FLASH, "longctx:flash-for-splash"
@@ -192,7 +191,9 @@ def select_attention(kind: str, *, seq: int | None = None,
                      causal: bool = True) -> KernelChoice:
     """Run :func:`decide` and return the ready-to-call implementation;
     an ``auto`` degradation to the plain path is recorded against the
-    kernel the table would otherwise have taken."""
+    kernel the table would otherwise have taken. A window without causal
+    masking raises, whatever the implementation."""
+    check_window(causal, window)
     chosen, reason = decide(kind, seq=seq, window=window, n_heads=n_heads,
                             n_kv_heads=n_kv_heads, head_dim=head_dim,
                             platform=platform, impl=impl)
@@ -200,7 +201,7 @@ def select_attention(kind: str, *, seq: int | None = None,
         record_fallback(IMPL_FLASH if kind == KIND_PREFILL else IMPL_PAGED,
                         reason)
     if kind == KIND_PREFILL and chosen == IMPL_FLASH:
-        fn = functools.partial(flash_attention, causal=causal)
+        fn = functools.partial(flash_attention, causal=causal, window=window)
     elif kind == KIND_PREFILL:
         fn = functools.partial(flash_attention_plain, causal=causal,
                                window=window)
