@@ -51,9 +51,20 @@ REPO = Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet, dense: HBM3 bandwidth and peak rates
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-# kernel vs plain twin: bf16 outputs round once at the end of a tiled
-# online softmax vs an einsum/softmax chain; fp32 only reorders sums
+# paged kernel vs plain twin: bf16 outputs round once at the end of a
+# tiled online softmax vs an einsum/softmax chain; fp32 only reorders sums
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# flash forward vs plain twin, element by element as a share of
+# max(|want|, FWD_FLOOR x the output's largest magnitude). Both sides
+# compute in fp32 and round once to the output dtype, so a sound bf16
+# kernel differs by at most one bf16 ulp, 2^-7 of the value; fp32 only
+# reorders sums. The control — the kernel's output rounded to
+# CONTROL_BITS_FWD significant bits (bf16 keeps 8) — must land above
+# the bf16 limit, which shows the check tells a kernel that loses
+# precision anywhere in the output, not only at its largest entries.
+FWD_TOL = {"bfloat16": 1e-2, "float32": 1e-3}
+FWD_FLOOR = 2 ** -8
+CONTROL_BITS_FWD = 6
 # the forward's LSE is fp32 from the same fp32 scores on both sides
 LSE_TOL = 1e-4
 # backward kernels vs the plain backward, as a share of each gradient's
@@ -142,6 +153,16 @@ def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def elem_rel_err(got, want) -> float:
+    """Largest |got - want| as a share of max(|want|, FWD_FLOOR x the
+    largest |want|)."""
+    import torch
+    want = want.float()
+    floor = FWD_FLOOR * want.abs().max()
+    return ((got.float() - want).abs()
+            / torch.maximum(want.abs(), floor)).max().item()
+
+
 def check_close(label: str, got, want, dtype: str) -> float:
     import torch
     tol = TOL[dtype]
@@ -190,6 +211,7 @@ def flash_cases(torch):
         ("train-window", 8, 1024, 16, 16, 96, "bfloat16", 256, True),
         ("train-gqa", 8, 1024, 16, 4, 96, "bfloat16", None, True),
         ("train-f32", 2, 1024, 16, 16, 96, "float32", None, True),
+        ("train-remat", 8, 2048, 16, 16, 96, "bfloat16", None, True),
         ("payload-hd16", 8, 64, 8, 8, 16, "bfloat16", None, True),
         ("hd96", 2, 512, 16, 16, 96, "bfloat16", None, False),
     ]
@@ -218,8 +240,19 @@ def flash_cases(torch):
                 raise RuntimeError(f"flash {label}: lse differs by "
                                    f"{lse_err} > {LSE_TOL}")
             extra = dict(lse_max_abs_err=lse_err)
-        err = check_close(f"flash {label} {B}x{S}x{H}/{Hkv}x{hd} {dtype}",
-                          got, want, dtype)
+        tol = FWD_TOL[dtype]
+        rel = elem_rel_err(got, want)
+        if not rel <= tol:
+            raise RuntimeError(f"flash {label} {B}x{S}x{H}/{Hkv}x{hd} "
+                               f"{dtype}: {rel} of the value > {tol}")
+        if dtype == "bfloat16":
+            for b in (7, CONTROL_BITS_FWD):
+                extra[f"control_rel_err_b{b}"] = elem_rel_err(
+                    round_to_bits(torch, got, b), want)
+            if not extra[f"control_rel_err_b{CONTROL_BITS_FWD}"] > tol:
+                raise RuntimeError(f"flash {label}: the {CONTROL_BITS_FWD}"
+                                   "-bit control passes the forward check")
+        err = max_err(got, want)
         ms = time_ms(kernel)
         plain_ms = time_ms(plain)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -234,7 +267,8 @@ def flash_cases(torch):
         flops = 4 * B * H * hd * live_pairs(S, True, window)
         bms, by = bound_ms(n_bytes, flops, dtype)
         row = dict(case=label, B=B, S=S, H=H, Hkv=Hkv, hd=hd, dtype=dtype,
-                   window=window, lse=with_lse, max_abs_err=err, **extra,
+                   window=window, lse=with_lse, max_abs_err=err,
+                   rel_err=rel, tol=tol, **extra,
                    ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
                    bound_ms=bms, bound_by=by)
         phase("flash-vs-plain", **row)
@@ -252,7 +286,7 @@ def bwd_cases(torch):
     ``flash_attention_plain``; times each kernel alone, the plain
     backward, and SDPA's backward as the library yardstick."""
     from tpushare_torch.workloads.ops.attention import (
-        flash_attention_bwd_plain, flash_attention_fwd,
+        bwd_delta, flash_attention_bwd_plain, flash_attention_fwd,
         flash_attention_plain, flash_bwd_dkv, flash_bwd_dq)
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -260,6 +294,8 @@ def bwd_cases(torch):
         ("main-path", TRAIN_B, TRAIN_S, 16, 16, 96, "bfloat16", True, None),
         ("gqa-16:4", TRAIN_B, TRAIN_S, 16, 4, 96, "bfloat16", True, None),
         ("window-256", TRAIN_B, TRAIN_S, 16, 16, 96, "bfloat16", True, 256),
+        ("train-remat", TRAIN_B, 2 * TRAIN_S, 16, 16, 96, "bfloat16", True,
+         None),
         ("full", 2, TRAIN_S, 16, 16, 96, "bfloat16", False, None),
         ("f32", 2, TRAIN_S, 16, 16, 96, "float32", True, None),
         ("odd-S", 2, 300, 16, 16, 96, "bfloat16", True, None),
@@ -274,7 +310,7 @@ def bwd_cases(torch):
         q, k, v, do = rn(B, S, H, hd), rn(B, S, Hkv, hd), rn(B, S, Hkv, hd), \
             rn(B, S, H, hd)
         o, lse = flash_attention_fwd(q, k, v, causal, window, with_lse=True)
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        delta = bwd_delta(do, o)
 
         def dq_kernel():
             return flash_bwd_dq(q, k, v, do, lse, delta, causal, window)
@@ -825,6 +861,7 @@ def main() -> int:
 
     flash_rows = flash_cases(torch)
     bwd_rows = bwd_cases(torch)
+    torch.cuda.empty_cache()    # the S=2048 plain twins' score matrices
     paged_rows = paged_cases(torch)
     paths = {}
     paths["forward"], _, _ = forward_path(torch, build, infer)

@@ -30,6 +30,8 @@ from tpushare_torch.workloads import bridge, train  # noqa: E402
 from tpushare_torch.workloads import train_payload  # noqa: E402
 from tpushare_torch.workloads.checkpoint import TrainCheckpointer  # noqa: E402
 from tpushare_torch.workloads.models import transformer as tt  # noqa: E402
+from tpushare_torch.workloads.ops.attention import (  # noqa: E402
+    flash_attention_plain)
 
 # fp32: summation order only. bf16: parameters, gradients and AdamW
 # moments are all bf16 (optax keeps mu/nu in the params' dtype), and the
@@ -102,6 +104,59 @@ def test_loss_fn_matches(dtype, kw):
                      torch.from_numpy(targets), tcfg)
     assert got.dtype == torch.float32 and got.dim() == 0
     assert abs(got.item() - ref) <= TOL[dtype] * max(1.0, abs(ref))
+
+
+def j_full_attention(q, k, v):
+    """Non-causal attention in JAX: the attn_fn hook of the tests."""
+    s = jnp.einsum("bqhd,bkhd->bhqk", q.astype(jnp.float32),
+                   k.astype(jnp.float32)) * q.shape[-1] ** -0.5
+    p = jax.nn.softmax(s, axis=-1)
+    return jnp.einsum("bhqk,bkhd->bqhd", p,
+                      v.astype(jnp.float32)).astype(q.dtype)
+
+
+def t_full_attention(q, k, v):
+    return flash_attention_plain(q, k, v, causal=False)
+
+
+@pytest.mark.parametrize("hooks", ["attn_fn", "positions", "both"])
+def test_loss_fn_hooks_match_the_reference(hooks):
+    """``attn_fn`` replaces the attention core and ``positions`` each
+    slot's RoPE position, as in the reference; with full attention,
+    permuting the tokens together with their positions keeps the loss."""
+    jcfg, tcfg = configs("float32")
+    jparams = jt.init_params(jax.random.key(8), jcfg)
+    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                       device="cpu")
+    inputs, targets = batch(9)
+    perm = np.random.default_rng(9).permutation(S).astype(np.int32)
+    jkw, tkw = {}, {}
+    if hooks in ("attn_fn", "both"):
+        jkw["attn_fn"], tkw["attn_fn"] = j_full_attention, t_full_attention
+    if hooks in ("positions", "both"):
+        inputs, targets = inputs[:, perm], targets[:, perm]
+        jkw["positions"] = jnp.asarray(perm)
+        tkw["positions"] = torch.from_numpy(perm).long()
+    ref = float(jt.loss_fn(jparams, jnp.asarray(inputs),
+                           jnp.asarray(targets), jcfg, **jkw))
+    leaves = train.tree_map(lambda p: p.requires_grad_(), tparams)
+    got = tt.loss_fn(leaves, torch.from_numpy(inputs),
+                     torch.from_numpy(targets), tcfg, **tkw)
+    assert abs(got.item() - ref) <= TOL["float32"] * max(1.0, abs(ref))
+    with torch.no_grad():
+        unhooked = tt.loss_fn(tparams, *map(torch.from_numpy, batch(9)),
+                              tcfg)
+        full = tt.loss_fn(tparams, *map(torch.from_numpy, batch(9)), tcfg,
+                          attn_fn=t_full_attention)
+    assert abs(got.item() - unhooked.item()) > 10 * TOL["float32"]
+    if hooks == "both":
+        assert abs(got.item() - full.item()) <= TOL["float32"]
+    # the hooks carry a gradient: the reference's, through the same hooks
+    jgrads = jax.grad(jt.loss_fn)(jparams, jnp.asarray(inputs),
+                                  jnp.asarray(targets), jcfg, **jkw)
+    got.backward()
+    assert_tree_close(train.tree_map(lambda p: p.grad, leaves),
+                      np_tree(jgrads), 1e-4, "grads")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

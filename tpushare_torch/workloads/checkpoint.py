@@ -4,7 +4,8 @@
 Checkpointing belongs to the workload: a training pod that the binpacker
 evicts and replaces must resume from its last save. The interface is the
 reference's (``save``, ``latest_step``, ``restore``, ``close``, the last
-``max_to_keep`` saves kept). The format is the port's own: one
+``max_to_keep`` saves kept), except that ``restore`` always loads the
+newest save. The format is the port's own: one
 ``torch.save`` file per step, ``step_<n>.pt``, holding
 ``{"params", "opt", "step"}``, written to a temporary name and moved into
 place with ``os.replace`` so a pod killed mid-save never leaves a torn
@@ -64,14 +65,12 @@ class TrainCheckpointer:
         return steps[-1] if steps else None
 
     def restore(self, cfg: TransformerConfig,
-                device: str | torch.device = "cuda",
-                step: int | None = None) -> dict:
-        """Load a saved state onto ``device`` (the newest by default) and
-        check it against ``cfg``: every parameter and moment must have
-        the config's shape and dtype."""
+                device: str | torch.device = "cuda") -> dict:
+        """Load the newest saved state onto ``device`` and check it
+        against ``cfg``: every parameter and moment must have the
+        config's shape and dtype."""
         dev = resolve_device(device)
-        if step is None:
-            step = self.latest_step()
+        step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         state = torch.load(self._path(step), map_location=dev,

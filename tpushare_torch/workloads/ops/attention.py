@@ -86,6 +86,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, torch.logsumexp(logits, dim=-1)
 
 
+def bwd_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O): the backward's fp32 (B, H, S) row term,
+    one definition for the kernels' path and the plain backward."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, o: torch.Tensor,
                               lse: torch.Tensor, do: torch.Tensor,
@@ -111,7 +117,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     mask = _mask(S, q.device, causal, window)
     if mask is not None:
         p = torch.where(mask, p, 0.0)
-    delta = (dof * o.float()).sum(-1).transpose(1, 2)          # (B, H, S)
+    delta = bwd_delta(do, o)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     ds = p * (dp - delta[..., None])
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
@@ -235,7 +241,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
                                          window=window)
     # autograd may hand a strided gradient; the kernels read dense rows
     do = do.contiguous()
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    delta = bwd_delta(do, o)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, window)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, window)
     return dq, dk, dv

@@ -181,8 +181,15 @@ def loss_and_grads(params: dict, inputs: torch.Tensor,
     return loss.detach(), tree_map(lambda _: next(grads), leaves)
 
 
-def _make_step_body(cfg: TransformerConfig, optimizer: AdamW, device,
-                    ring_attention: bool, accum_steps: int):
+def make_train_step(cfg: TransformerConfig, optimizer: AdamW,
+                    device="cuda", ring_attention: bool = False,
+                    accum_steps: int = 1):
+    """Returns ``step(state, inputs, targets) -> (state, loss)``, which
+    updates ``state`` in place and returns it with the step's mean loss
+    (a 0-d fp32 tensor on the device). ``accum_steps > 1`` runs that many
+    microbatches with fp32 gradient accumulators before the one update.
+    ``device`` is the card by default; a list of more than one device,
+    or ``ring_attention=True``, raises (ROADMAP A.10)."""
     if ring_attention:
         raise NotImplementedError(
             "ring attention (sequence-parallel over a mesh) is not ported "
@@ -225,25 +232,12 @@ def _make_step_body(cfg: TransformerConfig, optimizer: AdamW, device,
     return body
 
 
-def make_train_step(cfg: TransformerConfig, optimizer: AdamW,
-                    device="cuda", ring_attention: bool = False,
-                    accum_steps: int = 1):
-    """Returns ``step(state, inputs, targets) -> (state, loss)``, which
-    updates ``state`` in place and returns it with the step's mean loss
-    (a 0-d fp32 tensor on the device). ``accum_steps > 1`` runs that many
-    microbatches with fp32 gradient accumulators before the one update.
-    ``device`` is the card by default; a list of more than one device,
-    or ``ring_attention=True``, raises (ROADMAP A.10)."""
-    return _make_step_body(cfg, optimizer, device, ring_attention,
-                           accum_steps)
-
-
 def make_train_loop(cfg: TransformerConfig, optimizer: AdamW, device,
                     n_steps: int, ring_attention: bool = False,
                     accum_steps: int = 1):
     """Returns ``loop(state, inputs, targets) -> (state, losses)``:
     ``n_steps`` optimizer steps on the same batch, losses (n_steps,)."""
-    body = _make_step_body(cfg, optimizer, device, ring_attention,
+    body = make_train_step(cfg, optimizer, device, ring_attention,
                            accum_steps)
 
     def loop(state: dict, inputs: torch.Tensor, targets: torch.Tensor):
