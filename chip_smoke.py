@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (flash forward, flash backward dQ and
-dK/dV, paged decode) from the sources in this checkout, holds each
-against its plain-PyTorch twin at the shapes the main paths give it,
-then drives the main paths through their entry points at full width
-(random weights from a seed):
+dK/dV, paged decode, ragged decode) from the sources in this checkout,
+holds each against its plain-PyTorch twin at the shapes the main paths
+give it, then drives the main paths through their entry points at full
+width (random weights from a seed):
 
 - ``infer --mode forward`` at the flagship preset (1.2B; batch 8,
   seq 128) — flash-forward kernel;
@@ -16,6 +16,11 @@ then drives the main paths through their entry points at full width
 - ``infer --mode serve --paged`` (16 requests, 8 lanes, prompt 128, up
   to 128 new tokens, greedy) — paged-decode kernel, one launch per layer
   per decode step;
+- ``infer --mode serve`` (the slot engine: 16 requests, 4 slots, same
+  traffic) — the dense einsum read, no kernel; ``serve --ragged`` — the
+  ragged-decode kernel, one launch per layer per decode step;
+  ``serve --window 128 --ring-rows 256`` (8 requests of up to 384 new
+  tokens) — a ring cache that wraps;
 - ``train``: 6 steps of ``train.make_train_step`` at the reference's
   training preset (0.55B: d_model 1536, 16 heads of 96, 12 layers;
   batch 8 x seq 1024) — per step and layer one flash forward with LSE,
@@ -449,6 +454,112 @@ def paged_cases(torch):
 
 
 # ---------------------------------------------------------------------------
+# the ragged decode read (K4) against its plain twin
+# ---------------------------------------------------------------------------
+
+def ragged_lengths(torch, gen, label, B, S):
+    """The rows' live lengths: uniform in [0, S) for the serve and f32
+    rows; for the long-cache rows ~27% of S on average, as in the
+    reference's probe, with one row at length 0 (one live row) and one
+    at S - 1."""
+    if label in ("long", "gqa"):
+        lens = torch.randint(0, int(0.4 * S), (B,), generator=gen,
+                             device="cuda")
+        lens[0], lens[1] = 0, S - 1
+    else:
+        lens = torch.randint(0, S, (B,), generator=gen, device="cuda")
+    return lens.to(torch.int32)
+
+
+def ragged_cases(torch):
+    """K4 against ``ragged_decode_plain`` at the ``serve --ragged`` shape
+    and at long caches (element by element, with a rounding control),
+    timed beside its bound, the twin and SDPA with a boolean mask; then
+    the capacity row: the long row's live rows in a 4096-row and a
+    16384-row cache give bitwise-equal outputs."""
+    from tpushare_torch.workloads.ops.ragged_decode import (
+        ragged_decode_attention, ragged_decode_plain)
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    hd = 128
+    cases = [  # (label, B, S, H, Hkv, dtype)
+        ("serve", 4, 256, 16, 16, "bfloat16"),
+        ("long", 8, 16384, 16, 16, "bfloat16"),
+        ("gqa", 8, 16384, 16, 4, "bfloat16"),
+        ("f32", 4, 4096, 16, 16, "float32"),
+    ]
+    rows, long_inputs = [], None
+    for label, B, S, H, Hkv, dtype in cases:
+        dt = getattr(torch, dtype)
+
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dt)
+        q, k, v = rn(B, H, hd), rn(B, S, Hkv, hd), rn(B, S, Hkv, hd)
+        lens = ragged_lengths(torch, gen, label, B, S)
+        if label == "long":
+            long_inputs = (q, k, v)
+
+        def kernel():
+            return ragged_decode_attention(q, k, v, lens)
+
+        def plain():
+            return ragged_decode_plain(q, k, v, lens)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        tol = FWD_TOL[dtype]
+        rel = elem_rel_err(got, want)
+        control = elem_rel_err(round_to_bits(torch, got, CONTROL_BITS_FWD),
+                               want)
+        if not rel <= tol:
+            raise RuntimeError(f"ragged {label} {B}x{S}x{H}/{Hkv} {dtype}: "
+                               f"{rel} of the value > {tol}")
+        if not control > tol:
+            raise RuntimeError(f"ragged {label}: the {CONTROL_BITS_FWD}-bit "
+                               "control passes the check")
+        mask = (torch.arange(S, device="cuda")[None, :]
+                <= lens[:, None])[:, None, None, :]          # (B, 1, 1, S)
+        qt, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain)
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=Hkv != H))
+        live = int((lens.long() + 1).clamp(max=S).sum().item())
+        elem = q.element_size()
+        kv_bytes = 2 * live * Hkv * hd * elem
+        n_bytes = kv_bytes + 2 * q.numel() * elem + 4 * B
+        bms, by = bound_ms(n_bytes, 4 * H * hd * live, dtype)
+        row = dict(case=label, B=B, S=S, H=H, Hkv=Hkv, hd=hd, dtype=dtype,
+                   live_rows=live, fill=live / (B * S), live_kv_bytes=kv_bytes,
+                   max_abs_err=max_err(got, want), rel_err=rel, tol=tol,
+                   control_rel_err_b6=control, ms=ms, plain_ms=plain_ms,
+                   library_ms=sdpa_ms, bound_ms=bms, bound_by=by,
+                   gb_per_s=n_bytes / (ms * 1e-3) / 1e9)
+        phase("ragged-vs-plain", **row)
+        rows.append(row)
+    # capacity: every length < 4096, the same live rows in both caches
+    q, k, v = long_inputs
+    B, S = k.shape[:2]
+    small = 4096
+    lens = ragged_lengths(torch, gen, "serve", B, small)
+    lens[0], lens[1] = 0, small - 1
+    big_out = ragged_decode_attention(q, k, v, lens)
+    k4, v4 = k[:, :small].contiguous(), v[:, :small].contiguous()
+    small_out = ragged_decode_attention(q, k4, v4, lens)
+    torch.cuda.synchronize()
+    if not torch.equal(big_out, small_out):
+        raise RuntimeError("ragged capacity: the same live rows in a 4096- "
+                           "and a 16384-row cache differ "
+                           f"({max_err(big_out, small_out)})")
+    phase("ragged-vs-plain", case="capacity", B=B, S_small=small, S_big=S,
+          bitwise_equal=True, max_len=int(lens.max().item()),
+          rel_err_vs_plain=elem_rel_err(small_out,
+                                        ragged_decode_plain(q, k4, v4, lens)),
+          ms_small=time_ms(lambda: ragged_decode_attention(q, k4, v4, lens)),
+          ms_big=time_ms(lambda: ragged_decode_attention(q, k, v, lens)))
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phases 4 and 5: the main paths at full width
 # ---------------------------------------------------------------------------
 
@@ -576,6 +687,126 @@ def serve_path(torch, build, infer):
           flash_launches=launches["flash_fwd"],
           pages_in_use=eng.alloc.pages_in_use())
     return launches
+
+
+SERVE_ARGS = ["--mode", "serve", "--requests", "16", "--slots", "4",
+              "--seq", "512", "--steps", "128", "--hbm-limit-mib", "80000",
+              "--seed", "0"]
+
+
+def slot_serve(torch, build, infer, extra):
+    """One ``infer --mode serve`` run of the slot engine with the counts
+    and fallbacks zeroed just before it; every request must complete
+    with its ``max_new`` tokens."""
+    from tpushare_torch.workloads.ops import registry
+    build.reset_launches()
+    registry.reset_fallbacks()
+    res = infer.run(infer.parse_args(SERVE_ARGS + extra))
+    launches = dict(build.LAUNCHES)
+    bad = [r.status for r in res["requests"] if r.status != "completed"
+           or len(r.output) != r.max_new]
+    if bad:
+        raise RuntimeError(f"serve {extra}: requests not all completed: "
+                           f"{bad}")
+    steps = res["warmup_decode_steps"] + res["decode_steps"]
+    ttft = res["ttft_s"]
+    fields = dict(tokens_per_s=res["tokens_per_s"], tokens=res["tokens"],
+                  seconds=res["seconds"],
+                  ttft_p50_ms=ttft[len(ttft) // 2] * 1e3,
+                  ttft_max_ms=ttft[-1] * 1e3, decode_steps=steps,
+                  attn_impl=res["engine"].attn_impl,
+                  cache_rows=res["engine"].cache_rows,
+                  **{f"{k}_launches": n for k, n in launches.items()})
+    return res, launches, steps, registry.fallback_counts(), fields
+
+
+def serve_slot_path(torch, build, infer):
+    """The slot engine's dense read: the reference's einsum core, and
+    admission runs chunk_step — no kernel launches at all."""
+    res, launches, _, _, fields = slot_serve(torch, build, infer, [])
+    if res["engine"].attn_impl != "xla":
+        raise RuntimeError(f"slot engine read {res['engine'].attn_impl}")
+    if any(launches.values()):
+        raise RuntimeError(f"the dense slot engine launched {launches}")
+    phase("serve-slot", **fields)
+    return launches
+
+
+def serve_ragged_path(torch, build, infer):
+    """``serve --ragged``: every decode step (the warm-up request's too)
+    reads each layer through the ragged kernel — exactly 16 launches per
+    step — and nothing falls back or launches flash / paged."""
+    res, launches, steps, fallbacks, fields = slot_serve(
+        torch, build, infer, ["--ragged"])
+    n_layers = res["engine"].cfg.n_layers
+    if res["engine"].attn_impl != "ragged":
+        raise RuntimeError(f"ragged engine read {res['engine'].attn_impl}")
+    if launches["ragged_decode"] != n_layers * steps:
+        raise RuntimeError(f"ragged launches {launches['ragged_decode']} != "
+                           f"{n_layers} layers x {steps} decode steps")
+    if launches["flash_fwd"] or launches["paged_decode"]:
+        raise RuntimeError(f"serve --ragged launched {launches}")
+    if fallbacks:
+        raise RuntimeError(f"serve --ragged fell back: {fallbacks}")
+    phase("serve-ragged", **fields, fallbacks=len(fallbacks))
+    return launches
+
+
+def serve_ring_path(torch, build, infer):
+    """A windowed flagship in a 256-row ring while requests run to 512
+    positions: the ring wraps, every request completes."""
+    res, launches, _, _, fields = slot_serve(
+        torch, build, infer, ["--window", "128", "--ring-rows", "256",
+                              "--steps", "384", "--requests", "8"])
+    eng = res["engine"]
+    longest = max(len(r.prompt) + len(r.output) for r in res["requests"])
+    if eng.cache_rows != 256 or eng.slots["k"].shape[2] != 256:
+        raise RuntimeError(f"ring rows {eng.cache_rows}, not 256")
+    if longest <= eng.cache_rows:
+        raise RuntimeError(f"no request wrapped the ring ({longest} rows)")
+    phase("serve-ring", **fields, longest_request=longest)
+    return launches
+
+
+def slot_f32_identity(torch, build):
+    """A small f32 config with head_dim 128: the slot engine through the
+    ragged kernel, through the einsum read, and the kernel engine's
+    pipelined loop give token-identical greedy transcripts."""
+    import numpy as np
+    from tpushare_torch.workloads.models.transformer import (
+        TransformerConfig, init_params)
+    from tpushare_torch.workloads.serving import Request, ServingEngine
+    cfg = TransformerConfig(vocab=512, d_model=512, n_heads=4, n_kv_heads=2,
+                            n_layers=2, d_ff=1024, max_seq=512,
+                            dtype=torch.float32)
+    params = init_params(torch.Generator(device="cuda").manual_seed(12),
+                         cfg, "cuda")
+    rng = np.random.default_rng(12)
+    specs = [(rng.integers(0, cfg.vocab, int(rng.integers(5, 90))).tolist(),
+              int(rng.integers(8, 120))) for _ in range(6)]
+    outs, launched = {}, {}
+    for label, ragged, pipeline in (("kernel", True, False),
+                                    ("einsum", False, False),
+                                    ("kernel-pipelined", True, True)):
+        before = build.LAUNCHES["ragged_decode"]
+        eng = ServingEngine(params, dataclasses.replace(
+            cfg, ragged_decode=ragged), n_slots=3, max_seq=512,
+            prompt_buckets=(16, 64), chunk=4, pipeline=pipeline)
+        reqs = [Request(prompt=p, max_new=n) for p, n in specs]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        outs[label] = [r.output for r in reqs]
+        launched[label] = build.LAUNCHES["ragged_decode"] - before
+    if not launched["kernel"] or launched["einsum"]:
+        raise RuntimeError(f"slot f32 launches {launched}")
+    if not outs["kernel"] == outs["einsum"] == outs["kernel-pipelined"]:
+        raise RuntimeError("f32 slot engine: kernel / einsum / pipelined "
+                           "transcripts differ")
+    phase("slot-f32-identity", requests=len(specs),
+          tokens=sum(len(o) for o in outs["kernel"]),
+          ragged_launches=launched["kernel"],
+          pipelined_launches=launched["kernel-pipelined"], identical=True)
 
 
 def small_f32_identity(torch, build):
@@ -863,11 +1094,17 @@ def main() -> int:
     bwd_rows = bwd_cases(torch)
     torch.cuda.empty_cache()    # the S=2048 plain twins' score matrices
     paged_rows = paged_cases(torch)
+    ragged_rows = ragged_cases(torch)
+    torch.cuda.empty_cache()    # the long-cache rows' caches and twins
     paths = {}
     paths["forward"], _, _ = forward_path(torch, build, infer)
     paths["decode"] = decode_path(torch, build, infer)
     paths["serve"] = serve_path(torch, build, infer)
+    paths["serve-slot"] = serve_slot_path(torch, build, infer)
+    paths["serve-ragged"] = serve_ragged_path(torch, build, infer)
+    paths["serve-ring"] = serve_ring_path(torch, build, infer)
     small_f32_identity(torch, build)
+    slot_f32_identity(torch, build)
     paths["train"] = train_path(torch, build, smi)
     paths["train-remat"] = train_remat_path(torch, build)
     train_f32_parity(torch, build)
@@ -914,7 +1151,16 @@ def main() -> int:
                     "tpushare_torch/workloads/kernels/paged_decode.cu",
                     "tpushare/workloads/ops/registry.py:617", paged_rows[0],
                     "paged-vs-plain, serve, f32-identity"),
+        kernel_line("ragged_decode",
+                    "tpushare_torch/workloads/kernels/ragged_decode.cu",
+                    "tpushare/workloads/ops/ragged_decode.py:70",
+                    next(r for r in ragged_rows if r["case"] == "long"),
+                    "ragged-vs-plain, serve-ragged, slot-f32-identity"),
     ]
+    # the ragged read at the serve --ragged shape
+    kernels[4]["serve_shape"] = {k: ragged_rows[0][k] for k in (
+        "B", "S", "H", "Hkv", "hd", "dtype", "max_abs_err", "ms",
+        "plain_ms", "bound_ms", "bound_by", "library_ms")}
     # the forward on the training path: the LSE launch at the train shape
     kernels[0]["train_shape"] = {k: train_fwd[k] for k in (
         "B", "S", "H", "Hkv", "hd", "dtype", "max_abs_err", "ms",

@@ -8,6 +8,8 @@ profiles, with ``torch.profiler`` (CPU + CUDA activities):
 
 - ``forward``: three batch-8 x seq-128 forwards;
 - ``decode``: the paged serving engine's decode chunks with 8 lanes busy;
+- ``serve-ragged``: the slot engine's decode chunks with ``ragged_decode``
+  (``infer --mode serve --ragged``), 4 slots busy;
 
 and at the reference's training preset (0.55B: d_model 1536, 16 heads of
 96, 12 layers, bf16; batch 8 x seq 1024):
@@ -17,8 +19,9 @@ and at the reference's training preset (0.55B: d_model 1536, 16 heads of
 For each it prints one JSON line: host wall time per step, device busy
 time per step (the sum of the device-side kernel and copy times), the
 device idle share over the window (1 - busy / wall), device launches per
-step, and the top kernels by device time. Needs a CUDA device; exits
-non-zero without one.
+step (all kernels and copies; ``serve-ragged`` also the ragged kernel's
+own count), and the top kernels by device time. Needs a CUDA device;
+exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 
 
-def profile(torch, fn, n_steps_of, label):
+def profile(torch, fn, n_steps_of, label, **extra):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     torch.cuda.synchronize()
@@ -43,6 +46,7 @@ def profile(torch, fn, n_steps_of, label):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     steps = n_steps_of(state)
+    extra = {k: f(steps) for k, f in extra.items()}
     # device-side events only: a CPU op's row also carries the device time
     # of the kernels it launched, which would count them twice
     events = [e for e in prof.key_averages()
@@ -56,7 +60,7 @@ def profile(torch, fn, n_steps_of, label):
         "wall_ms_per_step": wall * 1e3 / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
         "device_idle_share": max(0.0, 1 - busy_us / 1e6 / wall),
-        "launches_per_step": launches / steps,
+        "launches_per_step": launches / steps, **extra,
         "top_kernels": [{"name": e.key[:90],
                          "ms_per_step": e.self_device_time_total / 1e3 / steps,
                          "calls_per_step": e.count / steps} for e in top],
@@ -112,6 +116,34 @@ def main() -> int:
         return eng.stats["lane_steps"]
     profile(torch, chunks,
             lambda after: (after - before) // lanes, "decode")
+    del eng
+    torch.cuda.empty_cache()
+
+    # serve --ragged: 4 slots, prompt 128 + up to 120 new tokens
+    import dataclasses
+
+    from tpushare_torch.workloads.kernels import build
+    from tpushare_torch.workloads.serving import ServingEngine
+    slots = 4
+    eng = ServingEngine(params, dataclasses.replace(cfg, ragged_decode=True),
+                        n_slots=slots, max_seq=256, prompt_buckets=(128,),
+                        chunk=16)
+    for _ in range(slots):
+        eng.submit(Request(prompt=torch.randint(0, cfg.vocab, (128,),
+                                                generator=rng).tolist(),
+                           max_new=120))
+    eng.step()                        # admission wave + first chunk (warm)
+    before = eng.stats["lane_steps"]
+    build.reset_launches()
+
+    def slot_chunks():
+        for _ in range(2):
+            eng.step()
+        return eng.stats["lane_steps"]
+    profile(torch, slot_chunks,
+            lambda after: (after - before) // slots, "serve-ragged",
+            ragged_launches_per_step=lambda steps:
+                build.LAUNCHES["ragged_decode"] / steps)
     del eng, params
     torch.cuda.empty_cache()
 

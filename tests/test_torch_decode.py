@@ -113,3 +113,39 @@ def test_sampling_is_seeded_and_respects_truncation():
 def test_prefill_chunk_layout_matches(plen, buckets):
     assert tdec.prefill_chunk_layout(plen, buckets) == \
         jdec.prefill_chunk_layout(plen, buckets)
+
+
+def test_windowed_generate_matches_reference():
+    """A sliding-window model decodes with the reference's banded mask:
+    the cached core bands by ``cfg.attn_window`` (ring arithmetic over
+    the cache rows), so decode logits match within 1e-4 and greedy
+    tokens are identical over 24 steps — past the window, where an
+    unbanded mask diverges at the first step."""
+    jcfg = dataclasses.replace(JCFG, attn_window=16)
+    tcfg = dataclasses.replace(TCFG, attn_window=16)
+    p = np.random.default_rng(1).integers(0, JCFG.vocab, (2, 40))
+    jp = jnp.asarray(p, jnp.int32)
+    jc = jdec.init_cache(jcfg, 2, 128)
+    tc = tdec.init_cache(tcfg, 2, 128, device="cpu")
+    jl, jc = jdec.prefill(JPARAMS, jp, jcfg, jc)
+    tl, tc = tdec.prefill(TPARAMS, torch.from_numpy(p), tcfg, tc)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
+    tok = np.asarray(jnp.argmax(jl, axis=-1))
+    jl, _ = jdec.decode_step(JPARAMS, jnp.asarray(tok, jnp.int32), jc, jcfg)
+    tl, _ = tdec.decode_step(TPARAMS, torch.from_numpy(tok), tc, tcfg)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
+    ref = np.asarray(jdec.generate(JPARAMS, jp, jcfg, 24))
+    got = tdec.generate(TPARAMS, torch.from_numpy(p), tcfg, 24)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_prefill_logit_pos_matches_reference():
+    """``prefill(logit_pos=)`` returns the logits at that position (the
+    reference's bucket-padded admission reads the true last token)."""
+    p = prompt(4, 20, 2)
+    jc = jdec.init_cache(JCFG, 2, 32)
+    tc = tdec.init_cache(TCFG, 2, 32, device="cpu")
+    jl, _ = jdec.prefill(JPARAMS, jnp.asarray(p, jnp.int32), JCFG, jc,
+                         logit_pos=jnp.int32(13))
+    tl, _ = tdec.prefill(TPARAMS, torch.from_numpy(p), TCFG, tc, logit_pos=13)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (flash forward, flash backward dQ and dK/dV,
-paged decode) against their plain-PyTorch twins, on an NVIDIA GPU.
+paged decode, ragged decode) against their plain-PyTorch twins, on an
+NVIDIA GPU.
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these skip on a host
 without a card. The file imports no JAX, so it runs on a GPU
 machine that has only the port's dependencies:
@@ -183,3 +184,54 @@ def test_training_backward_runs_the_kernels():
         attention.flash_attention_plain(q, k, v, window=40), (q, k, v), do)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the ragged decode read (K4)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,H,Hkv", [("bfloat16", 16, 16),
+                                         ("bfloat16", 16, 4),
+                                         ("float32", 8, 1)])
+def test_ragged_kernel_matches_plain(dtype, H, Hkv):
+    """The ragged kernel against its twin on a stacked cache, one slot at
+    length 0 (one live row) and one at S - 1; the same live rows in a
+    larger cache give a bitwise-equal result."""
+    from tpushare_torch.workloads.ops import ragged_decode
+    dev, dt = card(), getattr(torch, dtype)
+    rng = np.random.default_rng(10)
+    L, B, S, hd = 2, 4, 512, 128
+    q = randn(rng, (B, H, hd), dt, dev)
+    k, v = (randn(rng, (L, B, S, Hkv, hd), dt, dev) for _ in range(2))
+    lengths = torch.tensor([0, 37, 300, S - 1], dtype=torch.int32,
+                           device=dev)
+    before = build.LAUNCHES["ragged_decode"]
+    got = ragged_decode.ragged_decode_attention(q, k, v, lengths, layer=1)
+    assert build.LAUNCHES["ragged_decode"] == before + 1
+    want = ragged_decode.ragged_decode_plain(q, k, v, lengths, layer=1)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    big_k = torch.zeros((B, 2 * S, Hkv, hd), dtype=dt, device=dev)
+    big_v = torch.zeros_like(big_k)
+    big_k[:, :S], big_v[:, :S] = k[1], v[1]
+    again = ragged_decode.ragged_decode_attention(q, big_k, big_v, lengths)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_ragged_wrapper_rejects_what_the_kernel_cannot_take():
+    from tpushare_torch.workloads.ops import ragged_decode
+    dev = card()
+    lengths = torch.zeros((2,), dtype=torch.int32, device=dev)
+    q = torch.zeros((2, 4, 64), dtype=torch.bfloat16, device=dev)
+    k = torch.zeros((2, 16, 4, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        ragged_decode.ragged_decode_attention(q, k, k, lengths)
+    q = torch.zeros((2, 4, 128), dtype=torch.bfloat16, device=dev)
+    k = torch.zeros((2, 16, 4, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        ragged_decode.ragged_decode_attention(q, k, k, lengths.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        ragged_decode.ragged_decode_attention(
+            q, k.transpose(1, 2).contiguous().transpose(1, 2), k, lengths)

@@ -192,11 +192,16 @@ def test_submit_rejects_impossible_requests():
 
 
 def test_payload_serve_runs_paged_and_rejects_the_slot_engine():
+    """``--paged`` runs the paged engine and rejects the slot engine's
+    flags (ring cache, ragged read) with exit 2, as the reference
+    payload does; without ``--paged`` the slot engine serves
+    (``tests/test_torch_slot_serving.py``)."""
     from tpushare_torch.workloads import infer
     args = ["--device", "cpu", "--mode", "serve", "--steps", "6",
             "--requests", "3", "--seq", "40", "--slots", "2"]
-    with pytest.raises(SystemExit, match="slot engine is not ported"):
-        infer.run(infer.parse_args(args))
+    with pytest.raises(SystemExit) as rejected:
+        infer.run(infer.parse_args(args + ["--paged", "--ring-rows", "64"]))
+    assert rejected.value.code == 2
     res = infer.run(infer.parse_args(args + ["--paged"]))
     assert all(r.status == consts.STATUS_COMPLETED for r in res["requests"])
     assert res["engine"].alloc.pages_in_use() == 0

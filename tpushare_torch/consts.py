@@ -23,6 +23,9 @@ ERR_KV_CODEC_MISMATCH_FMT = (
     "cache layout is {cache!r} — cfg.kv_int8 is the slot engine's cache "
     "layout, not a page-pool codec")
 
+# A request named a prefix no engine registered.
+ERR_PREFIX_UNKNOWN_FMT = "unknown prefix {name!r}: register_prefix first"
+
 # Terminal request statuses: every submitted request ends in exactly one.
 STATUS_COMPLETED = "completed"
 STATUS_SHED = "shed"

@@ -1,6 +1,7 @@
 """KV-cache autoregressive decoding — the port of
-``tpushare/workloads/decode.py``, dense bf16/fp32 caches only (no ring
-cache, no int8 codec in this slice).
+``tpushare/workloads/decode.py``: dense bf16/fp32 caches, the ring cache
+of sliding-window models, the ragged slot read and the block-paged pool
+(no int8 codec in this slice: ROADMAP A.4).
 
 The reference keeps everything functional under ``jit``/``lax.scan``;
 the port runs eagerly and writes caches and pools IN PLACE (a slice
@@ -9,9 +10,9 @@ layer), which is what keeps a decode step's memory at the cache itself.
 Functions still return the cache / pool they were given so call sites
 read like the reference's.
 
-All paths — batch forward, prefill, cached chunk steps and the paged
-serving step — run ``transformer.layer_block``, the one definition of
-the architecture.
+All paths — batch forward, prefill, cached chunk steps, the slot and
+paged serving steps — run ``transformer.layer_block``, the one
+definition of the architecture.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ def init_cache(cfg: TransformerConfig, batch: int, max_seq: int | None = None,
     """Zeroed KV cache: k/v (L, B, max_seq, Hkv, hd) in the model dtype,
     length 0 (a host int — eager positions are always concrete)."""
     if cfg.kv_int8:
-        raise NotImplementedError("the int8 KV codec is not ported yet")
+        raise NotImplementedError(
+            "the int8 KV codec (cfg.kv_int8) is not ported yet: ROADMAP A.4")
     dev = resolve_device(device)
     S = max_seq or cfg.max_seq
     shape = (cfg.n_layers, batch, S, cfg.kv_heads, cfg.head_dim)
@@ -59,11 +61,12 @@ def cache_fill(kc: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
-            cache: dict) -> tuple[torch.Tensor, dict]:
+            cache: dict, logit_pos: int | None = None
+            ) -> tuple[torch.Tensor, dict]:
     """Run the prompt (B, P) through the model, filling cache[:, :, :P].
-    Returns (logits (B, vocab) fp32 at the last position, and the
-    cache). Any P runs the flash kernel on the card: unlike the
-    reference's Pallas grid, it needs no tiled prompt."""
+    Returns (logits (B, vocab) fp32 at ``logit_pos`` — default the last
+    position — and the cache). Any P runs the flash kernel on the card:
+    unlike the reference's Pallas grid, it needs no tiled prompt."""
     P = tokens.shape[1]
     cos, sin = rope_tables(cfg, P, tokens.device)
 
@@ -76,31 +79,127 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
                                 attn_core)
         cache_fill(cache["k"][i], k)
         cache_fill(cache["v"][i], v)
-    return lm_head(params, x[:, -1]), {**cache, "length": P}
+    x_last = x[:, -1] if logit_pos is None else x[:, logit_pos]
+    return lm_head(params, x_last), {**cache, "length": P}
 
 
-def make_cached_attn_core(kc: torch.Tensor, vc: torch.Tensor, pos: int,
+def scatter_token_rows(cache: torch.Tensor, new: torch.Tensor,
+                       index: tuple) -> torch.Tensor:
+    """Write one token's (B, 1, Hkv, hd) K/V at per-row cache positions,
+    in place. ``index`` addresses one row per batch element — ``(rows,
+    pos)`` on a (B, S, ...) cache, ``(layer, rows, pos)`` on a stacked
+    (L, B, S, ...) one: the one definition of the per-row write shared by
+    the dense slot step and the ragged path."""
+    cache[index] = new[:, 0].to(cache.dtype)
+    return cache
+
+
+def make_cached_attn_core(kc: torch.Tensor, vc: torch.Tensor, pos,
                           cfg: TransformerConfig, slot_ids: torch.Tensor):
-    """Per-layer cached attention for a scalar position: write this
-    chunk's Q tokens' K/V at rows pos..pos+Q-1 (in place), then attend
-    over the whole static cache with grouped fp32 einsums, masking rows
-    past each query's position at -1e30 — the reference's dense branch
-    op for op. Returns attn_core(q, k, v) -> (o, (kc, vc))."""
+    """The per-layer cached-attention closure shared by the dense decode
+    loop, the chunk step and the slot engine: write this step's K/V into
+    the cache at ``pos`` (in place), then attend over the whole static
+    cache with grouped fp32 einsums, masking rows a query may not see at
+    -1e30 — the reference's core op for op.
+
+    ``pos`` is an int (every row at the same position; with Q > 1 tokens
+    they land at pos..pos+Q-1 with intra-chunk causal masking) or a (B,)
+    tensor (each slot at its own length, Q = 1).
+
+    Windowed configs use ring arithmetic over the R = len(slot_ids) rows:
+    position p lands in row p % R, and the mask reconstructs each row's
+    absolute position as the newest value <= the query's,
+    ``qpos - ((qpos - row) % R)`` (unwritten rows reconstruct negative),
+    then keeps ``p > qpos - attn_window``. With R covering every position
+    this is the banded causal mask. Callers that wrap (the ring cache)
+    keep R >= attn_window + Q - 1. Returns attn_core(q, k, v) ->
+    (o, (kc, vc))."""
     hd = cfg.head_dim
     G = cfg.n_heads // cfg.kv_heads
+    per_row = torch.is_tensor(pos)
+    R = slot_ids.shape[0]                 # cache rows (== max_seq dense)
+    ring = cfg.attn_window is not None
+
+    def write(cache, new):
+        Q = new.shape[1]
+        wpos = pos % R if ring else pos
+        if per_row:
+            rows = torch.arange(new.shape[0], device=new.device)
+            return scatter_token_rows(cache, new, (rows, wpos))
+        if wpos + Q > R:
+            # a ring chunk straddling the wrap point: an index write
+            wrows = (pos + torch.arange(Q, device=new.device)) % R
+            cache[:, wrows] = new.to(cache.dtype)
+        else:
+            cache[:, wpos:wpos + Q] = new.to(cache.dtype)
+        return cache
 
     def attn_core(q, k, v):
         B, Q = q.shape[:2]
-        kc[:, pos:pos + Q] = k.to(kc.dtype)
-        vc[:, pos:pos + Q] = v.to(vc.dtype)
-        qpos = (pos + torch.arange(Q, device=q.device))[None, :, None]
-        mask = slot_ids[None, None, :] <= qpos                  # (1, Q, S)
+        write(kc, k)
+        write(vc, v)
+        if per_row:
+            qpos = pos[:, None, None]                          # (B, 1, 1)
+        else:
+            qpos = (pos + torch.arange(Q, device=q.device))[None, :, None]
+        if ring:
+            p = qpos - ((qpos - slot_ids[None, None, :]) % R)
+            mask = (p >= 0) & (p > qpos - cfg.attn_window)
+        else:
+            mask = slot_ids[None, None, :] <= qpos             # (B|1, Q, S)
         qg = q.float().reshape(B, Q, kc.shape[2], G, hd)
         s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc.float()) * (hd ** -0.5)
         s = torch.where(mask[:, None, None, :, :], s, -1e30)
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bhgqk,bkhd->bqhgd", p, vc.float())
         return o.reshape(B, Q, cfg.n_heads, hd).to(q.dtype), (kc, vc)
+
+    return attn_core
+
+
+def ragged_block_k(S: int) -> int:
+    """K-chunk width of the reference's ragged kernel: the largest of its
+    tuned sizes that tiles the cache rows. The CUDA kernel walks rows and
+    needs no chunk; the rule stays because it is the reference's row
+    gate."""
+    for bk in (512, 256):
+        if S % bk == 0:
+            return bk
+    raise ValueError(f"cache rows {S} not divisible by 256 "
+                     "(ragged_decode needs block-tileable max_seq)")
+
+
+def check_ragged_config(cfg: TransformerConfig, n_rows: int) -> None:
+    """Fail fast on configs the ragged read cannot serve (the engine
+    calls this at construction so the error names the knob); the guards
+    are the registry's decode rows, raising ``KernelUnavailable``."""
+    from tpushare_torch.workloads.ops.registry import KIND_DECODE, decide
+    decide(KIND_DECODE, seq=n_rows, window=cfg.attn_window,
+           n_heads=cfg.n_heads, n_kv_heads=cfg.kv_heads,
+           head_dim=cfg.head_dim, impl="ragged")
+
+
+def make_ragged_attn_core(kf: torch.Tensor, vf: torch.Tensor, layer: int,
+                          lengths: torch.Tensor, cfg: TransformerConfig):
+    """Per-layer attention closure for the ragged slot step: write the
+    step's K/V into the full stacked (L, B, S, Hkv, hd) cache at
+    ``(layer, row, lengths[row])``, then read through the registry's
+    ``ragged`` choice — the CUDA kernel on the card, its twin on the CPU
+    — so the bytes read scale with each slot's live length. Returns
+    attn_core(q, k, v) -> (o, (kf, vf))."""
+    from tpushare_torch.workloads.ops.registry import (KIND_DECODE,
+                                                       select_attention)
+    rows = torch.arange(lengths.shape[0], device=lengths.device)
+    read = select_attention(
+        KIND_DECODE, impl="ragged", seq=kf.shape[2], window=cfg.attn_window,
+        n_heads=cfg.n_heads, n_kv_heads=cfg.kv_heads,
+        head_dim=cfg.head_dim).fn
+
+    def attn_core(q, k, v):
+        scatter_token_rows(kf, k, (layer, rows, lengths))
+        scatter_token_rows(vf, v, (layer, rows, lengths))
+        o = read(q[:, 0], kf, vf, lengths, layer=layer)
+        return o[:, None], (kf, vf)
 
     return attn_core
 
@@ -114,11 +213,15 @@ def chunk_step(params: dict, tokens: torch.Tensor, cache: dict,
 
     An overflowing write raises instead of clamping (slice assignment
     past the cache would corrupt nothing but also write nothing), and so
-    does a position past a bounded rope table."""
+    does a position past a bounded rope table. Windowed caches are ring
+    buffers (:func:`make_cached_attn_core`): a write past the last row
+    wraps, legal whenever rows >= attn_window + Q - 1."""
     B, Q = tokens.shape
     max_seq = cache_max_seq(cache)
     pos = int(cache["length"])
-    if pos + Q > max_seq:
+    ring = (cfg.attn_window is not None
+            and max_seq >= cfg.attn_window + Q - 1)
+    if not ring and pos + Q > max_seq:
         raise ValueError(f"KV cache overflow: length {pos} + chunk {Q} > "
                          f"max_seq {max_seq}; grow the cache or stop "
                          "decoding")
@@ -266,17 +369,29 @@ def prefill_chunk_layout(plen: int, buckets) -> list[tuple[int, int, int]]:
 
 def chunked_generate(params: dict, prompt: torch.Tensor,
                      cfg: TransformerConfig, steps: int,
-                     buckets: tuple[int, ...], max_seq: int) -> torch.Tensor:
+                     buckets: tuple[int, ...], max_seq: int,
+                     rows: int | None = None) -> torch.Tensor:
     """Offline greedy decode with the serving engine's chunked-prefill
     semantics (same bucket layout, same pad widths, same per-chunk
-    ``chunk_step``) — the exact oracle for engine tests. B must be 1."""
+    ``chunk_step``) — the exact oracle for engine tests. B must be 1.
+
+    ``rows`` mirrors the engine's ring cache (``ServingEngine``
+    ``ring_rows``): the cache holds that many rows while positions stay
+    absolute. Needs ``cfg.attn_window`` and rows >= window + the largest
+    bucket (the engine's own exactness bound)."""
     B, plen = prompt.shape
     if B != 1:
         raise ValueError("chunked_generate mirrors one engine lane (B=1)")
     bs = tuple(sorted(b for b in buckets if b <= max_seq))
     if not bs:
         raise ValueError(f"no bucket <= max_seq {max_seq}")
-    cache = init_cache(cfg, 1, max_seq, device=prompt.device)
+    if rows is not None:
+        if cfg.attn_window is None:
+            raise ValueError("rows (ring oracle) requires cfg.attn_window")
+        if rows < cfg.attn_window + bs[-1]:
+            raise ValueError(f"rows {rows} < attn_window + largest bucket "
+                             f"{cfg.attn_window + bs[-1]}")
+    cache = init_cache(cfg, 1, rows or max_seq, device=prompt.device)
     rope = rope_tables(cfg, max_seq, prompt.device)
     logits = None
     for start, piece, padded in prefill_chunk_layout(plen, bs):
@@ -297,6 +412,51 @@ def chunked_generate(params: dict, prompt: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# ring-buffer decode for sliding-window models
+# ---------------------------------------------------------------------------
+
+def ring_decode_step(params: dict, token: torch.Tensor, cache: dict,
+                     cfg: TransformerConfig) -> tuple[torch.Tensor, dict]:
+    """One decode step over the ring cache; cache['length'] is the
+    absolute position (it keeps growing past the cache rows). RoPE phases
+    come from the absolute position, so no O(total-length) table exists:
+    :func:`chunk_step`'s Q=1 case without a rope table."""
+    if cfg.attn_window is None:
+        raise ValueError("ring decode requires cfg.attn_window")
+    R = cache_max_seq(cache)
+    if R < cfg.attn_window:
+        # a wrap would overwrite an in-band key and the mask would still
+        # report the stale row as live
+        raise ValueError(f"ring cache rows {R} < attn_window "
+                         f"{cfg.attn_window}")
+    return chunk_step(params, token[:, None], cache, cfg, logit_pos=0)
+
+
+def ring_generate(params: dict, prompt: torch.Tensor, cfg: TransformerConfig,
+                  steps: int, rows: int | None = None) -> torch.Tensor:
+    """Greedy decode for a sliding-window model with bounded memory: the
+    cache holds ``rows`` = 128-rounded max(prompt, window) rows whatever
+    ``steps`` is. The attended key set equals the full-cache banded
+    decode's at every step. Returns (B, steps) token ids."""
+    B, P = prompt.shape
+    if cfg.attn_window is None:
+        raise ValueError("ring_generate requires cfg.attn_window")
+    R = rows or -(-max(P, cfg.attn_window) // 128) * 128
+    if R < P or R < cfg.attn_window:
+        raise ValueError(f"rows {R} must cover prompt {P} and window "
+                         f"{cfg.attn_window}")
+    cache = init_cache(cfg, B, R, device=prompt.device)
+    logits, cache = prefill(params, prompt, cfg, cache)
+    cur = torch.argmax(logits, dim=-1)
+    out = []
+    for _ in range(steps):
+        out.append(cur)
+        lg, cache = ring_decode_step(params, cur, cache, cfg)
+        cur = torch.argmax(lg, dim=-1)
+    return torch.stack(out, dim=1)
+
+
+# ---------------------------------------------------------------------------
 # block-paged pool
 # ---------------------------------------------------------------------------
 
@@ -309,8 +469,9 @@ def check_paged_config(cfg: TransformerConfig) -> None:
             pool="bf16", cache="int8 (cfg.kv_int8)"))
     if cfg.attn_window is not None:
         raise ValueError(
-            "windowed models serve from the ring cache, not the paged "
-            "pool (the ring cache is not ported yet)")
+            "windowed models already serve from the O(window) ring cache "
+            "(ServingEngine ring_rows); the paged pool would re-reserve "
+            "rows the window is designed to drop")
     if cfg.ragged_decode:
         raise ValueError(
             "cfg.ragged_decode routes the SLOT engine's reads; the paged "

@@ -7,12 +7,16 @@ modes on the card and prints the reference payload's throughput lines:
 
 - ``forward`` (default): batch scoring, the flash-forward kernel path;
 - ``decode``: KV-cache generation (``decode.generate``);
-- ``serve --paged``: the block-paged continuous-batching engine over
-  synthetic requests, decode reads through the paged-decode kernel.
+- ``serve``: the slot continuous-batching engine (``ServingEngine``)
+  over synthetic requests — ``--ragged`` reads the slot caches through
+  the ragged-decode kernel, ``--window W --ring-rows R`` serves a
+  sliding-window model from a ring cache of R rows per slot;
+- ``serve --paged``: the block-paged engine, decode reads through the
+  paged-decode kernel.
 
-The slot engine (``serve`` without ``--paged``) is a later slice and is
-rejected. ``--device cpu`` runs the plain-PyTorch path (tests); the
-default is the card, and a host without CUDA raises.
+``--device cpu`` runs the plain-PyTorch path (tests); the default is the
+card, and a host without CUDA raises. Invalid flag combinations print a
+message and exit 2, as the reference payload does.
 """
 
 from __future__ import annotations
@@ -60,11 +64,25 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--requests", type=int, default=16,
                    help="serve: number of synthetic requests")
     p.add_argument("--slots", type=int, default=4,
-                   help="serve: the slot-reservation KV budget the paged "
-                        "pool is sized to (lanes = 2 x slots)")
+                   help="serve: engine slot count (--paged: the "
+                        "slot-reservation KV budget the pool is sized to, "
+                        "lanes = 2 x slots)")
+    p.add_argument("--window", type=int, default=None,
+                   help="serve: sliding attention window (tokens)")
+    p.add_argument("--ring-rows", type=int, default=None,
+                   help="serve: ring-buffer KV rows per slot (requires "
+                        "--window; caps slot memory at O(rows) while "
+                        "generations run to the logical max_seq)")
+    p.add_argument("--ragged", action="store_true",
+                   help="serve: ragged decode attention - the slot "
+                        "step's cache read scales with each slot's live "
+                        "length, not max_seq (needs head_dim 128 and "
+                        "max_seq %% 256 == 0; excludes --window)")
     p.add_argument("--paged", action="store_true",
-                   help="serve: block-paged KV pool + continuous batching "
-                        "(required in this version of the port)")
+                   help="serve: block-paged KV pool + continuous "
+                        "batching (PagedServingEngine) instead of the "
+                        "slot engine; pool sized to the slot engine's "
+                        "KV HBM (excludes --window/--ring-rows/--ragged)")
     p.add_argument("--temperature", type=float, default=0.0,
                    help="decode sampling temperature (0 = greedy)")
     p.add_argument("--top-k", type=int, default=0,
@@ -84,20 +102,57 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _cli_error(msg: str):
+    """The reference payload's flag errors: a message and exit code 2."""
+    print(msg, file=sys.stderr, flush=True)
+    raise SystemExit(2)
+
+
+def serve_config(args: argparse.Namespace, cfg, limit: int):
+    """The serve mode's config and logical max_seq from the flags, with
+    the reference payload's rules: ``--window`` sets the model's window;
+    ``--ragged`` rounds max_seq up to 256 and re-heads the preset to
+    d_model // 128 heads of 128 (same parameter shapes) when its head_dim
+    is not 128; ``--paged`` excludes the slot engine's flags."""
+    import dataclasses
+    plen = max(8, args.seq // 4)
+    max_seq = -(-(plen + args.steps) // 128) * 128
+    if args.window is not None:
+        cfg = dataclasses.replace(cfg, attn_window=args.window)
+    if args.ragged:
+        max_seq = -(-max_seq // 256) * 256
+        if cfg.head_dim != 128:
+            if cfg.d_model % 128:
+                _cli_error(
+                    f"--ragged needs head_dim 128, and the {limit}MiB "
+                    f"preset's d_model={cfg.d_model} is not a multiple of "
+                    "128 so it cannot be re-headed; pick a preset with "
+                    "d_model % 128 == 0 or drop --ragged")
+            heads = max(1, cfg.d_model // 128)
+            print(f"--ragged: re-headed preset to {heads} heads of 128 "
+                  "(kernel lane width)", flush=True)
+            cfg = dataclasses.replace(cfg, n_heads=heads, n_kv_heads=None)
+        cfg = dataclasses.replace(cfg, ragged_decode=True)
+    if args.paged and (args.window is not None or args.ragged
+                       or args.ring_rows):
+        _cli_error("--paged excludes --window/--ring-rows/--ragged (the "
+                   "pool serves full-causal models; windowed models ride "
+                   "the ring cache)")
+    return cfg, plen, max_seq
+
+
 def run(args: argparse.Namespace) -> dict:
     """Run one payload mode; returns its measurements (and, for serve,
     the engine and requests) for callers that check the outcome."""
     from tpushare_torch.workloads.models.transformer import (forward,
                                                              init_params)
-    if args.mode == "serve" and not args.paged:
-        raise SystemExit(
-            "serve: the slot engine is not ported yet — run "
-            "`--mode serve --paged` (the block-paged engine)")
     device = resolve_device(args.device)
     limit = args.hbm_limit_mib
     if limit is None:
         limit = int(os.environ.get(consts.ENV_HBM_LIMIT_MIB, "2000"))
     cfg = pick_config(limit)
+    if args.mode == "serve":
+        cfg, plen, max_seq = serve_config(args, cfg, limit)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = init_params(gen, cfg, device)
@@ -105,7 +160,7 @@ def run(args: argparse.Namespace) -> dict:
           f"d_model={cfg.d_model} layers={cfg.n_layers}", flush=True)
 
     if args.mode == "serve":
-        return _serve(args, cfg, params, device)
+        return _serve(args, cfg, params, device, plen, max_seq)
     if args.mode == "decode":
         from tpushare_torch.workloads.decode import generate
         prompt = torch.randint(0, cfg.vocab,
@@ -141,30 +196,44 @@ def run(args: argparse.Namespace) -> dict:
             "params": params, "cfg": cfg}
 
 
-def _serve(args, cfg, params, device) -> dict:
+def _serve(args, cfg, params, device, plen: int, max_seq: int) -> dict:
     from tpushare_torch.workloads import paging
     from tpushare_torch.workloads.serving import (PagedServingEngine,
-                                                  Request, lane_efficiency)
+                                                  Request, ServingEngine,
+                                                  lane_efficiency)
     rng = np.random.default_rng(args.seed)
-    plen = max(8, args.seq // 4)
-    max_seq = -(-(plen + args.steps) // 128) * 128
-    # equal-HBM sizing against the slot engine's reservation, as in the
-    # reference: the slots' KV budget buys the pool's pages
-    page_size = 32
-    budget_mib = paging.pool_hbm_mib(
-        paging.pages_for_rows(args.slots * max_seq, page_size),
-        page_size, cfg.n_layers, cfg.kv_heads, cfg.head_dim)
-    n_pages = paging.pages_for_hbm(budget_mib, page_size, cfg.n_layers,
-                                   cfg.kv_heads, cfg.head_dim)
-    n_lanes = max(2, args.slots * 2)
-    eng = PagedServingEngine(params, cfg, n_lanes=n_lanes, max_seq=max_seq,
-                             n_pages=n_pages, page_size=page_size,
-                             prompt_buckets=(-(-plen // 32) * 32,), chunk=16,
-                             seed=args.seed, top_k=args.top_k)
-    bpt = paging.kv_bytes_per_token(cfg.n_layers, cfg.kv_heads, cfg.head_dim)
-    print(f"paged KV pool: {n_pages} pages x {page_size} rows (codec bf16, "
-          f"{bpt:.0f} B/token, {n_lanes} lanes, read {eng.attn_impl})",
-          flush=True)
+    bucket = -(-plen // 32) * 32
+    if args.paged:
+        # equal-HBM sizing against the slot engine's reservation, as in
+        # the reference: the slots' KV budget buys the pool's pages
+        page_size = 32
+        budget_mib = paging.pool_hbm_mib(
+            paging.pages_for_rows(args.slots * max_seq, page_size),
+            page_size, cfg.n_layers, cfg.kv_heads, cfg.head_dim)
+        n_pages = paging.pages_for_hbm(budget_mib, page_size, cfg.n_layers,
+                                       cfg.kv_heads, cfg.head_dim)
+        n_lanes = max(2, args.slots * 2)
+        eng = PagedServingEngine(params, cfg, n_lanes=n_lanes,
+                                 max_seq=max_seq, n_pages=n_pages,
+                                 page_size=page_size, prompt_buckets=(bucket,),
+                                 chunk=16, seed=args.seed, top_k=args.top_k)
+        bpt = paging.kv_bytes_per_token(cfg.n_layers, cfg.kv_heads,
+                                        cfg.head_dim)
+        print(f"paged KV pool: {n_pages} pages x {page_size} rows (codec "
+              f"bf16, {bpt:.0f} B/token, {n_lanes} lanes, read "
+              f"{eng.attn_impl})", flush=True)
+    else:
+        n_lanes = args.slots
+        eng = ServingEngine(params, cfg, n_slots=n_lanes, max_seq=max_seq,
+                            prompt_buckets=(bucket,), chunk=16,
+                            seed=args.seed, top_k=args.top_k,
+                            ring_rows=args.ring_rows)
+        print(f"slot engine: {n_lanes} slots x {eng.cache_rows} rows "
+              f"(read {eng.attn_impl})", flush=True)
+        if args.ring_rows:
+            print(f"ring KV cache: {eng.cache_rows} rows/slot "
+                  f"(window {args.window}, logical max_seq {max_seq})",
+                  flush=True)
     reqs = [Request(
         prompt=[int(t) for t in rng.integers(0, cfg.vocab, plen)],
         max_new=int(rng.integers(max(1, args.steps // 4), args.steps + 1)),
@@ -197,7 +266,7 @@ def _serve(args, cfg, params, device) -> dict:
         print(f"overload accounting: completed={s['completed']} "
               f"shed={s['shed']} oom_quarantined={s['oom_quarantined']}",
               flush=True)
-    # decode steps of the wave, each one read of the pool per layer
+    # decode steps of the wave: each reads the cache once per layer
     return {"mode": "serve", "tokens_per_s": total / dt, "seconds": dt,
             "tokens": total, "ttft_s": ttft, "engine": eng,
             "requests": reqs, "warmup_decode_steps": warm_steps,

@@ -34,7 +34,8 @@ from pathlib import Path
 KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
-           "paged_decode": "paged_decode.cu"}
+           "paged_decode": "paged_decode.cu",
+           "ragged_decode": "ragged_decode.cu"}
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -62,6 +63,10 @@ _SIGNATURES = {
     "paged_decode": {"tpushare_paged_decode":
                      [_P, _P, _P, _P, _I, _I, _P, _P,
                       _I, _I, _I, _I, _I, _I, _F, _P]},
+    # q, k, v (one layer's (B, S, Hkv, hd) base), lengths, o,
+    # B, S, H, Hkv, hd, is_bf16, scale, stream
+    "ragged_decode": {"tpushare_ragged_decode":
+                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]},
 }
 
 # return code of an entry point asked for a shape/dtype it has no
@@ -69,7 +74,8 @@ _SIGNATURES = {
 UNSUPPORTED = -1
 
 # launch counters, one per kernel (the flash_bwd library holds two)
-KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_decode")
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_decode",
+           "ragged_decode")
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()

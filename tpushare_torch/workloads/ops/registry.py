@@ -1,29 +1,30 @@
 """Kernel registry of the port: one decision table for the attention
-sites this slice serves — the prefill/forward self-attention and the
-paged decode read.
+sites this slice serves — the prefill/forward self-attention, the slot
+engine's decode read and the paged decode read.
 
-Port of ``tpushare/workloads/ops/registry.py`` (``decide``'s prefill and
-paged rows, ``select_attention``, the fallback counters). The rows keep
-the reference's shape gates with ``platform == "cuda"`` where the
-reference says ``"tpu"``; there is no mesh in this slice, so the dp/tp/sp
-rows are absent. Semantics are the reference's:
+Port of ``tpushare/workloads/ops/registry.py`` (``decide``'s prefill,
+decode and paged rows, ``select_attention``, the fallback counters). The
+rows keep the reference's shape gates with ``platform == "cuda"`` where
+the reference says ``"tpu"``; there is no mesh in this slice, so the
+dp/tp/sp rows are absent. Semantics are the reference's:
 
 - an explicit implementation that cannot be served raises
   :class:`KernelUnavailable`;
 - ``impl="auto"`` may degrade to the plain path, recorded as a counted
   fallback event (:func:`record_fallback`);
 - labels are the existing ``consts.KERNEL_IMPLS`` names: the CUDA
-  kernels report as ``flash`` / ``paged``, the plain-PyTorch paths as
-  ``xla``.
+  kernels report as ``flash`` / ``ragged`` / ``paged``, the plain-PyTorch
+  paths as ``xla``.
 
 Where the port departs from the reference's rows: the flash kernel
 takes any S (it masks a partial last tile), so the reference's
 Pallas-block gate (``seq:untiled``) is gone and every CUDA prefill runs
-the kernel; the reference's ``longctx:splash`` row runs the flash kernel
-under its own reason (``longctx:flash-for-splash``) until the splash
-kernel has a counterpart; and a windowed config on CUDA raises, under
-``auto`` too, until the kernel's banded grid is ported — the plain path
-never runs on the card unasked.
+the kernel; a causal window runs the kernel's banded grid
+(``window:flash-banded``); and the reference's ``longctx:splash`` row
+runs the flash kernel under its own reason (``longctx:flash-for-splash``)
+until the splash kernel has a counterpart. The decode rows keep the
+reference's gates (``RAGGED_HEAD_DIM``, ``RAGGED_BLOCK``) so the same
+configs are refused with the same reasons.
 """
 
 from __future__ import annotations
@@ -39,11 +40,13 @@ from tpushare_torch.workloads.ops.attention import (check_window,
                                                     flash_attention_plain)
 from tpushare_torch.workloads.ops.paged_attention import (paged_decode,
                                                           xla_paged_read)
+from tpushare_torch.workloads.ops.ragged_decode import (
+    ragged_decode_attention)
 
 IMPL_FLASH = "flash"      # kernels/flash_fwd.cu, flash_bwd.cu
 IMPL_SPLASH = "splash"    # no Hopper counterpart yet
 IMPL_PAGED = "paged"      # kernels/paged_decode.cu
-IMPL_RAGGED = "ragged"    # no Hopper counterpart yet
+IMPL_RAGGED = "ragged"    # kernels/ragged_decode.cu
 IMPL_XLA = "xla"          # the plain-PyTorch twins
 IMPLS = consts.KERNEL_IMPLS
 
@@ -51,11 +54,14 @@ IMPL_AUTO = "auto"
 IMPL_KERNEL = "kernel"
 
 KIND_PREFILL = "prefill"
+KIND_DECODE = "decode"    # single-token read over the contiguous slot cache
 KIND_PAGED = "paged"
-KINDS = (KIND_PREFILL, KIND_PAGED)
+KINDS = (KIND_PREFILL, KIND_DECODE, KIND_PAGED)
 
 SPLASH_MIN_SEQ = 4096
 SPLASH_HEAD_DIM = 128
+RAGGED_BLOCK = 256        # the reference's gate: cache rows % 256 == 0
+RAGGED_HEAD_DIM = 128     # the reference's gate: head_dim == 128
 PLATFORM = "cuda"
 
 
@@ -77,8 +83,11 @@ class KernelUnavailable(ValueError):
 @dataclasses.dataclass(frozen=True)
 class KernelChoice:
     """One resolved selection. ``fn`` by kind — prefill:
-    fn(q, k, v) on (B, S, H|Hkv, hd); paged: fn(q1, kp, vp, tables,
-    kv_lens) over one layer's pool."""
+    fn(q, k, v) on (B, S, H|Hkv, hd); decode: ragged
+    fn(q1, k, v, lengths, layer=) over the stacked slot cache, xla
+    ``decode.make_cached_attn_core`` (the dense masked einsum stays where
+    the cache layout lives); paged: fn(q1, kp, vp, tables, kv_lens) over
+    one layer's pool."""
 
     kind: str
     impl: str
@@ -148,6 +157,42 @@ def decide(kind: str, *, seq: int | None = None, window: int | None = None,
         raise KernelUnavailable(
             impl, kind, "the paged read chooses between 'paged' and 'xla'")
 
+    if kind == KIND_DECODE:
+        # the fill-proportional ragged slot read vs the dense masked einsum
+        if impl not in (IMPL_AUTO, IMPL_KERNEL, IMPL_RAGGED, IMPL_XLA):
+            raise KernelUnavailable(
+                impl, kind, "the slot-cache read chooses between 'ragged' "
+                "and 'xla'")
+        if impl == IMPL_XLA:
+            return IMPL_XLA, "explicit:xla"
+        explicit = impl in (IMPL_RAGGED, IMPL_KERNEL)
+
+        def reject(reason: str, detail: str) -> tuple[str, str]:
+            if explicit:
+                raise KernelUnavailable(IMPL_RAGGED, kind, detail)
+            return IMPL_XLA, reason
+
+        if window is not None:
+            return reject(
+                "window:ring-cache",
+                "ragged_decode composes with full causal attention only: "
+                "windowed models already serve from the O(window) ring "
+                "cache, which reads no dead rows to begin with")
+        if head_dim is not None and head_dim != RAGGED_HEAD_DIM:
+            return reject("head_dim:ragged-128",
+                          f"ragged_decode needs head_dim "
+                          f"{RAGGED_HEAD_DIM}, got {head_dim}")
+        if seq is not None and seq % RAGGED_BLOCK:
+            return reject("cache-rows:untiled",
+                          f"cache rows {seq} not divisible by "
+                          f"{RAGGED_BLOCK} (ragged_decode needs "
+                          "block-tileable max_seq)")
+        if explicit:
+            return IMPL_RAGGED, "explicit:ragged"
+        if platform != PLATFORM:
+            return IMPL_XLA, "platform:" + (platform or "none")
+        return IMPL_RAGGED, "auto:ragged"
+
     # ---- kind == KIND_PREFILL ------------------------------------------
     if impl in (IMPL_PAGED, IMPL_RAGGED):
         raise KernelUnavailable(
@@ -198,13 +243,19 @@ def select_attention(kind: str, *, seq: int | None = None,
                             n_kv_heads=n_kv_heads, head_dim=head_dim,
                             platform=platform, impl=impl)
     if chosen == IMPL_XLA and impl == IMPL_AUTO:
-        record_fallback(IMPL_FLASH if kind == KIND_PREFILL else IMPL_PAGED,
-                        reason)
+        record_fallback({KIND_PREFILL: IMPL_FLASH, KIND_DECODE: IMPL_RAGGED,
+                         KIND_PAGED: IMPL_PAGED}[kind], reason)
     if kind == KIND_PREFILL and chosen == IMPL_FLASH:
         fn = functools.partial(flash_attention, causal=causal, window=window)
     elif kind == KIND_PREFILL:
         fn = functools.partial(flash_attention_plain, causal=causal,
                                window=window)
+    elif kind == KIND_DECODE and chosen == IMPL_RAGGED:
+        fn = ragged_decode_attention
+    elif kind == KIND_DECODE:
+        # imported here: decode.py imports this module (via the model)
+        from tpushare_torch.workloads.decode import make_cached_attn_core
+        fn = make_cached_attn_core
     elif chosen == IMPL_PAGED:
         fn = paged_decode
     else:
