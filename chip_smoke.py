@@ -4,10 +4,13 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (flash forward, flash backward dQ and
-dK/dV, paged decode, ragged decode) from the sources in this checkout,
-holds each against its plain-PyTorch twin at the shapes the main paths
-give it, then drives the main paths through their entry points at full
-width (random weights from a seed):
+dK/dV, paged decode and ragged decode, each decode read with its int8
+rung) from the sources in this checkout, holds each against its
+plain-PyTorch twin at the shapes the main paths give it (phases
+``flash-vs-plain``, ``flash-bwd-vs-plain``, ``paged-vs-plain``,
+``paged-int8-vs-plain``, ``ragged-vs-plain``, ``ragged-int8-vs-plain``),
+then drives the main paths through their entry points at full width
+(random weights from a seed):
 
 - ``infer --mode forward`` at the flagship preset (1.2B; batch 8,
   seq 128) — flash-forward kernel;
@@ -21,6 +24,16 @@ width (random weights from a seed):
   ragged-decode kernel, one launch per layer per decode step;
   ``serve --window 128 --ring-rows 256`` (8 requests of up to 384 new
   tokens) — a ring cache that wraps;
+- ``infer --mode serve --paged --kv-codec int8`` (``serve-int8``: the
+  serve traffic over an int8 pool sized to the same HBM, 62 pages
+  against 32) — the paged kernel's int8 rung, one launch per layer per
+  decode step, no bf16 launch;
+- ``serve-ragged-int8``: the ``serve --ragged`` engine built with
+  ``cfg.kv_int8`` (int8 slot caches; the payload has no flag for it) —
+  the ragged kernel's int8 rung, one launch per layer per decode step;
+- ``f32-identity``, ``slot-f32-identity``, ``int8-f32-identity``: small
+  f32 configs whose kernel and plain reads give the same greedy tokens
+  (bf16/f32 pools and caches, then int8 ones);
 - ``train``: 6 steps of ``train.make_train_step`` at the reference's
   training preset (0.55B: d_model 1536, 16 heads of 96, 12 layers;
   batch 8 x seq 1024) — per step and layer one flash forward with LSE,
@@ -103,6 +116,13 @@ F32_PARAM_TOL, F32_PARAM_SHARE = 1e-6, 1e-4
 # limit, which shows the check tells a kernel that loses precision.
 LOGIT_TOL = 2e-2
 CONTROL_BITS = 5
+# the int8 rungs vs their twins: the rung folds k_s into the score and
+# v_s into the probability where the twin dequantizes first, so the two
+# differ in fp32 rounding and then in the output's one rounding. Held to
+# K5's limits (TOL, absolute + relative) and to K4's element-by-element
+# limits (FWD_TOL, as elem_rel_err measures), with the control — the
+# rung's output rounded to CONTROL_BITS_FWD significant bits — above the
+# bf16 element-wise limit.
 
 
 def smi_line() -> str:
@@ -560,6 +580,183 @@ def ragged_cases(torch):
 
 
 # ---------------------------------------------------------------------------
+# the int8 rungs of the paged (K5) and ragged (K4) reads
+# ---------------------------------------------------------------------------
+
+def check_int8(label, got, want, dtype):
+    """The rung against its twin: K5's absolute + relative limits, then
+    element by element at K4's limits, with the rounding control that
+    must fail the element-wise check."""
+    import torch
+    err = check_close(label, got, want, dtype)
+    tol = FWD_TOL[dtype]
+    rel = elem_rel_err(got, want)
+    control = elem_rel_err(round_to_bits(torch, got, CONTROL_BITS_FWD), want)
+    if not rel <= tol:
+        raise RuntimeError(f"{label}: {rel} of the value > {tol}")
+    if not control > tol:
+        raise RuntimeError(f"{label}: the {CONTROL_BITS_FWD}-bit control "
+                           "passes the check")
+    return dict(max_abs_err=err, tol=TOL[dtype], rel_err=rel, rel_tol=tol,
+                control_rel_err_b6=control)
+
+
+def int8_rows_bytes(rows: int, Hkv: int, hd: int) -> int:
+    """K and V bytes of ``rows`` int8 rows: hd int8 values and one fp32
+    scale per row and kv head."""
+    return 2 * rows * Hkv * (hd + 4)
+
+
+def paged_int8_cases(torch):
+    """K5's int8 rung against ``xla_paged_read`` on the same ``{q, s}``
+    pool (the twin dequantizes the gathered pages), with the bf16 rung's
+    time on a bf16 copy of the same pool beside it. No single PyTorch
+    call reads int8 rows with per-row scales: no library time."""
+    from tpushare_torch.workloads.decode import kv_dequantize, kv_quantize
+    from tpushare_torch.workloads.ops.paged_attention import (paged_decode,
+                                                              xla_paged_read)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    cases = [  # (label, B, H, Hkv, hd, ps, table width, max kv_len, dtype)
+        ("main-path", 8, 16, 16, 128, 32, 8, 256, "bfloat16"),
+        ("flagship-2k", 8, 16, 16, 128, 32, 64, 2048, "bfloat16"),
+        ("flagship-2k", 8, 16, 16, 128, 32, 64, 2048, "float32"),
+        ("gqa-2k", 8, 16, 4, 128, 32, 64, 2048, "bfloat16"),
+    ]
+    rows = []
+    for label, B, H, Hkv, hd, ps, P, max_len, dtype in cases:
+        dt = getattr(torch, dtype)
+        n_pages = B * P + 1
+
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        kp, vp = (kv_quantize(rn(n_pages, ps, Hkv, hd)) for _ in range(2))
+        tables = (torch.randperm(n_pages - 1, generator=gen, device="cuda")
+                  [:B * P].reshape(B, P) + 1).to(torch.int32)
+        tables[1, :P // 2] = tables[0, :P // 2]     # aliased prefix pages
+        kv_lens = torch.randint(max_len // 2 + 1, max_len + 1, (B,),
+                                generator=gen, device="cuda",
+                                dtype=torch.int32)
+        q1 = rn(B, H, hd).to(dt)
+
+        def kernel():
+            return paged_decode(q1, kp, vp, tables, kv_lens)
+
+        def plain():
+            return xla_paged_read(q1[:, None], kp, vp, tables, kv_lens,
+                                  H, Hkv)[:, 0]
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        checked = check_int8(f"paged-int8 {label} {dtype}", got, want, dtype)
+        kb, vb = kv_dequantize(kp, dt), kv_dequantize(vp, dt)
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain)
+        bf16_rung_ms = time_ms(lambda: paged_decode(q1, kb, vb, tables,
+                                                    kv_lens))
+        rows_read = int(kv_lens.sum().item())
+        elem = q1.element_size()
+        n_bytes = int8_rows_bytes(rows_read, Hkv, hd) \
+            + 2 * q1.numel() * elem + tables.numel() * 4 + kv_lens.numel() * 4
+        bms, by = bound_ms(n_bytes, 4 * H * hd * rows_read, dtype)
+        row = dict(case=label, B=B, H=H, Hkv=Hkv, hd=hd, ps=ps, P=P,
+                   dtype=dtype, kv_rows=rows_read, bytes_read=n_bytes,
+                   **checked, ms=ms, plain_ms=plain_ms,
+                   same_shape_dense_rung_ms=bf16_rung_ms, library_ms=None,
+                   bound_ms=bms, bound_by=by,
+                   gb_per_s=n_bytes / (ms * 1e-3) / 1e9)
+        phase("paged-int8-vs-plain", **row)
+        rows.append(row)
+    return rows
+
+
+def ragged_int8_cases(torch):
+    """K4's int8 rung against ``ragged_decode_plain`` on the same codec
+    caches at PR 3's shapes, timed beside its bound, its twin, the bf16
+    (or fp32) rung on a dequantized copy, and SDPA with a boolean mask on
+    that copy — a labelled reference point, not a library call for this
+    function (none reads int8 rows with per-row scales); then the
+    capacity row, bitwise."""
+    from tpushare_torch.workloads.decode import kv_dequantize, kv_quantize
+    from tpushare_torch.workloads.ops.ragged_decode import (
+        ragged_decode_attention, ragged_decode_plain)
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    hd = 128
+    cases = [  # (label, B, S, H, Hkv, dtype)
+        ("serve", 4, 256, 16, 16, "bfloat16"),
+        ("long", 8, 16384, 16, 16, "bfloat16"),
+        ("gqa", 8, 16384, 16, 4, "bfloat16"),
+        ("f32", 4, 4096, 16, 16, "float32"),
+    ]
+    rows, long_inputs = [], None
+    for label, B, S, H, Hkv, dtype in cases:
+        dt = getattr(torch, dtype)
+
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        q = rn(B, H, hd).to(dt)
+        k, v = (kv_quantize(rn(B, S, Hkv, hd)) for _ in range(2))
+        lens = ragged_lengths(torch, gen, label, B, S)
+        if label == "long":
+            long_inputs = (q, k, v)
+
+        def kernel():
+            return ragged_decode_attention(q, k, v, lens)
+
+        def plain():
+            return ragged_decode_plain(q, k, v, lens)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        checked = check_int8(f"ragged-int8 {label} {dtype}", got, want,
+                             dtype)
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain)
+        kd, vd = kv_dequantize(k, dt), kv_dequantize(v, dt)
+        dense_ms = time_ms(lambda: ragged_decode_attention(q, kd, vd, lens))
+        mask = (torch.arange(S, device="cuda")[None, :]
+                <= lens[:, None])[:, None, None, :]          # (B, 1, 1, S)
+        qt, kt, vt = q[:, :, None, :], kd.transpose(1, 2), vd.transpose(1, 2)
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=Hkv != H))
+        del kd, vd, kt, vt
+        live = int((lens.long() + 1).clamp(max=S).sum().item())
+        n_bytes = int8_rows_bytes(live, Hkv, hd) \
+            + 2 * q.numel() * q.element_size() + 4 * B
+        bms, by = bound_ms(n_bytes, 4 * H * hd * live, dtype)
+        row = dict(case=label, B=B, S=S, H=H, Hkv=Hkv, hd=hd, dtype=dtype,
+                   live_rows=live, fill=live / (B * S),
+                   live_kv_bytes=int8_rows_bytes(live, Hkv, hd), **checked,
+                   ms=ms, plain_ms=plain_ms,
+                   same_shape_dense_rung_ms=dense_ms,
+                   sdpa_on_dequantized_copy_ms=sdpa_ms, library_ms=None,
+                   bound_ms=bms, bound_by=by,
+                   gb_per_s=n_bytes / (ms * 1e-3) / 1e9)
+        phase("ragged-int8-vs-plain", **row)
+        rows.append(row)
+    # capacity: every length < 4096, the same live rows in both caches
+    q, k, v = long_inputs
+    B, S = k["q"].shape[:2]
+    small = 4096
+    lens = ragged_lengths(torch, gen, "serve", B, small)
+    lens[0], lens[1] = 0, small - 1
+    big_out = ragged_decode_attention(q, k, v, lens)
+    k4, v4 = ({p: leaf[p][:, :small].contiguous() for p in ("q", "s")}
+              for leaf in (k, v))
+    small_out = ragged_decode_attention(q, k4, v4, lens)
+    torch.cuda.synchronize()
+    if not torch.equal(big_out, small_out):
+        raise RuntimeError("ragged-int8 capacity: the same live rows in a "
+                           "4096- and a 16384-row cache differ "
+                           f"({max_err(big_out, small_out)})")
+    phase("ragged-int8-vs-plain", case="capacity", B=B, S_small=small,
+          S_big=S, bitwise_equal=True, max_len=int(lens.max().item()),
+          rel_err_vs_plain=elem_rel_err(small_out,
+                                        ragged_decode_plain(q, k4, v4, lens)),
+          ms_small=time_ms(lambda: ragged_decode_attention(q, k4, v4, lens)),
+          ms_big=time_ms(lambda: ragged_decode_attention(q, k, v, lens)))
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phases 4 and 5: the main paths at full width
 # ---------------------------------------------------------------------------
 
@@ -652,13 +849,18 @@ def decode_path(torch, build, infer):
     return launches
 
 
-def serve_path(torch, build, infer):
+def paged_serve(torch, build, infer, extra):
+    """One ``infer --mode serve --paged`` run at the serve traffic with
+    the counts and fallbacks zeroed just before it: 8 lanes reading
+    through the paged kernel, every request completed with its
+    ``max_new`` tokens, no page leaked, no fallback, no flash launch
+    (admission runs chunk_step's einsums)."""
+    from tpushare_torch.workloads.ops import registry
     build.reset_launches()
-    res = infer.run(infer.parse_args(
-        ["--mode", "serve", "--paged", "--requests", "16", "--slots", "4",
-         "--seq", "512", "--steps", "128", "--hbm-limit-mib", "80000",
-         "--seed", "0"]))
+    registry.reset_fallbacks()
+    res = infer.run(infer.parse_args(SERVE_ARGS + ["--paged"] + extra))
     launches = dict(build.LAUNCHES)
+    fallbacks = registry.fallback_counts()
     eng, reqs = res["engine"], res["requests"]
     if eng.attn_impl != "paged" or eng.n_lanes != 8:
         raise RuntimeError(f"engine read {eng.attn_impl} lanes {eng.n_lanes}")
@@ -668,24 +870,64 @@ def serve_path(torch, build, infer):
         raise RuntimeError(f"requests not all completed: {bad}")
     if eng.alloc.pages_in_use() != 0 or eng.alloc.leaked() != 0:
         raise RuntimeError("pages leaked after the serving run")
-    # every decode step of the run (warm-up request included: the counts
-    # were zeroed before it) reads the pool once per layer through the
-    # kernel; admission runs chunk_step's einsums, never flash
+    if fallbacks or launches["flash_fwd"]:
+        raise RuntimeError(f"paged serve {extra} fell back {fallbacks} or "
+                           f"launched flash: {launches}")
     steps = res["warmup_decode_steps"] + res["decode_steps"]
-    n_layers = eng.cfg.n_layers
-    if launches["paged_decode"] != n_layers * steps:
-        raise RuntimeError(f"paged launches {launches['paged_decode']} != "
-                           f"{n_layers} layers x {steps} decode steps: "
-                           "some step read through the plain twin")
-    if launches["flash_fwd"]:
-        raise RuntimeError(f"the paged engine launched flash: {launches}")
     ttft = res["ttft_s"]
-    phase("serve", tokens_per_s=res["tokens_per_s"], tokens=res["tokens"],
-          seconds=res["seconds"], ttft_p50_ms=ttft[len(ttft) // 2] * 1e3,
-          ttft_max_ms=ttft[-1] * 1e3, decode_steps=steps,
-          paged_launches=launches["paged_decode"],
-          flash_launches=launches["flash_fwd"],
-          pages_in_use=eng.alloc.pages_in_use())
+    fields = dict(tokens_per_s=res["tokens_per_s"], tokens=res["tokens"],
+                  seconds=res["seconds"],
+                  ttft_p50_ms=ttft[len(ttft) // 2] * 1e3,
+                  ttft_max_ms=ttft[-1] * 1e3, decode_steps=steps,
+                  peak_running=eng.stats["peak_running"],
+                  n_pages=eng.alloc.n_pages, kv_codec=eng.kv_codec,
+                  pool_mib=eng.pool_mib,
+                  **{f"{k}_launches": n for k, n in launches.items()})
+    return res, launches, steps, fields
+
+
+def serve_path(torch, build, infer):
+    """``serve --paged`` over a bf16 pool: every decode step of the run
+    (the warm-up request's too) reads the pool once per layer through
+    the kernel's bf16 rung."""
+    res, launches, steps, fields = paged_serve(torch, build, infer, [])
+    n_layers = res["engine"].cfg.n_layers
+    if launches["paged_decode"] != n_layers * steps or \
+            launches["paged_decode_int8"]:
+        raise RuntimeError(f"paged launches {launches} != {n_layers} layers "
+                           f"x {steps} decode steps on the bf16 rung")
+    phase("serve", **fields)
+    return launches, fields
+
+
+def serve_int8_path(torch, build, infer, bf16_fields):
+    """``serve --paged --kv-codec int8`` at the same traffic: the pool is
+    sized to the same HBM under the int8 codec (62 pages against the
+    bf16 pool's 32 at the flagship) and every decode step reads it once
+    per layer through the int8 rung — no bf16 launch."""
+    from tpushare_torch.workloads import paging
+    res, launches, steps, fields = paged_serve(torch, build, infer,
+                                               ["--kv-codec", "int8"])
+    eng = res["engine"]
+    cfg, n_layers = eng.cfg, eng.cfg.n_layers
+    budget = paging.pool_hbm_mib(paging.pages_for_rows(4 * eng.max_seq, 32),
+                                 32, cfg.n_layers, cfg.kv_heads, cfg.head_dim)
+    want_pages = paging.pages_for_hbm(budget, 32, cfg.n_layers, cfg.kv_heads,
+                                      cfg.head_dim, codec="int8")
+    if eng.kv_codec != "int8" or eng.alloc.n_pages != want_pages:
+        raise RuntimeError(f"int8 pool {eng.kv_codec} of {eng.alloc.n_pages} "
+                           f"pages, not int8 of {want_pages}")
+    if launches["paged_decode_int8"] != n_layers * steps or \
+            launches["paged_decode"]:
+        raise RuntimeError(f"int8 paged launches {launches} != {n_layers} "
+                           f"layers x {steps} decode steps on the int8 rung")
+    phase("serve-int8", **fields,
+          bf16_tokens_per_s=bf16_fields["tokens_per_s"],
+          bf16_ttft_p50_ms=bf16_fields["ttft_p50_ms"],
+          bf16_peak_running=bf16_fields["peak_running"],
+          bf16_n_pages=bf16_fields["n_pages"],
+          tokens_per_s_ratio=fields["tokens_per_s"]
+          / bf16_fields["tokens_per_s"])
     return launches
 
 
@@ -749,6 +991,56 @@ def serve_ragged_path(torch, build, infer):
     if fallbacks:
         raise RuntimeError(f"serve --ragged fell back: {fallbacks}")
     phase("serve-ragged", **fields, fallbacks=len(fallbacks))
+    return launches, res
+
+
+def serve_ragged_int8_path(torch, build, infer, ragged_res):
+    """The ``serve --ragged`` engine built again with ``cfg.kv_int8``
+    (int8 slot caches — the payload has no flag for it, as the
+    reference's has none) on the same weights and traffic: every decode
+    step reads each layer through the ragged kernel's int8 rung, exactly
+    16 launches per step, and no other kernel runs."""
+    from tpushare_torch.workloads.ops import registry
+    from tpushare_torch.workloads.serving import ServingEngine
+    base = ragged_res["engine"]
+    cfg = dataclasses.replace(base.cfg, kv_int8=True)
+    args = infer.parse_args(SERVE_ARGS + ["--ragged"])
+    build.reset_launches()
+    registry.reset_fallbacks()
+    eng = ServingEngine(base.params, cfg, n_slots=base.n_slots,
+                        max_seq=base.max_seq, prompt_buckets=base.buckets,
+                        chunk=base.chunk, seed=args.seed, top_k=args.top_k)
+    res = infer.serve_traffic(eng, args, cfg, torch.device("cuda"),
+                              len(ragged_res["requests"][0].prompt),
+                              base.max_seq, base.n_slots)
+    launches = dict(build.LAUNCHES)
+    fallbacks = registry.fallback_counts()
+    bad = [r.status for r in res["requests"] if r.status != "completed"
+           or len(r.output) != r.max_new]
+    if bad:
+        raise RuntimeError(f"serve-ragged-int8: requests not all "
+                           f"completed: {bad}")
+    if eng.attn_impl != "ragged" or eng.slots["k"]["q"].dtype != torch.int8:
+        raise RuntimeError("serve-ragged-int8 is not an int8 ragged engine")
+    steps = res["warmup_decode_steps"] + res["decode_steps"]
+    n_layers = cfg.n_layers
+    others = {k: n for k, n in launches.items() if k != "ragged_decode_int8"}
+    if launches["ragged_decode_int8"] != n_layers * steps or any(
+            others.values()):
+        raise RuntimeError(f"serve-ragged-int8 launches {launches} != "
+                           f"{n_layers} layers x {steps} decode steps on "
+                           "the int8 rung alone")
+    if fallbacks:
+        raise RuntimeError(f"serve-ragged-int8 fell back: {fallbacks}")
+    ttft = res["ttft_s"]
+    phase("serve-ragged-int8", tokens_per_s=res["tokens_per_s"],
+          tokens=res["tokens"], seconds=res["seconds"],
+          ttft_p50_ms=ttft[len(ttft) // 2] * 1e3,
+          ttft_max_ms=ttft[-1] * 1e3, decode_steps=steps,
+          attn_impl=eng.attn_impl, cache_rows=eng.cache_rows,
+          bf16_tokens_per_s=ragged_res["tokens_per_s"],
+          **{f"{k}_launches": n for k, n in launches.items()},
+          fallbacks=len(fallbacks))
     return launches
 
 
@@ -768,77 +1060,104 @@ def serve_ring_path(torch, build, infer):
     return launches
 
 
-def slot_f32_identity(torch, build):
-    """A small f32 config with head_dim 128: the slot engine through the
-    ragged kernel, through the einsum read, and the kernel engine's
-    pipelined loop give token-identical greedy transcripts."""
+SLOT_F32 = dict(vocab=512, d_model=512, n_heads=4, n_kv_heads=2,
+                n_layers=2, d_ff=1024, max_seq=512)
+PAGED_F32 = dict(vocab=512, d_model=256, n_heads=4, n_kv_heads=2,
+                 n_layers=2, d_ff=512, max_seq=256)
+
+
+def f32_setup(torch, kw, seed, n, max_prompt, new_range):
+    """A small f32 config, its weights and ``n`` (prompt, max_new) specs
+    from ``seed``."""
     import numpy as np
     from tpushare_torch.workloads.models.transformer import (
         TransformerConfig, init_params)
-    from tpushare_torch.workloads.serving import Request, ServingEngine
-    cfg = TransformerConfig(vocab=512, d_model=512, n_heads=4, n_kv_heads=2,
-                            n_layers=2, d_ff=1024, max_seq=512,
-                            dtype=torch.float32)
-    params = init_params(torch.Generator(device="cuda").manual_seed(12),
+    cfg = TransformerConfig(**kw, dtype=torch.float32)
+    params = init_params(torch.Generator(device="cuda").manual_seed(seed),
                          cfg, "cuda")
-    rng = np.random.default_rng(12)
-    specs = [(rng.integers(0, cfg.vocab, int(rng.integers(5, 90))).tolist(),
-              int(rng.integers(8, 120))) for _ in range(6)]
+    rng = np.random.default_rng(seed)
+    specs = [(rng.integers(0, cfg.vocab, int(rng.integers(5, max_prompt)))
+              .tolist(), int(rng.integers(*new_range))) for _ in range(n)]
+    return cfg, params, specs, rng
+
+
+def transcripts(eng, specs):
+    from tpushare_torch.workloads.serving import Request
+    reqs = [Request(prompt=p, max_new=n) for p, n in specs]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    return [r.output for r in reqs]
+
+
+def slot_identity(torch, build, kv_int8: bool):
+    """The slot engine through the ragged kernel, through the einsum read
+    and through the kernel engine's pipelined loop: token-identical
+    greedy transcripts. Returns (requests, tokens, launches by run)."""
+    from tpushare_torch.workloads.serving import ServingEngine
+    cfg, params, specs, _ = f32_setup(torch, SLOT_F32, 12, 6, 90, (8, 120))
+    name = "ragged_decode_int8" if kv_int8 else "ragged_decode"
     outs, launched = {}, {}
     for label, ragged, pipeline in (("kernel", True, False),
                                     ("einsum", False, False),
                                     ("kernel-pipelined", True, True)):
-        before = build.LAUNCHES["ragged_decode"]
+        before = dict(build.LAUNCHES)
         eng = ServingEngine(params, dataclasses.replace(
-            cfg, ragged_decode=ragged), n_slots=3, max_seq=512,
-            prompt_buckets=(16, 64), chunk=4, pipeline=pipeline)
-        reqs = [Request(prompt=p, max_new=n) for p, n in specs]
-        for r in reqs:
-            eng.submit(r)
-        eng.run()
-        outs[label] = [r.output for r in reqs]
-        launched[label] = build.LAUNCHES["ragged_decode"] - before
-    if not launched["kernel"] or launched["einsum"]:
-        raise RuntimeError(f"slot f32 launches {launched}")
+            cfg, ragged_decode=ragged, kv_int8=kv_int8), n_slots=3,
+            max_seq=512, prompt_buckets=(16, 64), chunk=4, pipeline=pipeline)
+        outs[label] = transcripts(eng, specs)
+        launched[label] = {k: n - before[k] for k, n in build.LAUNCHES.items()
+                           if n - before[k]}
+    if not (launched["kernel"].get(name) and launched["kernel-pipelined"]
+            .get(name)) or launched["einsum"] or any(
+                set(launched[k]) - {name} for k in launched):
+        raise RuntimeError(f"slot f32 launches {launched} (wanted {name})")
     if not outs["kernel"] == outs["einsum"] == outs["kernel-pipelined"]:
-        raise RuntimeError("f32 slot engine: kernel / einsum / pipelined "
-                           "transcripts differ")
-    phase("slot-f32-identity", requests=len(specs),
-          tokens=sum(len(o) for o in outs["kernel"]),
-          ragged_launches=launched["kernel"],
-          pipelined_launches=launched["kernel-pipelined"], identical=True)
+        raise RuntimeError(f"f32 slot engine (kv_int8={kv_int8}): kernel / "
+                           "einsum / pipelined transcripts differ")
+    return len(specs), sum(map(len, outs["kernel"])), launched
+
+
+def paged_identity(torch, build, kv_codec: str):
+    """The paged engine through the kernel and through the gather twin:
+    token-identical greedy transcripts. Returns (params, cfg, rng,
+    requests, tokens, kernel launches)."""
+    from tpushare_torch.workloads.serving import PagedServingEngine
+    cfg, params, specs, rng = f32_setup(torch, PAGED_F32, 4, 6, 60,
+                                       (4, 40))
+    name = "paged_decode_int8" if kv_codec == "int8" else "paged_decode"
+    outs, launched = {}, {}
+    for impl in ("paged", "xla"):
+        before = build.LAUNCHES[name]
+        eng = PagedServingEngine(params, cfg, n_lanes=3, max_seq=128,
+                                 n_pages=40, page_size=16,
+                                 prompt_buckets=(16, 64), chunk=4,
+                                 attn_impl=impl, kv_codec=kv_codec)
+        outs[impl] = transcripts(eng, specs)
+        launched[impl] = build.LAUNCHES[name] - before
+    if not launched["paged"] or launched["xla"]:
+        raise RuntimeError(f"f32 paged {kv_codec} launches {launched}")
+    if outs["paged"] != outs["xla"]:
+        raise RuntimeError(f"f32 engine ({kv_codec} pool): kernel read != "
+                           "plain read tokens")
+    return (params, cfg, rng, len(specs), sum(map(len, outs["paged"])),
+            launched["paged"])
+
+
+def slot_f32_identity(torch, build):
+    n, tokens, launched = slot_identity(torch, build, kv_int8=False)
+    phase("slot-f32-identity", requests=n, tokens=tokens,
+          ragged_launches=launched["kernel"]["ragged_decode"],
+          pipelined_launches=launched["kernel-pipelined"]["ragged_decode"],
+          identical=True)
 
 
 def small_f32_identity(torch, build):
     """Small f32 config: the kernel-read engine and kernel-prefill
     generate (a 77-token prompt: no tiling needed) are
     greedy-token-identical to their plain-path twins."""
-    import numpy as np
     from tpushare_torch.workloads.decode import generate
-    from tpushare_torch.workloads.models.transformer import (
-        TransformerConfig, init_params)
-    from tpushare_torch.workloads.serving import PagedServingEngine, Request
-    cfg = TransformerConfig(vocab=512, d_model=256, n_heads=4, n_kv_heads=2,
-                            n_layers=2, d_ff=512, max_seq=256,
-                            dtype=torch.float32)
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    params = init_params(gen, cfg, "cuda")
-    rng = np.random.default_rng(4)
-    specs = [(rng.integers(0, cfg.vocab, int(rng.integers(5, 60))).tolist(),
-              int(rng.integers(4, 40))) for _ in range(6)]
-    outs = {}
-    for impl in ("paged", "xla"):
-        eng = PagedServingEngine(params, cfg, n_lanes=3, max_seq=128,
-                                 n_pages=40, page_size=16,
-                                 prompt_buckets=(16, 64), chunk=4,
-                                 attn_impl=impl)
-        reqs = [Request(prompt=p, max_new=n) for p, n in specs]
-        for r in reqs:
-            eng.submit(r)
-        eng.run()
-        outs[impl] = [r.output for r in reqs]
-    if outs["paged"] != outs["xla"]:
-        raise RuntimeError("f32 engine: kernel read != plain read tokens")
+    params, cfg, rng, n, tokens, _ = paged_identity(torch, build, "bf16")
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 77))).cuda()
     before = build.LAUNCHES["flash_fwd"]
     g_kernel = generate(params, prompt, cfg, 16)
@@ -850,10 +1169,25 @@ def small_f32_identity(torch, build):
                        dataclasses.replace(cfg, attn_impl="xla"), 16)
     if not torch.equal(g_kernel, g_plain):
         raise RuntimeError("f32 generate: flash prefill != plain prefill")
-    phase("f32-identity", engine_requests=len(specs),
-          engine_tokens=sum(len(o) for o in outs["paged"]),
+    phase("f32-identity", engine_requests=n, engine_tokens=tokens,
           generate_tokens=int(g_kernel.numel()),
           prefill_flash_launches=prefill_launches, identical=True)
+
+
+def int8_f32_identity(torch, build):
+    """The int8 codec under the same identities: the paged engine over an
+    int8 pool, K5's int8 rung against the gather twin; the slot engine
+    with ``kv_int8``, K4's int8 rung against the einsum read and the
+    pipelined loop. Both sides quantize with the same plain-PyTorch
+    write, so only the reads differ."""
+    _, _, _, pn, ptokens, plaunched = paged_identity(torch, build, "int8")
+    sn, stokens, slaunched = slot_identity(torch, build, kv_int8=True)
+    phase("int8-f32-identity", paged_requests=pn, paged_tokens=ptokens,
+          paged_int8_launches=plaunched, slot_requests=sn,
+          slot_tokens=stokens,
+          ragged_int8_launches=slaunched["kernel"]["ragged_decode_int8"],
+          pipelined_int8_launches=slaunched["kernel-pipelined"][
+              "ragged_decode_int8"], identical=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1094,17 +1428,25 @@ def main() -> int:
     bwd_rows = bwd_cases(torch)
     torch.cuda.empty_cache()    # the S=2048 plain twins' score matrices
     paged_rows = paged_cases(torch)
+    paged_int8_rows = paged_int8_cases(torch)
     ragged_rows = ragged_cases(torch)
     torch.cuda.empty_cache()    # the long-cache rows' caches and twins
+    ragged_int8_rows = ragged_int8_cases(torch)
+    torch.cuda.empty_cache()
     paths = {}
     paths["forward"], _, _ = forward_path(torch, build, infer)
     paths["decode"] = decode_path(torch, build, infer)
-    paths["serve"] = serve_path(torch, build, infer)
+    paths["serve"], serve_fields = serve_path(torch, build, infer)
+    paths["serve-int8"] = serve_int8_path(torch, build, infer, serve_fields)
     paths["serve-slot"] = serve_slot_path(torch, build, infer)
-    paths["serve-ragged"] = serve_ragged_path(torch, build, infer)
+    paths["serve-ragged"], ragged_res = serve_ragged_path(torch, build, infer)
+    paths["serve-ragged-int8"] = serve_ragged_int8_path(torch, build, infer,
+                                                        ragged_res)
+    del ragged_res
     paths["serve-ring"] = serve_ring_path(torch, build, infer)
     small_f32_identity(torch, build)
     slot_f32_identity(torch, build)
+    int8_f32_identity(torch, build)
     paths["train"] = train_path(torch, build, smi)
     paths["train-remat"] = train_remat_path(torch, build)
     train_f32_parity(torch, build)
@@ -1156,15 +1498,29 @@ def main() -> int:
                     "tpushare/workloads/ops/ragged_decode.py:70",
                     next(r for r in ragged_rows if r["case"] == "long"),
                     "ragged-vs-plain, serve-ragged, slot-f32-identity"),
+        kernel_line("paged_decode_int8",
+                    "tpushare_torch/workloads/kernels/paged_decode.cu",
+                    "tpushare/workloads/ops/registry.py:617",
+                    paged_int8_rows[0],
+                    "paged-int8-vs-plain, serve-int8, int8-f32-identity"),
+        kernel_line("ragged_decode_int8",
+                    "tpushare_torch/workloads/kernels/ragged_decode.cu",
+                    "tpushare/workloads/ops/ragged_decode.py:70",
+                    next(r for r in ragged_int8_rows if r["case"] == "long"),
+                    "ragged-int8-vs-plain, serve-ragged-int8, "
+                    "int8-f32-identity"),
     ]
-    # the ragged read at the serve --ragged shape
-    kernels[4]["serve_shape"] = {k: ragged_rows[0][k] for k in (
-        "B", "S", "H", "Hkv", "hd", "dtype", "max_abs_err", "ms",
-        "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    # the ragged reads at the serve --ragged shape
+    for line, rows in ((kernels[4], ragged_rows),
+                       (kernels[6], ragged_int8_rows)):
+        line["serve_shape"] = {k: rows[0][k] for k in (
+            "B", "S", "H", "Hkv", "hd", "dtype", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")}
     # the forward on the training path: the LSE launch at the train shape
     kernels[0]["train_shape"] = {k: train_fwd[k] for k in (
         "B", "S", "H", "Hkv", "hd", "dtype", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    phase("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's main paths spend their time on one GPU.
 
-    python scripts/torch_profile.py
+    python scripts/torch_profile.py [path ...]
 
 At the flagship preset (1.2B, bf16, random weights from a seed) this
 profiles, with ``torch.profiler`` (CPU + CUDA activities):
 
 - ``forward``: three batch-8 x seq-128 forwards;
 - ``decode``: the paged serving engine's decode chunks with 8 lanes busy;
+  ``decode-int8`` the same over an int8 pool (``kv_codec="int8"``);
 - ``serve-ragged``: the slot engine's decode chunks with ``ragged_decode``
-  (``infer --mode serve --ragged``), 4 slots busy;
+  (``infer --mode serve --ragged``), 4 slots busy; ``serve-ragged-int8``
+  the same over int8 slot caches (``cfg.kv_int8``);
 
 and at the reference's training preset (0.55B: d_model 1536, 16 heads of
 96, 12 layers, bf16; batch 8 x seq 1024):
@@ -19,9 +21,10 @@ and at the reference's training preset (0.55B: d_model 1536, 16 heads of
 For each it prints one JSON line: host wall time per step, device busy
 time per step (the sum of the device-side kernel and copy times), the
 device idle share over the window (1 - busy / wall), device launches per
-step (all kernels and copies; ``serve-ragged`` also the ragged kernel's
-own count), and the top kernels by device time. Needs a CUDA device;
-exits non-zero without one.
+step (all kernels and copies; the decode paths also their decode
+kernel's own count), and the top kernels by device time. With path names
+as arguments only those run (default: all). Needs a CUDA device; exits
+non-zero without one.
 """
 
 from __future__ import annotations
@@ -67,17 +70,31 @@ def profile(torch, fn, n_steps_of, label, **extra):
     }), flush=True)
 
 
+PATHS = ("forward", "decode", "decode-int8", "serve-ragged",
+         "serve-ragged-int8", "train")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 1
+    wanted = sys.argv[1:] or list(PATHS)
+    unknown = set(wanted) - set(PATHS)
+    if unknown:
+        print(f"torch_profile: unknown paths {sorted(unknown)}; pick from "
+              f"{PATHS}", file=sys.stderr)
+        return 2
     sys.path.insert(0, str(REPO))
+    import dataclasses
+
     from tpushare_torch.workloads import paging
     from tpushare_torch.workloads.infer import pick_config
+    from tpushare_torch.workloads.kernels import build
     from tpushare_torch.workloads.models.transformer import (forward,
                                                              init_params)
-    from tpushare_torch.workloads.serving import PagedServingEngine, Request
+    from tpushare_torch.workloads.serving import (PagedServingEngine,
+                                                  Request, ServingEngine)
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -85,67 +102,63 @@ def main() -> int:
     cfg = pick_config(80_000)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(gen, cfg, "cuda")
-
-    tokens = torch.randint(0, cfg.vocab, (8, 128), generator=gen,
-                           device="cuda")
-    forward(params, tokens, cfg)
-
-    def forwards():
-        for _ in range(3):
-            forward(params, tokens, cfg)
-        return 3
-    profile(torch, forwards, lambda n: n, "forward")
-
-    # decode: 8 lanes, each with room for prompt 128 + 128 new tokens
-    ps, max_seq, lanes = 32, 256, 8
-    n_pages = lanes * paging.pages_for_rows(max_seq, ps) + 1
-    eng = PagedServingEngine(params, cfg, n_lanes=lanes, max_seq=max_seq,
-                             n_pages=n_pages, page_size=ps,
-                             prompt_buckets=(128,), chunk=16)
     rng = torch.Generator().manual_seed(1)
-    for _ in range(lanes):
-        eng.submit(Request(prompt=torch.randint(0, cfg.vocab, (128,),
-                                                generator=rng).tolist(),
-                           max_new=120))
-    eng.step()                        # admission wave + first chunk (warm)
-    before = eng.stats["lane_steps"]
 
-    def chunks():
-        for _ in range(2):
-            eng.step()
-        return eng.stats["lane_steps"]
-    profile(torch, chunks,
-            lambda after: (after - before) // lanes, "decode")
-    del eng
-    torch.cuda.empty_cache()
+    if "forward" in wanted:
+        tokens = torch.randint(0, cfg.vocab, (8, 128), generator=gen,
+                               device="cuda")
+        forward(params, tokens, cfg)
+
+        def forwards():
+            for _ in range(3):
+                forward(params, tokens, cfg)
+            return 3
+        profile(torch, forwards, lambda n: n, "forward")
+
+    def decode_chunks(eng, lanes, label, kernel):
+        """Fill every lane (prompt 128, 120 new tokens), warm with the
+        admission wave and first chunk, then profile two more chunks."""
+        for _ in range(lanes):
+            eng.submit(Request(prompt=torch.randint(0, cfg.vocab, (128,),
+                                                    generator=rng).tolist(),
+                               max_new=120))
+        eng.step()
+        before = eng.stats["lane_steps"]
+        build.reset_launches()
+
+        def chunks():
+            for _ in range(2):
+                eng.step()
+            return eng.stats["lane_steps"]
+        profile(torch, chunks, lambda after: (after - before) // lanes,
+                label, **{f"{kernel}_launches_per_step":
+                          lambda steps: build.LAUNCHES[kernel] / steps})
+        torch.cuda.empty_cache()
+
+    # the paged decode: 8 lanes, each with room for prompt 128 + 128 new
+    ps, max_seq, lanes = 32, 256, 8
+    for codec, label in (("bf16", "decode"), ("int8", "decode-int8")):
+        if label in wanted:
+            decode_chunks(PagedServingEngine(
+                params, cfg, n_lanes=lanes, max_seq=max_seq,
+                n_pages=lanes * paging.pages_for_rows(max_seq, ps) + 1,
+                page_size=ps, prompt_buckets=(128,), chunk=16,
+                kv_codec=codec), lanes, label,
+                "paged_decode_int8" if codec == "int8" else "paged_decode")
 
     # serve --ragged: 4 slots, prompt 128 + up to 120 new tokens
-    import dataclasses
-
-    from tpushare_torch.workloads.kernels import build
-    from tpushare_torch.workloads.serving import ServingEngine
-    slots = 4
-    eng = ServingEngine(params, dataclasses.replace(cfg, ragged_decode=True),
-                        n_slots=slots, max_seq=256, prompt_buckets=(128,),
-                        chunk=16)
-    for _ in range(slots):
-        eng.submit(Request(prompt=torch.randint(0, cfg.vocab, (128,),
-                                                generator=rng).tolist(),
-                           max_new=120))
-    eng.step()                        # admission wave + first chunk (warm)
-    before = eng.stats["lane_steps"]
-    build.reset_launches()
-
-    def slot_chunks():
-        for _ in range(2):
-            eng.step()
-        return eng.stats["lane_steps"]
-    profile(torch, slot_chunks,
-            lambda after: (after - before) // slots, "serve-ragged",
-            ragged_launches_per_step=lambda steps:
-                build.LAUNCHES["ragged_decode"] / steps)
-    del eng, params
+    for int8, label in ((False, "serve-ragged"),
+                        (True, "serve-ragged-int8")):
+        if label in wanted:
+            decode_chunks(ServingEngine(
+                params, dataclasses.replace(cfg, ragged_decode=True,
+                                            kv_int8=int8),
+                n_slots=4, max_seq=256, prompt_buckets=(128,), chunk=16),
+                4, label, "ragged_decode_int8" if int8 else "ragged_decode")
+    del params
     torch.cuda.empty_cache()
+    if "train" not in wanted:
+        return 0
 
     from tpushare_torch.workloads.models.transformer import TransformerConfig
     from tpushare_torch.workloads.train import (init_state, make_optimizer,

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (flash forward, flash backward dQ and dK/dV,
-paged decode, ragged decode) against their plain-PyTorch twins, on an
-NVIDIA GPU.
+paged decode and ragged decode, each decode read with its int8 rung)
+against their plain-PyTorch twins, on an NVIDIA GPU.
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these skip on a host
 without a card. The file imports no JAX, so it runs on a GPU
 machine that has only the port's dependencies:
@@ -235,3 +235,110 @@ def test_ragged_wrapper_rejects_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="contiguous"):
         ragged_decode.ragged_decode_attention(
             q, k.transpose(1, 2).contiguous().transpose(1, 2), k, lengths)
+
+
+# ---------------------------------------------------------------------------
+# the int8 rungs of the paged (K5) and ragged (K4) reads
+# ---------------------------------------------------------------------------
+
+# element by element as a share of max(|value|, 2^-8 x the largest
+# |value|): the rung folds the scales into score and probability where
+# the twin dequantizes first, so the two differ in fp32 rounding, then
+# once in the output's rounding
+INT8_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+
+def int8_leaf(rng, shape, dev):
+    from tpushare_torch.workloads.decode import kv_quantize
+    return kv_quantize(randn(rng, shape, torch.float32, dev))
+
+
+def elem_share(got, want):
+    want = want.float()
+    floor = 2 ** -8 * want.abs().max()
+    return ((got.float() - want).abs()
+            / torch.maximum(want.abs(), floor)).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,H,Hkv,hd", [("bfloat16", 16, 16, 128),
+                                            ("bfloat16", 16, 4, 128),
+                                            ("float32", 8, 4, 64)])
+def test_paged_int8_rung_matches_plain_with_aliased_tables(dtype, H, Hkv,
+                                                           hd):
+    dev, dt = card(), getattr(torch, dtype)
+    rng = np.random.default_rng(16)
+    B, P, ps, n_pages = 4, 6, 16, 40
+    kp, vp = (int8_leaf(rng, (n_pages, ps, Hkv, hd), dev) for _ in range(2))
+    tables = rng.permutation(np.arange(1, n_pages))[:B * P].reshape(B, P)
+    tables[1, :2] = tables[0, :2]          # aliased shared-prefix pages
+    tables = torch.from_numpy(tables.astype(np.int32)).to(dev)
+    kv_lens = torch.tensor([P * ps, 13, 1, 29], dtype=torch.int32,
+                           device=dev)
+    q1 = randn(rng, (B, H, hd), dt, dev)
+    before = dict(build.LAUNCHES)
+    got = paged_attention.paged_decode(q1, kp, vp, tables, kv_lens)
+    assert build.LAUNCHES["paged_decode_int8"] == \
+        before["paged_decode_int8"] + 1
+    assert build.LAUNCHES["paged_decode"] == before["paged_decode"]
+    want = paged_attention.xla_paged_read(q1[:, None], kp, vp, tables,
+                                          kv_lens, H, Hkv)[:, 0]
+    assert elem_share(got, want) <= INT8_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,H,Hkv", [("bfloat16", 16, 16),
+                                         ("bfloat16", 16, 4),
+                                         ("float32", 8, 1)])
+def test_ragged_int8_rung_matches_plain(dtype, H, Hkv):
+    """The int8 rung against its twin on a stacked codec cache, one slot
+    at length 0 and one at S - 1; the same live rows in a larger cache
+    give a bitwise-equal result."""
+    from tpushare_torch.workloads.decode import kv_view
+    from tpushare_torch.workloads.ops import ragged_decode
+    dev, dt = card(), getattr(torch, dtype)
+    rng = np.random.default_rng(17)
+    L, B, S, hd = 2, 4, 512, 128
+    q = randn(rng, (B, H, hd), dt, dev)
+    k, v = (int8_leaf(rng, (L, B, S, Hkv, hd), dev) for _ in range(2))
+    lengths = torch.tensor([0, 37, 300, S - 1], dtype=torch.int32,
+                           device=dev)
+    before = dict(build.LAUNCHES)
+    got = ragged_decode.ragged_decode_attention(q, k, v, lengths, layer=1)
+    assert build.LAUNCHES["ragged_decode_int8"] == \
+        before["ragged_decode_int8"] + 1
+    assert build.LAUNCHES["ragged_decode"] == before["ragged_decode"]
+    want = ragged_decode.ragged_decode_plain(q, k, v, lengths, layer=1)
+    assert elem_share(got, want) <= INT8_TOL[dtype]
+    big = {}
+    for name, leaf in (("k", kv_view(k, 1)), ("v", kv_view(v, 1))):
+        big[name] = {"q": torch.zeros((B, 2 * S, Hkv, hd), dtype=torch.int8,
+                                      device=dev),
+                     "s": torch.ones((B, 2 * S, Hkv), device=dev)}
+        big[name]["q"][:, :S], big[name]["s"][:, :S] = leaf["q"], leaf["s"]
+    again = ragged_decode.ragged_decode_attention(q, big["k"], big["v"],
+                                                  lengths)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_int8_wrappers_reject_what_the_rungs_cannot_take():
+    from tpushare_torch.workloads.ops import ragged_decode
+    dev = card()
+    rng = np.random.default_rng(18)
+    q = randn(rng, (2, 4, 128), torch.bfloat16, dev)
+    k = int8_leaf(rng, (2, 16, 4, 128), dev)
+    lengths = torch.zeros((2,), dtype=torch.int32, device=dev)
+    bad = {"q": k["q"], "s": k["s"].double()}
+    with pytest.raises(ValueError, match="scales"):
+        ragged_decode.ragged_decode_attention(q, bad, k, lengths)
+    with pytest.raises(ValueError, match="contiguous"):
+        ragged_decode.ragged_decode_attention(
+            q, {"q": k["q"], "s": k["s"].transpose(1, 2).contiguous()
+                .transpose(1, 2)}, k, lengths)
+    pool = int8_leaf(rng, (5, 8, 4, 128), dev)
+    tables = torch.ones((2, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="scales"):
+        paged_attention.paged_decode(q, pool, {"q": pool["q"],
+                                               "s": pool["s"][:4]},
+                                     tables, lengths + 1)

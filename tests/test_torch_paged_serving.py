@@ -3,7 +3,11 @@
 port's offline ``generate`` and against the JAX ``PagedServingEngine``
 (f32, greedy, bridged weights), a request joining mid-wave, pool
 exhaustion deferring admission, a never-fitting request shed, and no
-leaked pages."""
+leaked pages. The int8 pool (``kv_codec="int8"``) against the reference's
+int8 paged engine (teacher-forced logits and gap-aware transcripts,
+``torch_int8_replay``), against the port's own offline replay of the
+pool's semantics, admitting deeper at equal HBM, and through ``infer
+--kv-codec int8``."""
 
 import dataclasses
 
@@ -15,14 +19,17 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from tpushare.workloads import decode as jdec  # noqa: E402
 from tpushare.workloads import serving as jserving  # noqa: E402
 from tpushare.workloads.models import transformer as jt  # noqa: E402
 from tpushare_torch import consts  # noqa: E402
 from tpushare_torch.workloads import bridge, overload  # noqa: E402
+from tpushare_torch.workloads import decode as tdec  # noqa: E402
 from tpushare_torch.workloads.decode import generate  # noqa: E402
 from tpushare_torch.workloads.models import transformer as tt  # noqa: E402
 from tpushare_torch.workloads.serving import (  # noqa: E402
     PagedServingEngine, Request)
+import torch_int8_replay as replay  # noqa: E402
 
 JCFG = jt.TransformerConfig(vocab=128, d_model=64, n_heads=4, n_layers=2,
                             d_ff=128, max_seq=256, dtype=jnp.float32)
@@ -235,3 +242,137 @@ def test_configs_the_pool_cannot_serve_are_rejected(field, value, match):
     cfg = dataclasses.replace(CFG, **{field: value})
     with pytest.raises(ValueError, match=match):
         PagedServingEngine(PARAMS, cfg, **ENGINE_KW)
+    with pytest.raises(ValueError, match=match):
+        PagedServingEngine(PARAMS, cfg, kv_codec="int8", **ENGINE_KW)
+
+
+# ---------------------------------------------------------------------------
+# the int8 pool (kv_codec="int8")
+# ---------------------------------------------------------------------------
+
+# teacher-forced logits, port vs reference: an int8 element one LSB
+# apart (a rounding tie the packages break differently) moves these
+# logits by ~1e-4-1e-3 at this size
+INT8_LOGIT_TOL = 5e-3
+JDEC = replay.JittedDecode(jdec)
+REPLAY = dict(buckets=ENGINE_KW["prompt_buckets"],
+              max_seq=ENGINE_KW["max_seq"], quantize_prefill=False)
+
+
+def int8_specs():
+    return [dict(prompt=rand_prompt(10 + i, 5 + 3 * i), max_new=6 + 2 * i)
+            for i in range(5)]
+
+
+def test_int8_pool_matches_the_reference_int8_engine():
+    """More requests than lanes, pages recycled: the int8 pool against the
+    reference's int8 paged engine on the same weights — teacher-forced
+    logits within INT8_LOGIT_TOL, transcripts equal up to a reference
+    near-tie, logprobs within the tolerance on the steps compared."""
+    reqs = [Request(**s) for s in int8_specs()]
+    jreqs = [jserving.Request(**s) for s in int8_specs()]
+    eng = paged(kv_codec="int8")
+    jeng = jserving.PagedServingEngine(JPARAMS, JCFG, kv_codec="int8",
+                                       **ENGINE_KW)
+    assert eng.kv_codec == "int8" and eng.attn_impl == "xla"
+    assert eng.state["k"]["q"].dtype == torch.int8
+    for r, jr in zip(reqs, jreqs):
+        eng.submit(r)
+        jeng.submit(jr)
+    eng.run()
+    jeng.run()
+    compared = 0
+    for r, jr in zip(reqs, jreqs):
+        assert r.status == jr.status == overload.STATUS_COMPLETED
+        want = replay.replay_logits(
+            JDEC, JPARAMS, JCFG, jr.prompt, jr.output,
+            to_arr=lambda t: jnp.asarray([t], jnp.int32), **REPLAY)
+        got = replay.replay_logits(
+            tdec, PARAMS, CFG, jr.prompt, jr.output,
+            to_arr=lambda t: torch.tensor([t]), device="cpu", **REPLAY)
+        replay.assert_logits_agree(got, want, INT8_LOGIT_TOL)
+        n = replay.assert_transcripts_agree(r.output, jr.output, want,
+                                            INT8_LOGIT_TOL)
+        np.testing.assert_allclose(r.logprobs[:n], jr.logprobs[:n],
+                                   atol=INT8_LOGIT_TOL)
+        compared += n
+    assert compared > 0
+    assert_no_leaks(eng)
+
+
+def test_int8_pool_matches_its_offline_replay():
+    """Token for token the port's offline replay of the pool's semantics
+    (dense chunked prefill, quantized into the cache, int8 decode): the
+    replay's greedy choice along the engine's transcript is the engine's
+    token at every step — across lanes, recycled pages and a request
+    joining mid-wave."""
+    reqs = [Request(**s) for s in int8_specs()]
+    eng = paged(kv_codec="int8")
+    for r in reqs[:3]:
+        eng.submit(r)
+    eng.step()
+    for r in reqs[3:]:
+        eng.submit(r)
+    eng.run()
+    for r in reqs:
+        want = replay.replay_logits(tdec, PARAMS, CFG, r.prompt, r.output,
+                                    to_arr=lambda t: torch.tensor([t]),
+                                    device="cpu", **REPLAY)
+        assert want.argmax(-1).tolist() == r.output
+    assert_no_leaks(eng)
+
+
+def test_int8_pool_admits_strictly_deeper_at_equal_hbm():
+    """The same offered load through two pools bought with the same HBM
+    budget: the int8 pool's extra pages (``paging.pages_for_hbm``) admit
+    strictly deeper peak concurrency — the reference's claim, on the
+    port."""
+    from tpushare_torch.workloads import paging
+    budget = paging.pool_hbm_mib(7, 8, CFG.n_layers, CFG.kv_heads,
+                                 CFG.head_dim)
+    peaks = {}
+    for codec in consts.KV_CODECS:
+        n_pages = paging.pages_for_hbm(budget, 8, CFG.n_layers, CFG.kv_heads,
+                                       CFG.head_dim, codec=codec)
+        eng = paged(n_lanes=6, n_pages=n_pages, prompt_buckets=(8,),
+                    kv_codec=codec)
+        assert eng.pool_mib <= budget
+        reqs = [Request(prompt=rand_prompt(30 + i, 5), max_new=8)
+                for i in range(6)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        assert all(r.status == consts.STATUS_COMPLETED for r in reqs)
+        assert_no_leaks(eng)
+        peaks[codec] = eng.stats["peak_running"]
+    assert peaks["int8"] > peaks["bf16"]
+
+
+def test_payload_serve_kv_codec_int8(capsys):
+    """``infer --mode serve --kv-codec int8`` implies ``--paged``, sizes
+    the pool to the same HBM under the int8 codec (more pages than
+    bf16) and serves every request; it still excludes the slot engine's
+    flags."""
+    from tpushare_torch.workloads import infer, paging
+    args = ["--device", "cpu", "--mode", "serve", "--steps", "6",
+            "--requests", "3", "--seq", "40", "--slots", "2"]
+    res = infer.run(infer.parse_args(args + ["--kv-codec", "int8"]))
+    eng = res["engine"]
+    cfg = eng.cfg
+    budget = paging.pool_hbm_mib(paging.pages_for_rows(2 * eng.max_seq, 32),
+                                 32, cfg.n_layers, cfg.kv_heads, cfg.head_dim)
+    want = paging.pages_for_hbm(budget, 32, cfg.n_layers, cfg.kv_heads,
+                                cfg.head_dim, codec="int8")
+    assert isinstance(eng, PagedServingEngine) and eng.kv_codec == "int8"
+    assert eng.alloc.n_pages == want > paging.pages_for_hbm(
+        budget, 32, cfg.n_layers, cfg.kv_heads, cfg.head_dim)
+    bpt = paging.kv_bytes_per_token(cfg.n_layers, cfg.kv_heads, cfg.head_dim,
+                                    "int8")
+    assert (f"paged KV pool: {want} pages x 32 rows (codec int8, "
+            f"{bpt:.0f} B/token") in capsys.readouterr().out
+    assert all(r.status == consts.STATUS_COMPLETED for r in res["requests"])
+    assert_no_leaks(eng)
+    with pytest.raises(SystemExit) as rejected:
+        infer.run(infer.parse_args(args + ["--kv-codec", "int8",
+                                           "--ragged"]))
+    assert rejected.value.code == 2

@@ -5,7 +5,13 @@ dense read, the ragged read (its twin on the CPU), the pipelined loop, a
 wrapping ring cache, eos, chunked prefill and prefix caching, with
 logprobs within 1e-4; ``ring_generate`` against the reference; sampling
 checked through counts, lengths and the truncation transforms (torch's
-generator is not JAX's threefry); and the ``infer --mode serve`` flags."""
+generator is not JAX's threefry); and the ``infer --mode serve`` flags.
+
+The int8 slot caches (``cfg.kv_int8``, einsum and ragged reads) are held
+against the reference through teacher-forced logits and gap-aware
+transcripts (``torch_int8_replay``: an int8 LSB the two packages round
+differently may break a greedy near-tie), and token for token against
+the port's own ``chunked_generate`` oracle."""
 
 import dataclasses
 
@@ -27,6 +33,7 @@ from tpushare_torch.workloads.models import transformer as tt  # noqa: E402
 from tpushare_torch.workloads.ops import registry  # noqa: E402
 from tpushare_torch.workloads.serving import (  # noqa: E402
     Request, ServingEngine)
+import torch_int8_replay as replay  # noqa: E402
 
 JCFG = jt.TransformerConfig(vocab=256, d_model=256, n_heads=2, n_kv_heads=1,
                             n_layers=2, d_ff=512, max_seq=256,
@@ -247,9 +254,6 @@ def test_engine_refuses_what_it_cannot_serve():
         ServingEngine(PARAMS, CFG, draft=(PARAMS, CFG, 2), **ENGINE_KW)
     with pytest.raises(NotImplementedError, match="A.2"):
         ServingEngine(PARAMS, CFG, queue_limit=4, **ENGINE_KW)
-    with pytest.raises(NotImplementedError, match="A.4"):
-        ServingEngine(PARAMS, dataclasses.replace(CFG, kv_int8=True),
-                      **ENGINE_KW)
     with pytest.raises(ValueError, match="ring_rows requires"):
         ServingEngine(PARAMS, CFG, ring_rows=64, **ENGINE_KW)
     wcfg = dataclasses.replace(CFG, attn_window=40)
@@ -317,3 +321,135 @@ def test_payload_ragged_needs_a_reheadable_preset():
     with pytest.raises(SystemExit) as e:
         infer.serve_config(args, odd, 2000)
     assert e.value.code == 2
+
+
+# ---------------------------------------------------------------------------
+# int8 slot caches (cfg.kv_int8)
+# ---------------------------------------------------------------------------
+
+INT8 = dataclasses.replace(JCFG, kv_int8=True)
+# teacher-forced logits, port vs reference: an int8 element one LSB
+# apart (a rounding tie the packages break differently) moves these
+# logits by ~1e-4-1e-3 at this size
+INT8_LOGIT_TOL = 5e-3
+JDEC = replay.JittedDecode(jdec)
+
+
+def jarr(toks):
+    return jnp.asarray([toks], jnp.int32)
+
+
+def tarr(toks):
+    return torch.tensor([toks])
+
+
+def assert_int8_agrees(reqs, jreqs, jcfg, prefixes=None):
+    """Each port request against the reference's: teacher-forced logits
+    along the reference transcript within INT8_LOGIT_TOL, transcripts
+    equal up to a reference near-tie, logprobs within the tolerance on
+    the steps compared. Returns the steps compared."""
+    compared = 0
+    for r, jr in zip(reqs, jreqs):
+        assert r.status == consts.STATUS_COMPLETED
+        kw = dict(prefix=(prefixes or {}).get(jr.prefix, ()))
+        want = replay.replay_logits(JDEC, JPARAMS, jcfg, jr.prompt,
+                                    jr.output, ENGINE_KW["prompt_buckets"],
+                                    ENGINE_KW["max_seq"], to_arr=jarr, **kw)
+        got = replay.replay_logits(tdec, PARAMS, torch_cfg(jcfg), jr.prompt,
+                                   jr.output, ENGINE_KW["prompt_buckets"],
+                                   ENGINE_KW["max_seq"], to_arr=tarr,
+                                   device="cpu", **kw)
+        replay.assert_logits_agree(got, want, INT8_LOGIT_TOL)
+        n = replay.assert_transcripts_agree(r.output, jr.output, want,
+                                            INT8_LOGIT_TOL)
+        np.testing.assert_allclose(r.logprobs[:n], jr.logprobs[:n],
+                                   atol=INT8_LOGIT_TOL)
+        compared += n
+    return compared
+
+
+@pytest.mark.parametrize("ragged,pipeline", [(False, False), (True, False),
+                                             (True, True)])
+def test_int8_engine_matches_reference_engine(ragged, pipeline):
+    """The einsum read, the ragged read (its twin on the CPU) and the
+    pipelined loop over int8 slot caches against the reference's int8
+    slot engine."""
+    jcfg = dataclasses.replace(INT8, ragged_decode=ragged)
+    reqs, jreqs, eng = serve_both(MIXED, jcfg=jcfg, pipeline=pipeline)
+    assert eng.attn_impl == ("ragged" if ragged else "xla")
+    assert eng.slots["k"]["q"].dtype == torch.int8
+    assert assert_int8_agrees(reqs, jreqs, jcfg) > 0
+    assert eng.stats["completed"] == len(MIXED)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_int8_engine_matches_its_chunked_oracle(ragged):
+    """Token for token the port's own ``chunked_generate`` over an int8
+    cache (same bucket layout, each chunk reading the cache quantized,
+    its own rows included)."""
+    cfg = dataclasses.replace(CFG, kv_int8=True, ragged_decode=ragged)
+    specs = MIXED + [dict(prompt=rand_prompt(42, 70), max_new=9)]
+    eng = ServingEngine(PARAMS, cfg, **ENGINE_KW)
+    reqs = [Request(**s) for s in specs]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    for r in reqs:
+        want = tdec.chunked_generate(PARAMS, torch.tensor([r.prompt]), cfg,
+                                     r.max_new, buckets=(16, 32),
+                                     max_seq=256)
+        assert r.output == want[0].tolist()
+
+
+def test_int8_prefix_copies_both_planes_and_matches_reference():
+    """A prefix registers quantized and installs by copying its q and s
+    planes (never requantized); the transcripts agree with the
+    reference's int8 engine."""
+    from tpushare_torch.workloads import serving
+    prefix = rand_prompt(55, 21)
+    specs = [dict(prompt=rand_prompt(56, 5), max_new=8, prefix="sys"),
+             dict(prompt=rand_prompt(57, 40), max_new=6, prefix="sys"),
+             dict(prompt=rand_prompt(58, 9), max_new=7)]
+    reqs, jreqs, eng = serve_both(specs, jcfg=INT8,
+                                  prefixes=[("sys", prefix)])
+    assert assert_int8_agrees(reqs, jreqs, INT8, {"sys": prefix}) > 0
+    _, pkv = eng.prefixes["sys"]
+    slots = serving.init_slots(eng.cfg, 2, 64, torch.device("cpu"))
+    serving._install_prefix(slots, 1, pkv["k"], pkv["v"])
+    for side in ("k", "v"):
+        for plane in ("q", "s"):
+            assert torch.equal(slots[side][plane][:, 1, :21],
+                               pkv[side][plane][:, 0])
+    assert (slots["k"]["s"][:, 0] == 1).all()          # slot 0 untouched
+
+
+def test_ring_generate_int8_matches_reference():
+    """A windowed model over an int8 ring cache: teacher-forced logits
+    within the int8 tolerance of the reference's ring decode, and the
+    greedy streams equal up to a reference near-tie."""
+    jcfg = dataclasses.replace(INT8, attn_window=24)
+    tcfg = torch_cfg(jcfg)
+    p = np.random.default_rng(61).integers(0, JCFG.vocab, (2, 30))
+    want = np.asarray(jdec.ring_generate(JPARAMS, jnp.asarray(p, jnp.int32),
+                                         jcfg, 50, rows=40))
+    got = tdec.ring_generate(PARAMS, torch.from_numpy(p), tcfg, 50,
+                             rows=40).numpy()
+
+    def forced(dec, step, params, cfg, arr, **kw):
+        cache = dec.init_cache(cfg, 2, 40, **kw)
+        lg, cache = dec.prefill(params, arr(p), cfg, cache)
+        rows = [np.asarray(lg, np.float32)]
+        for t in want.T[:-1]:
+            lg, cache = step(params, arr(t), cache, cfg)
+            rows.append(np.asarray(lg, np.float32))
+        return np.stack(rows, axis=1)                  # (B, steps, vocab)
+
+    jwant = forced(jdec, jax.jit(jdec.ring_decode_step,
+                                 static_argnames=("cfg",)),
+                   JPARAMS, jcfg, lambda x: jnp.asarray(x, jnp.int32))
+    tgot = forced(tdec, tdec.ring_decode_step, PARAMS, tcfg,
+                  lambda x: torch.from_numpy(np.array(x)), device="cpu")
+    for b in range(2):
+        replay.assert_logits_agree(tgot[b], jwant[b], INT8_LOGIT_TOL)
+        replay.assert_transcripts_agree(got[b].tolist(), want[b].tolist(),
+                                        jwant[b], INT8_LOGIT_TOL)

@@ -6,9 +6,8 @@ reference's ``tpushare/consts.py`` that the ported workload modules use
 # sizes its model preset from it.
 ENV_HBM_LIMIT_MIB = "TPUSHARE_HBM_LIMIT_MIB"
 
-# Page-pool storage codecs. The port serves "bf16" pools in this slice;
-# "int8" stays in the tuple because it is a valid codec name the engine
-# must reject with a clear message rather than an unknown-value error.
+# Page-pool storage codecs: "bf16" stores the model dtype, "int8" the
+# rowwise int8 codec (int8 values + one fp32 scale per row and head).
 KV_CODECS = ("bf16", "int8")
 
 # The kernel registry's implementation names — the only labels a kernel
@@ -20,8 +19,9 @@ KERNEL_IMPLS = ("flash", "splash", "paged", "ragged", "xla")
 # codec (cfg.kv_int8 is the slot cache's knob, never the pool's).
 ERR_KV_CODEC_MISMATCH_FMT = (
     "kv codec mismatch: the page pool stores {pool!r} but the prefill "
-    "cache layout is {cache!r} — cfg.kv_int8 is the slot engine's cache "
-    "layout, not a page-pool codec")
+    "cache layout is {cache!r} — the pool codec is "
+    "PagedServingEngine(kv_codec=...); cfg.kv_int8 is the slot engine's "
+    "cache layout")
 
 # A request named a prefix no engine registered.
 ERR_PREFIX_UNKNOWN_FMT = "unknown prefix {name!r}: register_prefix first"

@@ -1,4 +1,5 @@
-"""Carry reference state across: numpy trees -> the port's tensors.
+"""Carry reference state across: numpy trees -> the port's tensors
+(parameters, optimizer state, KV caches and page pools).
 
 The reference's parameters are a pytree of ``jax.Array`` leaves; the
 caller converts each leaf with ``np.asarray`` and hands the resulting
@@ -45,6 +46,17 @@ def params_from_numpy(tree, device: str | torch.device = "cuda"):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
+
+
+def kv_from_numpy(tree: dict, device: str | torch.device = "cuda") -> dict:
+    """A reference KV cache or page pool — ``{"k", "v"}`` leaves, dense
+    or int8 codec ``{"q": int8, "s": fp32}``, and a cache's ``"length"``
+    — in the port's layout: the leaves as tensors (int8 stays int8, so
+    both packages read the same planes), the length as a host int."""
+    out = {side: params_from_numpy(tree[side], device) for side in ("k", "v")}
+    if "length" in tree:
+        out["length"] = int(tree["length"])
+    return out
 
 
 def adamw_state_from_numpy(mu, nu, count,

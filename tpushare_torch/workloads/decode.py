@@ -1,7 +1,13 @@
 """KV-cache autoregressive decoding — the port of
 ``tpushare/workloads/decode.py``: dense bf16/fp32 caches, the ring cache
-of sliding-window models, the ragged slot read and the block-paged pool
-(no int8 codec in this slice: ROADMAP A.4).
+of sliding-window models, the ragged slot read, the block-paged pool,
+and the int8 KV codec for both (``cfg.kv_int8`` slot caches,
+``kv_codec="int8"`` pools).
+
+A cache or pool leaf is either a dense tensor or an int8 codec leaf
+``{"q": int8 (..., hd), "s": fp32 (...)}`` (``kv_quantize``); every
+reader and writer dispatches on the leaf type, so the two layouts are
+interchangeable downstream, as in the reference.
 
 The reference keeps everything functional under ``jit``/``lax.scan``;
 the port runs eagerly and writes caches and pools IN PLACE (a slice
@@ -33,31 +39,92 @@ from tpushare_torch.workloads.models.transformer import (
 )
 from tpushare_torch.workloads.ops.paged_attention import (
     paged_attention_read)
+from tpushare_torch.workloads.quant import (rowwise_absmax_decode,
+                                            rowwise_absmax_encode)
+
+
+def kv_quantize(x: torch.Tensor) -> dict:
+    """Per-(position, head) symmetric int8 for K/V rows: x (..., hd) ->
+    {"q": int8, "s": fp32 without the hd axis} — the one rowwise codec
+    (``quant.rowwise_absmax_encode``) of the slot cache and the pool."""
+    return rowwise_absmax_encode(x)
+
+
+def kv_dequantize(leaf, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Read side of the codec: a ``{"q", "s"}`` leaf decodes to ``q * s``;
+    a dense tensor passes through (cast)."""
+    if not isinstance(leaf, dict):
+        return leaf.to(dtype)
+    return rowwise_absmax_decode(leaf["q"], leaf["s"], dtype)
+
+
+def kv_data(leaf) -> torch.Tensor:
+    """The value plane of a leaf — the tensor itself, or a codec leaf's
+    int8 ``q`` — for shape queries."""
+    return leaf["q"] if isinstance(leaf, dict) else leaf
+
+
+def kv_planes(leaf) -> list:
+    """The leaf's tensors: ``[leaf]``, or a codec leaf's ``[q, s]`` — for
+    copies that move both planes together and never requantize."""
+    return [leaf["q"], leaf["s"]] if isinstance(leaf, dict) else [leaf]
+
+
+def kv_view(leaf, index):
+    """A view of a leaf at a leading-axis ``index`` (``k[layer]``, a slot
+    slice), dense or codec: both planes share the leading axes."""
+    if isinstance(leaf, dict):
+        return {"q": leaf["q"][index], "s": leaf["s"][index]}
+    return leaf[index]
+
+
+def kv_store(leaf, index, new: torch.Tensor):
+    """Write rows ``new`` (..., hd) at a leading-axis ``index`` of a leaf,
+    in place: cast for a dense leaf, quantized (both planes) for a codec
+    leaf — the one write rule of every cache and pool path."""
+    if isinstance(leaf, dict):
+        nq = kv_quantize(new)
+        leaf["q"][index] = nq["q"]
+        leaf["s"][index] = nq["s"]
+    else:
+        leaf[index] = new.to(leaf.dtype)
+    return leaf
+
+
+def _kv_zeros(cfg: TransformerConfig, shape: tuple, int8: bool,
+              device: torch.device):
+    """A zeroed leaf: dense in the model dtype, or a codec leaf with
+    q = 0 and s = 1."""
+    if int8:
+        return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
+                "s": torch.ones(shape[:-1], dtype=torch.float32,
+                                device=device)}
+    return torch.zeros(shape, dtype=cfg.dtype, device=device)
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int | None = None,
                device: str | torch.device = "cuda") -> dict:
-    """Zeroed KV cache: k/v (L, B, max_seq, Hkv, hd) in the model dtype,
-    length 0 (a host int — eager positions are always concrete)."""
-    if cfg.kv_int8:
-        raise NotImplementedError(
-            "the int8 KV codec (cfg.kv_int8) is not ported yet: ROADMAP A.4")
+    """Zeroed KV cache: k/v (L, B, max_seq, Hkv, hd) in the model dtype —
+    or, with ``cfg.kv_int8``, codec leaves (int8 ``q`` and fp32 ``s`` per
+    (position, head)) — length 0 (a host int: eager positions are always
+    concrete)."""
     dev = resolve_device(device)
     S = max_seq or cfg.max_seq
     shape = (cfg.n_layers, batch, S, cfg.kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+    return {"k": _kv_zeros(cfg, shape, cfg.kv_int8, dev),
+            "v": _kv_zeros(cfg, shape, cfg.kv_int8, dev),
             "length": 0}
 
 
 def cache_max_seq(cache: dict) -> int:
-    return cache["k"].shape[2]
+    """Row capacity of a cache, dense or codec."""
+    return kv_data(cache["k"]).shape[2]
 
 
-def cache_fill(kc: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
-    """Write (B, P, Hkv, hd) rows at the cache origin, in place."""
-    kc[:, :new.shape[1]] = new.to(kc.dtype)
-    return kc
+def cache_fill(kc, new: torch.Tensor):
+    """Write (B, P, Hkv, hd) rows at the cache origin, in place (dense or
+    codec)."""
+    return kv_store(kc, (slice(None), slice(0, new.shape[1])), new)
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -77,30 +144,40 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     for i in range(cfg.n_layers):
         x, (k, v) = layer_block(x, layer_params(params, i), cfg, cos, sin,
                                 attn_core)
-        cache_fill(cache["k"][i], k)
-        cache_fill(cache["v"][i], v)
+        cache_fill(kv_view(cache["k"], i), k)
+        cache_fill(kv_view(cache["v"], i), v)
     x_last = x[:, -1] if logit_pos is None else x[:, logit_pos]
     return lm_head(params, x_last), {**cache, "length": P}
 
 
-def scatter_token_rows(cache: torch.Tensor, new: torch.Tensor,
-                       index: tuple) -> torch.Tensor:
+def scatter_token_rows(cache, new: torch.Tensor, index: tuple):
     """Write one token's (B, 1, Hkv, hd) K/V at per-row cache positions,
-    in place. ``index`` addresses one row per batch element — ``(rows,
-    pos)`` on a (B, S, ...) cache, ``(layer, rows, pos)`` on a stacked
-    (L, B, S, ...) one: the one definition of the per-row write shared by
-    the dense slot step and the ragged path."""
-    cache[index] = new[:, 0].to(cache.dtype)
-    return cache
+    in place, dense or codec. ``index`` addresses one row per batch
+    element — ``(rows, pos)`` on a (B, S, ...) cache, ``(layer, rows,
+    pos)`` on a stacked (L, B, S, ...) one: the one definition of the
+    per-row write shared by the dense slot step and the ragged path."""
+    return kv_store(cache, index, new[:, 0])
 
 
-def make_cached_attn_core(kc: torch.Tensor, vc: torch.Tensor, pos,
-                          cfg: TransformerConfig, slot_ids: torch.Tensor):
+def kv_scale_bhgqk(scales: torch.Tensor) -> torch.Tensor:
+    """Per-(position, head) scales (B, S, Hkv) laid out against the
+    (B, Hkv, G, Q, S) score tensor."""
+    return scales.transpose(1, 2)[:, :, None, None, :]
+
+
+def make_cached_attn_core(kc, vc, pos, cfg: TransformerConfig,
+                          slot_ids: torch.Tensor):
     """The per-layer cached-attention closure shared by the dense decode
     loop, the chunk step and the slot engine: write this step's K/V into
     the cache at ``pos`` (in place), then attend over the whole static
     cache with grouped fp32 einsums, masking rows a query may not see at
     -1e30 — the reference's core op for op.
+
+    A codec cache (``{q, s}`` leaves) quantizes on write and is read at
+    int8 width with its scales folded in: the scores are
+    ``einsum(q, k_q) * hd^-0.5 * k_s``, and the V scales multiply the
+    probabilities after the softmax, before the einsum over ``v_q``. The
+    chunk's own rows are read back quantized, as in the reference.
 
     ``pos`` is an int (every row at the same position; with Q > 1 tokens
     they land at pos..pos+Q-1 with intra-chunk causal masking) or a (B,)
@@ -117,6 +194,7 @@ def make_cached_attn_core(kc: torch.Tensor, vc: torch.Tensor, pos,
     hd = cfg.head_dim
     G = cfg.n_heads // cfg.kv_heads
     per_row = torch.is_tensor(pos)
+    quantized = isinstance(kc, dict)
     R = slot_ids.shape[0]                 # cache rows (== max_seq dense)
     ring = cfg.attn_window is not None
 
@@ -129,10 +207,8 @@ def make_cached_attn_core(kc: torch.Tensor, vc: torch.Tensor, pos,
         if wpos + Q > R:
             # a ring chunk straddling the wrap point: an index write
             wrows = (pos + torch.arange(Q, device=new.device)) % R
-            cache[:, wrows] = new.to(cache.dtype)
-        else:
-            cache[:, wpos:wpos + Q] = new.to(cache.dtype)
-        return cache
+            return kv_store(cache, (slice(None), wrows), new)
+        return kv_store(cache, (slice(None), slice(wpos, wpos + Q)), new)
 
     def attn_core(q, k, v):
         B, Q = q.shape[:2]
@@ -147,11 +223,18 @@ def make_cached_attn_core(kc: torch.Tensor, vc: torch.Tensor, pos,
             mask = (p >= 0) & (p > qpos - cfg.attn_window)
         else:
             mask = slot_ids[None, None, :] <= qpos             # (B|1, Q, S)
-        qg = q.float().reshape(B, Q, kc.shape[2], G, hd)
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc.float()) * (hd ** -0.5)
+        kmat, vmat = kv_data(kc).float(), kv_data(vc).float()
+        qg = q.float().reshape(B, Q, kmat.shape[2], G, hd)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kmat) * (hd ** -0.5)
+        if quantized:
+            s = s * kv_scale_bhgqk(kc["s"])
         s = torch.where(mask[:, None, None, :, :], s, -1e30)
         p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhgqk,bkhd->bqhgd", p, vc.float())
+        if quantized:
+            # the V scales fold into the probabilities; the values read
+            # stay int8
+            p = p * kv_scale_bhgqk(vc["s"])
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, vmat)
         return o.reshape(B, Q, cfg.n_heads, hd).to(q.dtype), (kc, vc)
 
     return attn_core
@@ -179,19 +262,21 @@ def check_ragged_config(cfg: TransformerConfig, n_rows: int) -> None:
            head_dim=cfg.head_dim, impl="ragged")
 
 
-def make_ragged_attn_core(kf: torch.Tensor, vf: torch.Tensor, layer: int,
-                          lengths: torch.Tensor, cfg: TransformerConfig):
+def make_ragged_attn_core(kf, vf, layer: int, lengths: torch.Tensor,
+                          cfg: TransformerConfig):
     """Per-layer attention closure for the ragged slot step: write the
     step's K/V into the full stacked (L, B, S, Hkv, hd) cache at
     ``(layer, row, lengths[row])``, then read through the registry's
     ``ragged`` choice — the CUDA kernel on the card, its twin on the CPU
-    — so the bytes read scale with each slot's live length. Returns
-    attn_core(q, k, v) -> (o, (kf, vf))."""
+    — so the bytes read scale with each slot's live length. A codec
+    cache is written quantized and read by the kernel's int8 rung.
+    Returns attn_core(q, k, v) -> (o, (kf, vf))."""
     from tpushare_torch.workloads.ops.registry import (KIND_DECODE,
                                                        select_attention)
     rows = torch.arange(lengths.shape[0], device=lengths.device)
     read = select_attention(
-        KIND_DECODE, impl="ragged", seq=kf.shape[2], window=cfg.attn_window,
+        KIND_DECODE, impl="ragged", seq=kv_data(kf).shape[2],
+        window=cfg.attn_window,
         n_heads=cfg.n_heads, n_kv_heads=cfg.kv_heads,
         head_dim=cfg.head_dim).fn
 
@@ -239,7 +324,8 @@ def chunk_step(params: dict, tokens: torch.Tensor, cache: dict,
     x = embed_lookup(params["embed"], tokens)                # (B, Q, D)
     slot_ids = torch.arange(max_seq, device=tokens.device)
     for i in range(cfg.n_layers):
-        core = make_cached_attn_core(cache["k"][i], cache["v"][i], pos, cfg,
+        core = make_cached_attn_core(kv_view(cache["k"], i),
+                                     kv_view(cache["v"], i), pos, cfg,
                                      slot_ids)
         x, _ = layer_block(x, layer_params(params, i), cfg, cos, sin, core)
     if logit_pos is not None:
@@ -460,13 +546,17 @@ def ring_generate(params: dict, prompt: torch.Tensor, cfg: TransformerConfig,
 # block-paged pool
 # ---------------------------------------------------------------------------
 
-def check_paged_config(cfg: TransformerConfig) -> None:
-    """Fail fast on configs the paged engine cannot serve. The pool
-    stores the model dtype (the reference's "bf16" codec); the int8 page
-    codec is a later slice."""
+def check_paged_config(cfg: TransformerConfig,
+                       kv_codec: str = "bf16") -> None:
+    """Fail fast on configs the paged engine cannot serve (the engine
+    calls this at construction so the error names the knob). The pool's
+    codec is the engine's knob: ``cfg.kv_int8`` is the slot cache's
+    layout and is refused here, as in the reference."""
+    if kv_codec not in consts.KV_CODECS:
+        raise ValueError(f"kv_codec {kv_codec!r} not in {consts.KV_CODECS}")
     if cfg.kv_int8:
         raise ValueError(consts.ERR_KV_CODEC_MISMATCH_FMT.format(
-            pool="bf16", cache="int8 (cfg.kv_int8)"))
+            pool=kv_codec, cache="int8 (cfg.kv_int8)"))
     if cfg.attn_window is not None:
         raise ValueError(
             "windowed models already serve from the O(window) ring cache "
@@ -479,45 +569,51 @@ def check_paged_config(cfg: TransformerConfig) -> None:
 
 
 def init_page_pool(cfg: TransformerConfig, n_pages: int, page_size: int,
+                   kv_codec: str = "bf16",
                    device: str | torch.device = "cuda") -> dict:
     """Zeroed block-paged K/V pool, ``(L, n_pages, page_size, Hkv, hd)``
-    each for K and V, in the model dtype."""
-    check_paged_config(cfg)
+    each for K and V: in the model dtype, or with ``kv_codec="int8"`` as
+    codec leaves ``{"q": int8 pages, "s": fp32 (L, n_pages, page_size,
+    Hkv) scale planes initialised to 1}`` — about half the bytes per
+    page (``paging.kv_bytes_per_el``), quantized at page install and at
+    every decode write, dequantized at every read."""
+    check_paged_config(cfg, kv_codec=kv_codec)
     dev = resolve_device(device)
     shape = (cfg.n_layers, n_pages, page_size, cfg.kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+    int8 = kv_codec == "int8"
+    return {"k": _kv_zeros(cfg, shape, int8, dev),
+            "v": _kv_zeros(cfg, shape, int8, dev)}
 
 
-def pool_page_size(pool_leaf: torch.Tensor) -> int:
-    """Rows per page of a pool leaf (stacked or one layer)."""
-    return pool_leaf.shape[-3]
+def pool_page_size(pool_leaf) -> int:
+    """Rows per page of a pool leaf (stacked or one layer, dense or
+    codec)."""
+    return kv_data(pool_leaf).shape[-3]
 
 
-def scatter_scratch_pages(pool: torch.Tensor, scratch: torch.Tensor,
-                          page_ids: torch.Tensor,
-                          skip_pages: int = 0) -> torch.Tensor:
+def scatter_scratch_pages(pool, scratch: torch.Tensor,
+                          page_ids: torch.Tensor, skip_pages: int = 0):
     """The scratch -> pool page-install rule for one side (K or V), in
     place: scratch rows ``[skip_pages*ps, (skip_pages+n)*ps)`` land
-    page-wise at ``pool[:, page_ids]``."""
+    page-wise at ``pool[:, page_ids]``, quantized on install for an int8
+    pool (the same codec as every decode write)."""
     ps = pool_page_size(pool)
     n_used = page_ids.shape[0]
     rows = scratch[:, 0, skip_pages * ps:(skip_pages + n_used) * ps]
     chunk = rows.reshape(rows.shape[0], n_used, ps, *rows.shape[2:])
-    pool[:, page_ids] = chunk.to(pool.dtype)
-    return pool
+    return kv_store(pool, (slice(None), page_ids), chunk)
 
 
-def make_paged_attn_core(kp: torch.Tensor, vp: torch.Tensor,
-                         tables: torch.Tensor, lengths: torch.Tensor,
+def make_paged_attn_core(kp, vp, tables: torch.Tensor, lengths: torch.Tensor,
                          cfg: TransformerConfig, impl: str = "xla",
                          gather_pages_w: int | None = None):
     """Per-layer attention closure for the paged serving step: write the
     step's K/V row into each lane's current page (block-table indirect,
-    in place — retired lanes' all-zero tables route their dead-lane
-    writes into the reserved trash page 0), then read through
-    :func:`ops.paged_attention.paged_attention_read` (the CUDA kernel or
-    the gather twin; ``impl`` resolved at engine construction).
+    in place, quantized for an int8 pool — retired lanes' all-zero
+    tables route their dead-lane writes into the reserved trash page 0),
+    then read through :func:`ops.paged_attention.paged_attention_read`
+    (the CUDA kernel or the gather twin; ``impl`` resolved at engine
+    construction, the codec taken from the leaf type).
 
     ``gather_pages_w`` bounds the read to the first W table slots (the
     engine's power-of-two rung over the longest live lane); rows past a
@@ -530,8 +626,8 @@ def make_paged_attn_core(kp: torch.Tensor, vp: torch.Tensor,
     offs = lengths % ps
 
     def attn_core(q, k, v):
-        kp[page_ids, offs] = k[:, 0].to(kp.dtype)
-        vp[page_ids, offs] = v[:, 0].to(vp.dtype)
+        kv_store(kp, (page_ids, offs), k[:, 0])
+        kv_store(vp, (page_ids, offs), v[:, 0])
         o = paged_attention_read(q, kp, vp, rtables, lengths + 1, cfg,
                                  impl=impl)
         return o, (kp, vp)

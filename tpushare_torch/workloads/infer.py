@@ -12,7 +12,9 @@ modes on the card and prints the reference payload's throughput lines:
   the ragged-decode kernel, ``--window W --ring-rows R`` serves a
   sliding-window model from a ring cache of R rows per slot;
 - ``serve --paged``: the block-paged engine, decode reads through the
-  paged-decode kernel.
+  paged-decode kernel; ``--kv-codec int8`` (implies ``--paged``) stores
+  the pool as the int8 codec, sized to the same HBM, and reads it
+  through the kernel's int8 rung.
 
 ``--device cpu`` runs the plain-PyTorch path (tests); the default is the
 card, and a host without CUDA raises. Invalid flag combinations print a
@@ -83,6 +85,11 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         "batching (PagedServingEngine) instead of the "
                         "slot engine; pool sized to the slot engine's "
                         "KV HBM (excludes --window/--ring-rows/--ragged)")
+    p.add_argument("--kv-codec", choices=("bf16", "int8"), default="bf16",
+                   help="serve --paged: page-pool storage codec; int8 "
+                        "halves bytes/page so the same pool HBM holds "
+                        "~2x pages -> deeper admitted concurrency "
+                        "(implies --paged)")
     p.add_argument("--temperature", type=float, default=0.0,
                    help="decode sampling temperature (0 = greedy)")
     p.add_argument("--top-k", type=int, default=0,
@@ -117,6 +124,8 @@ def serve_config(args: argparse.Namespace, cfg, limit: int):
     import dataclasses
     plen = max(8, args.seq // 4)
     max_seq = -(-(plen + args.steps) // 128) * 128
+    if args.kv_codec != "bf16":
+        args.paged = True     # the codec is a page-pool property
     if args.window is not None:
         cfg = dataclasses.replace(cfg, attn_window=args.window)
     if args.ragged:
@@ -199,28 +208,29 @@ def run(args: argparse.Namespace) -> dict:
 def _serve(args, cfg, params, device, plen: int, max_seq: int) -> dict:
     from tpushare_torch.workloads import paging
     from tpushare_torch.workloads.serving import (PagedServingEngine,
-                                                  Request, ServingEngine,
-                                                  lane_efficiency)
-    rng = np.random.default_rng(args.seed)
+                                                  ServingEngine)
     bucket = -(-plen // 32) * 32
     if args.paged:
         # equal-HBM sizing against the slot engine's reservation, as in
-        # the reference: the slots' KV budget buys the pool's pages
+        # the reference: the slots' KV budget buys the pool's pages under
+        # the chosen codec — int8 gets about twice the pages
         page_size = 32
         budget_mib = paging.pool_hbm_mib(
             paging.pages_for_rows(args.slots * max_seq, page_size),
             page_size, cfg.n_layers, cfg.kv_heads, cfg.head_dim)
         n_pages = paging.pages_for_hbm(budget_mib, page_size, cfg.n_layers,
-                                       cfg.kv_heads, cfg.head_dim)
+                                       cfg.kv_heads, cfg.head_dim,
+                                       codec=args.kv_codec)
         n_lanes = max(2, args.slots * 2)
         eng = PagedServingEngine(params, cfg, n_lanes=n_lanes,
                                  max_seq=max_seq, n_pages=n_pages,
                                  page_size=page_size, prompt_buckets=(bucket,),
-                                 chunk=16, seed=args.seed, top_k=args.top_k)
+                                 chunk=16, seed=args.seed, top_k=args.top_k,
+                                 kv_codec=args.kv_codec)
         bpt = paging.kv_bytes_per_token(cfg.n_layers, cfg.kv_heads,
-                                        cfg.head_dim)
+                                        cfg.head_dim, args.kv_codec)
         print(f"paged KV pool: {n_pages} pages x {page_size} rows (codec "
-              f"bf16, {bpt:.0f} B/token, {n_lanes} lanes, read "
+              f"{args.kv_codec}, {bpt:.0f} B/token, {n_lanes} lanes, read "
               f"{eng.attn_impl})", flush=True)
     else:
         n_lanes = args.slots
@@ -234,6 +244,18 @@ def _serve(args, cfg, params, device, plen: int, max_seq: int) -> dict:
             print(f"ring KV cache: {eng.cache_rows} rows/slot "
                   f"(window {args.window}, logical max_seq {max_seq})",
                   flush=True)
+    return serve_traffic(eng, args, cfg, device, plen, max_seq, n_lanes)
+
+
+def serve_traffic(eng, args, cfg, device, plen: int, max_seq: int,
+                  n_lanes: int) -> dict:
+    """Drive a serving engine with the payload's synthetic traffic from
+    ``args`` (``--requests`` prompts of ``plen`` tokens, up to
+    ``--steps`` new tokens each, from ``--seed``) after one warm-up
+    request, print the throughput lines and return the measurements, the
+    engine and the requests."""
+    from tpushare_torch.workloads.serving import Request, lane_efficiency
+    rng = np.random.default_rng(args.seed)
     reqs = [Request(
         prompt=[int(t) for t in rng.integers(0, cfg.vocab, plen)],
         max_new=int(rng.integers(max(1, args.steps // 4), args.steps + 1)),

@@ -15,9 +15,10 @@ tests import every module of the port and have no ``nvcc``.
 all started together.
 
 ``LAUNCHES`` counts kernel launches by kernel name (``KERNELS``; the
-``flash_bwd`` library holds two kernels): each wrapper adds one exactly
-where it launches its kernel, so a run can show that the main path went
-through the kernels.
+``flash_bwd`` library holds two kernels, and the decode libraries count
+their int8 rungs apart): each wrapper adds one exactly where it launches
+its kernel, so a run can show that the main path went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -58,24 +59,28 @@ _SIGNATURES = {
         "tpushare_flash_bwd_dkv":
             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
              _F, _P]},
-    # q, kp, vp, tables, table_stride, n_table, kv_lens, o,
-    # B, H, Hkv, hd, page_size, is_bf16, scale, stream
+    # q, kp, vp, ks, vs (int8 scale planes or null), tables, table_stride,
+    # n_table, kv_lens, o, B, H, Hkv, hd, page_size, is_bf16, is_int8,
+    # scale, stream
     "paged_decode": {"tpushare_paged_decode":
-                     [_P, _P, _P, _P, _I, _I, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _F, _P]},
-    # q, k, v (one layer's (B, S, Hkv, hd) base), lengths, o,
-    # B, S, H, Hkv, hd, is_bf16, scale, stream
+                     [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _F, _P]},
+    # q, k, v (one layer's (B, S, Hkv, hd) base), ks, vs (int8 scale
+    # planes or null), lengths, o, B, S, H, Hkv, hd, is_bf16, is_int8,
+    # scale, stream
     "ragged_decode": {"tpushare_ragged_decode":
-                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]},
+                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, _F, _P]},
 }
 
 # return code of an entry point asked for a shape/dtype it has no
 # instantiation for (anything else non-zero is a cudaError_t)
 UNSUPPORTED = -1
 
-# launch counters, one per kernel (the flash_bwd library holds two)
+# launch counters, one per kernel (the flash_bwd library holds two; the
+# decode libraries' int8 rungs count under their own names)
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_decode",
-           "ragged_decode")
+           "paged_decode_int8", "ragged_decode", "ragged_decode_int8")
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()

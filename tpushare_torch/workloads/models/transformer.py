@@ -38,10 +38,10 @@ from tpushare_torch.workloads.ops.registry import (KIND_PREFILL,
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Every field of the reference's ``TransformerConfig`` with the same
-    name, default and meaning; ``dtype`` is a torch dtype. Fields whose
-    machinery lies outside the ported slices (``kv_int8``,
-    ``ragged_decode``) are carried so configs compare field for field;
-    the entry points that cannot serve them reject them."""
+    name, default and meaning; ``dtype`` is a torch dtype. Configs
+    compare field for field with the reference's; an entry point that
+    cannot serve a field's setting rejects it (the paged engine refuses
+    ``kv_int8`` and ``ragged_decode``, which are slot-cache knobs)."""
 
     vocab: int = 2048
     d_model: int = 256

@@ -15,6 +15,14 @@ query token per lane over its block-table pages.
 
 Both address each table slot independently, so tables whose entries
 alias another lane's pages read correctly.
+
+Both also serve the int8 page codec (``PagedServingEngine(kv_codec=
+"int8")``): the pool leaves arrive as ``{"q": int8 pages, "s": fp32
+scale planes}``. The twin dequantizes the gathered pages (``q * s`` in
+fp32, the reference's ``_gather_dequant``); the kernel's int8 rung reads
+the int8 rows and one scale per (row, head), folding ``k_s`` into the
+score and ``v_s`` into the probability. The codec is taken from the
+leaf type, so an int8 pool is never read as raw rows.
 """
 
 from __future__ import annotations
@@ -29,16 +37,18 @@ KERNEL_GROUPS = (1, 2, 4, 8)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def resolve_paged_impl(impl: str, platform: str) -> str:
+def resolve_paged_impl(impl: str, platform: str,
+                       kv_codec: str = "bf16") -> str:
     """Map the engine's ``attn_impl`` knob to "paged" or "xla" through
     the registry's decision table: ``auto`` degrades with a counted
     fallback event, an explicit ``paged`` the platform cannot run raises
-    ``KernelUnavailable`` at engine construction."""
+    ``KernelUnavailable`` at engine construction. ``kv_codec`` rides into
+    the decision, so an int8 pool's row names the int8 rung."""
     if impl not in PAGED_IMPLS:
         raise ValueError(f"attn_impl {impl!r} not in {PAGED_IMPLS}")
     from tpushare_torch.workloads.ops import registry
     chosen, reason = registry.decide(registry.KIND_PAGED, impl=impl,
-                                     platform=platform)
+                                     platform=platform, codec=kv_codec)
     if impl == registry.IMPL_AUTO and chosen == registry.IMPL_XLA:
         registry.record_fallback(registry.IMPL_PAGED, reason)
     return chosen
@@ -47,24 +57,35 @@ def resolve_paged_impl(impl: str, platform: str) -> str:
 def gather_pages(pool_layer: torch.Tensor,
                  tables: torch.Tensor) -> torch.Tensor:
     """Contiguous per-lane view of one layer's pool: ``(n_pages, ps,
-    Hkv, hd)`` through ``(B, P)`` tables -> ``(B, P * ps, Hkv, hd)``.
-    Rows past a lane's live length are garbage the caller masks."""
+    Hkv, ...)`` through ``(B, P)`` tables -> ``(B, P * ps, Hkv, ...)``
+    (rank-generic, so a scale plane gathers through it too). Rows past a
+    lane's live length are garbage the caller masks."""
     B, P = tables.shape
     ps = pool_layer.shape[1]
-    g = pool_layer[tables]                         # (B, P, ps, Hkv, hd)
+    g = pool_layer[tables]                         # (B, P, ps, Hkv, ...)
     return g.reshape(B, P * ps, *pool_layer.shape[2:])
+
+
+def _gather_dequant(pool_layer, tables: torch.Tensor) -> torch.Tensor:
+    """Gathered fp32 view of one layer's pool, dense or codec
+    (``q * s`` per (row, head), as ``decode.kv_dequantize`` reads)."""
+    if isinstance(pool_layer, dict):
+        return (gather_pages(pool_layer["q"], tables).float()
+                * gather_pages(pool_layer["s"], tables)[..., None])
+    return gather_pages(pool_layer, tables).float()
 
 
 def xla_paged_read(q, kp, vp, tables, kv_lens, n_heads: int,
                    kv_heads: int) -> torch.Tensor:
     """The gather twin, op for op the reference's: q (B, Q, H, hd),
+    the pages gathered (and dequantized for an int8 pool) to fp32,
     grouped fp32 einsums, rows >= kv_lens masked at -1e30, fp32 softmax,
     output in q's dtype."""
     B, Q = q.shape[:2]
     hd = q.shape[-1]
     G = n_heads // kv_heads
-    kmat = gather_pages(kp, tables).float()
-    vmat = gather_pages(vp, tables).float()
+    kmat = _gather_dequant(kp, tables)
+    vmat = _gather_dequant(vp, tables)
     R = kmat.shape[1]
     qg = q.float().reshape(B, Q, kv_heads, G, hd)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kmat) * (hd ** -0.5)
@@ -76,28 +97,41 @@ def xla_paged_read(q, kp, vp, tables, kv_lens, n_heads: int,
     return o.reshape(B, Q, n_heads, hd).to(q.dtype)
 
 
-def paged_decode(q1: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
-                 tables: torch.Tensor, kv_lens: torch.Tensor) -> torch.Tensor:
-    """One decode token per lane over one layer's pool: q1 (B, H, hd),
-    kp/vp (n_pages, ps, Hkv, hd), tables (B, P) int32 (row stride may
-    exceed P: a narrowed read passes a column slice), kv_lens (B,)
-    int32 -> (B, H, hd).
+def _check_pool_layer(name: str, t: torch.Tensor, shape: tuple,
+                      dtype: torch.dtype, device: torch.device) -> None:
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype} on q's device")
+    if not t.is_contiguous() or t.shape != shape:
+        raise ValueError(f"{name} must be a contiguous {shape} pool layer")
 
-    A CUDA tensor launches the kernel; what it cannot take raises. A CPU
-    tensor gets :func:`xla_paged_read`."""
+
+def paged_decode(q1: torch.Tensor, kp, vp, tables: torch.Tensor,
+                 kv_lens: torch.Tensor) -> torch.Tensor:
+    """One decode token per lane over one layer's pool: q1 (B, H, hd),
+    kp/vp (n_pages, ps, Hkv, hd) in q's dtype — or int8 codec leaves
+    ``{"q": int8 (n_pages, ps, Hkv, hd), "s": fp32 (n_pages, ps, Hkv)}``
+    — tables (B, P) int32 (row stride may exceed P: a narrowed read
+    passes a column slice), kv_lens (B,) int32 -> (B, H, hd).
+
+    A CUDA tensor launches the kernel (its int8 rung for codec leaves);
+    what it cannot take raises. A CPU tensor gets
+    :func:`xla_paged_read`."""
     H, hd = q1.shape[1], q1.shape[2]
-    Hkv = kp.shape[2]
+    int8 = isinstance(kp, dict)
+    kq, vq = (kp["q"], vp["q"]) if int8 else (kp, vp)
+    Hkv = kq.shape[2]
     if q1.device.type == "cpu":
         return xla_paged_read(q1[:, None], kp, vp, tables, kv_lens,
                               H, Hkv)[:, 0]
     B = q1.shape[0]
-    n_pages, ps = kp.shape[0], kp.shape[1]
-    for name, t in (("kp", kp), ("vp", vp)):
-        if t.device != q1.device or t.dtype != q1.dtype:
-            raise ValueError(f"{name} must share q's device and dtype")
-        if not t.is_contiguous() or t.shape != (n_pages, ps, Hkv, hd):
-            raise ValueError(f"{name} must be a contiguous (n_pages, ps, "
-                             f"Hkv, {hd}) pool layer")
+    n_pages, ps = kq.shape[0], kq.shape[1]
+    rows = (n_pages, ps, Hkv, hd)
+    for name, t in (("k", kq), ("v", vq)):
+        _check_pool_layer(name, t, rows, torch.int8 if int8 else q1.dtype,
+                          q1.device)
+    if int8:
+        for name, t in (("k scales", kp["s"]), ("v scales", vp["s"])):
+            _check_pool_layer(name, t, rows[:-1], torch.float32, q1.device)
     for name, t in (("tables", tables), ("kv_lens", kv_lens)):
         if t.device != q1.device or t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32 on q's device")
@@ -113,27 +147,33 @@ def paged_decode(q1: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                          f"{H}:{Hkv}")
     out = torch.empty_like(q1)
     lib = build.library("paged_decode")
+    ks, vs = (kp["s"].data_ptr(), vp["s"].data_ptr()) if int8 else (None,
+                                                                     None)
     with torch.cuda.device(q1.device):
         rc = lib.tpushare_paged_decode(
-            q1.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(),
-            tables.stride(0), tables.shape[1], kv_lens.data_ptr(),
-            out.data_ptr(), B, H, Hkv, hd, ps,
-            int(q1.dtype == torch.bfloat16), hd ** -0.5,
+            q1.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks, vs,
+            tables.data_ptr(), tables.stride(0), tables.shape[1],
+            kv_lens.data_ptr(), out.data_ptr(), B, H, Hkv, hd, ps,
+            int(q1.dtype == torch.bfloat16), int(int8), hd ** -0.5,
             torch.cuda.current_stream().cuda_stream)
-    build.check(lib, "paged_decode", rc)
-    build.LAUNCHES["paged_decode"] += 1
+    name = "paged_decode_int8" if int8 else "paged_decode"
+    build.check(lib, name, rc)
+    build.LAUNCHES[name] += 1
     return out
 
 
 def paged_attention_read(q, kp, vp, tables, kv_lens, cfg,
                          impl: str = "xla") -> torch.Tensor:
     """One decode step's attention read over paged K/V: q (B, 1, H, hd),
-    kp/vp one layer's pool, tables (B, P), kv_lens (B,) valid rows per
-    lane (current position + 1). ``impl`` is already resolved
-    ("paged" | "xla", :func:`resolve_paged_impl`)."""
+    kp/vp one layer's pool (dense or codec leaves), tables (B, P),
+    kv_lens (B,) valid rows per lane (current position + 1). ``impl`` is
+    already resolved ("paged" | "xla", :func:`resolve_paged_impl`); the
+    codec is a property of the pool bytes, taken from the leaf type so
+    the read can never disagree with the storage."""
     from tpushare_torch.workloads.ops.registry import (KIND_PAGED,
                                                        select_attention)
+    codec = "int8" if isinstance(kp, dict) else "bf16"
     choice = select_attention(
         KIND_PAGED, impl=impl, n_heads=cfg.n_heads, n_kv_heads=cfg.kv_heads,
-        head_dim=cfg.head_dim, platform=q.device.type)
+        head_dim=cfg.head_dim, platform=q.device.type, codec=codec)
     return choice.fn(q[:, 0], kp, vp, tables, kv_lens)[:, None]

@@ -19,6 +19,12 @@ A stacked ``(L, B, S, Hkv, hd)`` cache is read at ``layer`` through the
 contiguous view ``k[layer]``: the kernel is handed the view's pointer, so
 no slice is copied (the reference had to thread the stacked cache through
 its scan carry to get the same).
+
+An int8 codec cache (``cfg.kv_int8``: ``{"q": int8 (..., hd), "s": fp32
+(...)}`` leaves) is read at int8 width by the kernel's int8 rung, the
+scales folded into scores and probabilities as the reference's
+``quantized`` kernel folds them; the twin takes the dense core's
+quantized branch.
 """
 
 from __future__ import annotations
@@ -33,56 +39,76 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _layer_views(k, v, layer):
-    return (k, v) if layer is None else (k[layer], v[layer])
+    if layer is None:
+        return k, v
+    # imported here: decode.py imports the registry, which imports this
+    from tpushare_torch.workloads.decode import kv_view
+    return kv_view(k, layer), kv_view(v, layer)
 
 
-def ragged_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        lengths: torch.Tensor, *,
+def ragged_decode_plain(q: torch.Tensor, k, v, lengths: torch.Tensor, *,
                         layer: int | None = None) -> torch.Tensor:
     """The twin: fp32 grouped einsums, the dot scaled by hd^-0.5 after
-    it, rows past ``lengths[b]`` masked at -1e30, fp32 softmax, output in
+    it (then by the K scales of a codec cache), rows past ``lengths[b]``
+    masked at -1e30, fp32 softmax (then times the V scales), output in
     q's dtype. Arguments as :func:`ragged_decode_attention`."""
+    from tpushare_torch.workloads.decode import kv_scale_bhgqk
     k, v = _layer_views(k, v, layer)
+    quantized = isinstance(k, dict)
+    kmat = (k["q"] if quantized else k).float()
+    vmat = (v["q"] if quantized else v).float()
     B, H, hd = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
+    S, Hkv = kmat.shape[1], kmat.shape[2]
     qg = q.float().reshape(B, 1, Hkv, H // Hkv, hd)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (hd ** -0.5)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kmat) * (hd ** -0.5)
+    if quantized:
+        s = s * kv_scale_bhgqk(k["s"])
     mask = (torch.arange(S, device=q.device)[None, None, :]
             <= lengths[:, None, None])                          # (B, 1, S)
     s = torch.where(mask[:, None, None, :, :], s, -1e30)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    if quantized:
+        p = p * kv_scale_bhgqk(v["s"])
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, vmat)
     return o.reshape(B, H, hd).to(q.dtype)
 
 
-def ragged_decode_attention(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor, lengths: torch.Tensor, *,
-                            layer: int | None = None) -> torch.Tensor:
+def ragged_decode_attention(q: torch.Tensor, k, v, lengths: torch.Tensor,
+                            *, layer: int | None = None) -> torch.Tensor:
     """Single-token cached attention with per-slot live lengths.
 
     q (B, H, hd) is each slot's query at its current position; k/v are
-    (B, S, Hkv, hd) caches, or with ``layer`` the full stacked
-    (L, B, S, Hkv, hd) caches of which ``k[layer]`` is read; lengths (B,)
-    int32 — slot b attends rows [0, lengths[b]] inclusive (the current
-    token's K/V is already written at ``lengths[b]``). Returns (B, H, hd)
-    in q's dtype.
+    (B, S, Hkv, hd) caches — in q's dtype, or int8 codec leaves
+    ``{"q": int8 (B, S, Hkv, hd), "s": fp32 (B, S, Hkv)}`` — or with
+    ``layer`` the full stacked (L, B, ...) caches of which ``k[layer]``
+    is read; lengths (B,) int32 — slot b attends rows [0, lengths[b]]
+    inclusive (the current token's K/V is already written at
+    ``lengths[b]``). Returns (B, H, hd) in q's dtype.
 
-    A CUDA tensor launches the kernel; what it cannot take raises. A CPU
-    tensor gets :func:`ragged_decode_plain`."""
+    A CUDA tensor launches the kernel (its int8 rung for codec leaves);
+    what it cannot take raises. A CPU tensor gets
+    :func:`ragged_decode_plain`."""
     if q.device.type == "cpu":
         return ragged_decode_plain(q, k, v, lengths, layer=layer)
     k, v = _layer_views(k, v, layer)
+    int8 = isinstance(k, dict)
+    kq, vq = (k["q"], v["q"]) if int8 else (k, v)
     B, H, hd = q.shape
-    if k.dim() != 4 or k.shape[0] != B or k.shape[3] != hd:
+    if kq.dim() != 4 or kq.shape[0] != B or kq.shape[3] != hd:
         raise ValueError(f"k must be (B={B}, S, Hkv, {hd}) (one layer), "
-                         f"got {tuple(k.shape)}")
-    S, Hkv = k.shape[1], k.shape[2]
-    for name, t in (("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"{name} must share q's device and dtype")
-        if not t.is_contiguous() or t.shape != (B, S, Hkv, hd):
-            raise ValueError(f"{name} must be a contiguous (B, S, Hkv, {hd}) "
-                             "cache (or a stacked cache with layer=)")
+                         f"got {tuple(kq.shape)}")
+    S, Hkv = kq.shape[1], kq.shape[2]
+    planes = [("k", kq, (B, S, Hkv, hd), torch.int8 if int8 else q.dtype),
+              ("v", vq, (B, S, Hkv, hd), torch.int8 if int8 else q.dtype)]
+    if int8:
+        planes += [("k scales", k["s"], (B, S, Hkv), torch.float32),
+                   ("v scales", v["s"], (B, S, Hkv), torch.float32)]
+    for name, t, shape, dtype in planes:
+        if t.device != q.device or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} on q's device")
+        if not t.is_contiguous() or t.shape != shape:
+            raise ValueError(f"{name} must be a contiguous {shape} cache "
+                             "(or a stacked cache with layer=)")
     if lengths.device != q.device or lengths.dtype != torch.int32 \
             or lengths.shape != (B,):
         raise ValueError("lengths must be (B,) int32 on q's device")
@@ -94,16 +120,18 @@ def ragged_decode_attention(q: torch.Tensor, k: torch.Tensor,
                          f"dtype in {KERNEL_DTYPES} and query groups in "
                          f"{KERNEL_GROUPS}, got {hd} / {q.dtype} / "
                          f"{H}:{Hkv}")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    if any(t.data_ptr() % 16 for t in (q, kq, vq)):
         raise ValueError("q, k and v must be 16-byte aligned (vector loads)")
     out = torch.empty_like(q)
     lib = build.library("ragged_decode")
+    ks, vs = (k["s"].data_ptr(), v["s"].data_ptr()) if int8 else (None, None)
     with torch.cuda.device(q.device):
         rc = lib.tpushare_ragged_decode(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), B, S, H, Hkv, hd,
-            int(q.dtype == torch.bfloat16), hd ** -0.5,
+            q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks, vs,
+            lengths.data_ptr(), out.data_ptr(), B, S, H, Hkv, hd,
+            int(q.dtype == torch.bfloat16), int(int8), hd ** -0.5,
             torch.cuda.current_stream().cuda_stream)
-    build.check(lib, "ragged_decode", rc)
-    build.LAUNCHES["ragged_decode"] += 1
+    name = "ragged_decode_int8" if int8 else "ragged_decode"
+    build.check(lib, name, rc)
+    build.LAUNCHES[name] += 1
     return out

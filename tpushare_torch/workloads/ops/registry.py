@@ -16,6 +16,13 @@ dp/tp/sp rows are absent. Semantics are the reference's:
   kernels report as ``flash`` / ``ragged`` / ``paged``, the plain-PyTorch
   paths as ``xla``.
 
+The paged pool's storage codec is part of the decision, as in the
+reference: ``codec="int8"`` gives the paged rows a ``-int8`` suffix, and
+the read the row picks serves the codec leaves (the kernel's int8 rung,
+or the dequantizing gather twin). The slot-cache read's int8 rung
+follows the cache's leaf type in the ragged wrapper (the reference's
+``quantized=`` flag only keyed its build cache).
+
 Where the port departs from the reference's rows: the flash kernel
 takes any S (it masks a partial last tile), so the reference's
 Pallas-block gate (``seq:untiled``) is gone and every CUDA prefill runs
@@ -127,32 +134,42 @@ def reset_fallbacks() -> None:
 def decide(kind: str, *, seq: int | None = None, window: int | None = None,
            n_heads: int | None = None, n_kv_heads: int | None = None,
            head_dim: int | None = None, platform: str | None = None,
-           impl: str = IMPL_AUTO) -> tuple[str, str]:
+           impl: str = IMPL_AUTO, codec: str | None = None
+           ) -> tuple[str, str]:
     """(impl, reason) for one attention site; raises
     :class:`KernelUnavailable` for explicit impls the table cannot
-    honour. ``platform`` is the tensors' device type ("cuda" / "cpu")."""
+    honour. ``platform`` is the tensors' device type ("cuda" / "cpu");
+    ``codec`` the paged pool's storage codec (``consts.KV_CODECS``)."""
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r} not in {KINDS}")
     if impl not in IMPLS + (IMPL_AUTO, IMPL_KERNEL):
         raise ValueError(
             f"impl {impl!r} not in {IMPLS + (IMPL_AUTO, IMPL_KERNEL)}")
+    if codec is not None and codec not in consts.KV_CODECS:
+        raise ValueError(f"codec {codec!r} not in {consts.KV_CODECS}")
+    if codec == "int8" and kind != KIND_PAGED:
+        raise ValueError("codec='int8' applies to the paged pool read "
+                         "(kind='paged'); a slot cache's int8 rung "
+                         "follows its leaf type")
     if n_kv_heads is None:
         n_kv_heads = n_heads
 
     if kind == KIND_PAGED:
         available = platform == PLATFORM
+        # an int8 pool's rows name the int8 rung
+        tag = "-int8" if codec == "int8" else ""
         if impl in (IMPL_PAGED, IMPL_KERNEL):
             if not available:
                 raise KernelUnavailable(
                     IMPL_PAGED, kind,
                     f"the paged-attention kernel needs a CUDA device "
                     f"(platform {platform!r})")
-            return IMPL_PAGED, "explicit:paged"
+            return IMPL_PAGED, "explicit:paged" + tag
         if impl == IMPL_XLA:
             return IMPL_XLA, "explicit:xla"
         if impl == IMPL_AUTO:
             if available:
-                return IMPL_PAGED, "auto:paged"
+                return IMPL_PAGED, "auto:paged" + tag
             return IMPL_XLA, "platform:" + (platform or "none")
         raise KernelUnavailable(
             impl, kind, "the paged read chooses between 'paged' and 'xla'")
@@ -233,7 +250,8 @@ def select_attention(kind: str, *, seq: int | None = None,
                      n_kv_heads: int | None = None,
                      head_dim: int | None = None,
                      platform: str | None = None, impl: str = IMPL_AUTO,
-                     causal: bool = True) -> KernelChoice:
+                     causal: bool = True,
+                     codec: str | None = None) -> KernelChoice:
     """Run :func:`decide` and return the ready-to-call implementation;
     an ``auto`` degradation to the plain path is recorded against the
     kernel the table would otherwise have taken. A window without causal
@@ -241,7 +259,7 @@ def select_attention(kind: str, *, seq: int | None = None,
     check_window(causal, window)
     chosen, reason = decide(kind, seq=seq, window=window, n_heads=n_heads,
                             n_kv_heads=n_kv_heads, head_dim=head_dim,
-                            platform=platform, impl=impl)
+                            platform=platform, impl=impl, codec=codec)
     if chosen == IMPL_XLA and impl == IMPL_AUTO:
         record_fallback({KIND_PREFILL: IMPL_FLASH, KIND_DECODE: IMPL_RAGGED,
                          KIND_PAGED: IMPL_PAGED}[kind], reason)

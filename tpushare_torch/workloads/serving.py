@@ -8,22 +8,23 @@ lane efficiency, the prefix registry lookup);
 - the slot engine: its device programs (``init_slots``,
   ``ingest_chunk``, ``admit``, ``_install_prefix``, ``_slot_step``,
   ``slot_decode_chunk``) and ``ServingEngine`` — a fixed batch of slot
-  caches (L, n_slots, rows, Hkv, hd), the ring cache of windowed models
-  (``ring_rows``), the ragged read (``cfg.ragged_decode``: the CUDA
-  ragged-decode kernel on the card), prefix caching by copy,
-  ``sample_n`` and the pipelined loop;
+  caches (L, n_slots, rows, Hkv, hd), dense or int8 (``cfg.kv_int8``),
+  the ring cache of windowed models (``ring_rows``), the ragged read
+  (``cfg.ragged_decode``: the CUDA ragged-decode kernel on the card, its
+  int8 rung for int8 caches), prefix caching by copy, ``sample_n`` and
+  the pipelined loop;
 - the paged engine: its device programs (``init_page_state``,
   ``_paged_step``, ``paged_decode_chunk``, ``_paged_prefill_chunk``,
   ``_install_pages``, ``_paged_admit_commit``) and ``PagedServingEngine``
-  with a bf16 pool on one device, ``attn_impl`` auto/paged/xla, and
-  page-forecast admission — pool exhaustion defers a request, a
-  forecast that could never fit sheds it.
+  with a bf16 or int8 pool (``kv_codec``) on one device, ``attn_impl``
+  auto/paged/xla, and page-forecast admission — pool exhaustion defers a
+  request, a forecast that could never fit sheds it.
 
 Left for later slices (ROADMAP.md): telemetry/tracing/SLO (A.1), the
 AIMD admission controller, watchdog, deadlines, OOM quarantine and drain
-(A.2), shared prefix pages with copy-on-write (A.3), int8 caches (A.4),
-speculative decoding (A.6), int8 weights (A.7), MoE (A.9), meshes
-(A.10), fleet handoff (A.11). The engines raise where the reference
+(A.2), shared prefix pages with copy-on-write (A.3), speculative
+decoding (A.6), int8 weights (A.7), MoE (A.9), meshes (A.10), fleet
+handoff (A.11). The engines raise where the reference
 would accept those, naming the item.
 
 The reference's jitted programs become eager functions that update the
@@ -43,10 +44,10 @@ from tpushare_torch import consts
 from tpushare_torch.workloads import overload, paging
 from tpushare_torch.workloads.decode import (
     BucketOverflowError, cache_max_seq, check_paged_config,
-    check_ragged_config, chunk_step, init_cache, init_page_pool,
-    make_cached_attn_core, make_paged_attn_core, make_ragged_attn_core,
-    pool_page_size, prefill, prefill_chunk_layout, scatter_scratch_pages,
-    truncate_top_k, truncate_top_p)
+    check_ragged_config, chunk_step, init_cache, init_page_pool, kv_data,
+    kv_planes, kv_view, make_cached_attn_core, make_paged_attn_core,
+    make_ragged_attn_core, pool_page_size, prefill, prefill_chunk_layout,
+    scatter_scratch_pages, truncate_top_k, truncate_top_p)
 from tpushare_torch.workloads.models.transformer import (
     TransformerConfig, embed_lookup, layer_block, layer_params, lm_head,
     rope_tables)
@@ -148,11 +149,12 @@ def _sample_rows(logits: torch.Tensor, temps: torch.Tensor, top_k: int,
 
 def init_slots(cfg: TransformerConfig, n_slots: int, max_seq: int,
                device: torch.device) -> dict:
-    """Slot state: K/V (L, n_slots, max_seq, Hkv, hd), per-slot int32
-    lengths (the kernel's index type), active flags, current tokens (the
-    next decode input) and sampling state. For a windowed engine
-    ``max_seq`` here is the cache row count — a ring smaller than the
-    logical sequence bound (``ServingEngine`` ``ring_rows``)."""
+    """Slot state: K/V (L, n_slots, max_seq, Hkv, hd) — codec leaves under
+    ``cfg.kv_int8`` — per-slot int32 lengths (the kernel's index type),
+    active flags, current tokens (the next decode input) and sampling
+    state. For a windowed engine ``max_seq`` here is the cache row count
+    — a ring smaller than the logical sequence bound (``ServingEngine``
+    ``ring_rows``)."""
     base = init_cache(cfg, n_slots, max_seq, device=device)
 
     def zeros(dtype):
@@ -173,8 +175,9 @@ def ingest_chunk(params: dict, tokens: torch.Tensor, slots: dict, slot: int,
     place) — the chunked-prefill admission primitive. Sets the slot's
     length to ``new_len``, marks it active and stores the token sampled
     at in-chunk position ``rel_last`` (only the final chunk's matters)."""
-    sub = {"k": slots["k"][:, slot:slot + 1],
-           "v": slots["v"][:, slot:slot + 1], "length": start}
+    view = (slice(None), slice(slot, slot + 1))
+    sub = {"k": kv_view(slots["k"], view), "v": kv_view(slots["v"], view),
+           "length": start}
     logits, _ = chunk_step(params, tokens, sub, cfg, logit_pos=rel_last)
     dev = logits.device
     temps = torch.tensor([temp], dtype=torch.float32, device=dev)
@@ -191,14 +194,16 @@ def ingest_chunk(params: dict, tokens: torch.Tensor, slots: dict, slot: int,
     return slots
 
 
-def _install_prefix(slots: dict, slot: int, pk: torch.Tensor,
-                    pv: torch.Tensor) -> dict:
-    """Copy a registered prefix's prefilled K/V ((L, 1, P, Hkv, hd)) into
-    ``slot``'s rows 0..P — a device copy, no recompute. Lengths, active
-    and tokens are set by the suffix ingest that must follow."""
-    P = pk.shape[2]
-    slots["k"][:, slot, :P] = pk[:, 0]
-    slots["v"][:, slot, :P] = pv[:, 0]
+def _install_prefix(slots: dict, slot: int, pk, pv) -> dict:
+    """Copy a registered prefix's prefilled K/V ((L, 1, P, Hkv, hd)
+    leaves) into ``slot``'s rows 0..P — a device copy, no recompute; an
+    int8 prefix copies its ``q`` and ``s`` planes together and is never
+    requantized. Lengths, active and tokens are set by the suffix ingest
+    that must follow."""
+    P = kv_data(pk).shape[2]
+    for dst, src in zip(kv_planes(slots["k"]) + kv_planes(slots["v"]),
+                        kv_planes(pk) + kv_planes(pv)):
+        dst[:, slot, :P] = src[:, 0]
     return slots
 
 
@@ -236,8 +241,9 @@ def _slot_step(params: dict, slots: dict, cfg: TransformerConfig, rope,
             core = make_ragged_attn_core(slots["k"], slots["v"], i, lengths,
                                          cfg)
         else:
-            core = make_cached_attn_core(slots["k"][i], slots["v"][i],
-                                         lengths, cfg, slot_ids)
+            core = make_cached_attn_core(kv_view(slots["k"], i),
+                                         kv_view(slots["v"], i), lengths,
+                                         cfg, slot_ids)
         x, _ = layer_block(x, layer_params(params, i), cfg, cos, sin, core)
     logits = lm_head(params, x[:, 0])
     nxt, lp = _sample_rows(logits, slots["temps"], top_k, slots["top_ps"],
@@ -261,7 +267,7 @@ def slot_decode_chunk(params: dict, slots: dict, cfg: TransformerConfig,
     ``rope_len`` is the logical sequence bound when the cache is a ring
     (default the cache rows)."""
     rope_len = rope_len or cache_max_seq(slots)
-    rope = rope_tables(cfg, rope_len, slots["k"].device)
+    rope = rope_tables(cfg, rope_len, slots["lengths"].device)
     toks, lps = [], []
     for _ in range(n_steps):
         nxt, lp = _slot_step(params, slots, cfg, rope, top_k=top_k,
@@ -311,7 +317,8 @@ def _paged_step(params: dict, state: dict, cfg: TransformerConfig, rope,
     sin = sin_t[lengths][:, None]
     x = embed_lookup(params["embed"], state["tokens"])[:, None]
     for i in range(cfg.n_layers):
-        core = make_paged_attn_core(state["k"][i], state["v"][i],
+        core = make_paged_attn_core(kv_view(state["k"], i),
+                                    kv_view(state["v"], i),
                                     state["tables"], lengths, cfg,
                                     impl=impl, gather_pages_w=gather_pages_w)
         x, _ = layer_block(x, layer_params(params, i), cfg, cos, sin, core)
@@ -338,7 +345,7 @@ def paged_decode_chunk(params: dict, state: dict, cfg: TransformerConfig,
     (tokens (B, n_steps), logprobs (B, n_steps), state)."""
     rope_len = rope_len or (state["tables"].shape[1]
                             * pool_page_size(state["k"]))
-    rope = rope_tables(cfg, rope_len, state["k"].device)
+    rope = rope_tables(cfg, rope_len, state["tables"].device)
     toks, lps = [], []
     for _ in range(n_steps):
         nxt, lp = _paged_step(params, state, cfg, rope, top_k=top_k,
@@ -590,6 +597,12 @@ class ServingEngine(_EngineCore):
     the card) so the bytes read scale with each slot's live length;
     unservable configs raise ``KernelUnavailable`` at construction.
 
+    ``cfg.kv_int8``: the slot caches hold the int8 codec (about half the
+    bytes per row): admission chunks and decode steps quantize on write
+    and read the int8 rows with their scales folded in (the ragged
+    kernel's int8 rung under ``cfg.ragged_decode``); prefixes register
+    quantized and copy both planes.
+
     ``pipeline=True``: dispatch chunk i+1 before harvesting chunk i, so
     the host's harvest/retire/admit work overlaps the device's chunk;
     outputs are identical to the plain loop.
@@ -804,30 +817,48 @@ class PagedServingEngine(_EngineCore):
     exhaustion mid-decode (only under ``decode_forecast_fraction`` < 1)
     quarantines the request whose eviction frees the most pages.
 
-    ``attn_impl``: "paged" reads through the CUDA paged-decode kernel,
-    "xla" through the gather twin, "auto" picks the kernel where the
-    pool lives on a CUDA device (counted fallback otherwise).
+    ``kv_codec`` is the pool's storage format (``consts.KV_CODECS``):
+    "bf16" stores the model dtype; "int8" stores each of K/V as ``{"q":
+    int8 pages, "s": fp32 per-(row, head) scales}``, quantized at page
+    install and at every decode write, dequantized at every read — about
+    half the bytes per page (``paging.kv_bytes_per_el``), so equal pool
+    HBM buys about twice the pages and admits deeper concurrency under
+    the same admission math. ``cfg.kv_int8`` (the slot cache's knob) is
+    refused: the admission scratch is dense and the pool owns the codec.
+
+    ``attn_impl``: "paged" reads through the CUDA paged-decode kernel
+    (its int8 rung for an int8 pool), "xla" through the gather twin,
+    "auto" picks the kernel where the pool lives on a CUDA device
+    (counted fallback otherwise).
     """
 
     def __init__(self, params: dict, cfg: TransformerConfig, n_lanes: int,
                  max_seq: int, n_pages: int, page_size: int = 32,
                  prompt_buckets: tuple[int, ...] = (32, 128),
                  chunk: int = 8, seed: int = 0, top_k: int = 0,
-                 attn_impl: str = "auto",
+                 attn_impl: str = "auto", kv_codec: str = "bf16",
                  decode_forecast_fraction: float = 1.0):
-        check_paged_config(cfg)
+        check_paged_config(cfg, kv_codec=kv_codec)
         self._init_core(params, cfg, n_lanes, max_seq, prompt_buckets,
                         chunk, seed, top_k)
         self.device = params["embed"].device
         self.n_lanes = n_lanes
-        self.attn_impl = resolve_paged_impl(attn_impl, self.device.type)
+        self.kv_codec = kv_codec
+        self.attn_impl = resolve_paged_impl(attn_impl, self.device.type,
+                                            kv_codec)
         self.alloc = paging.PageAllocator(n_pages, page_size, reserved=1)
+        # the pool's HBM under its codec (the reference's telemetry
+        # rider; the port has no telemetry yet, ROADMAP A.1)
+        self.pool_mib = paging.pool_hbm_mib(n_pages, page_size, cfg.n_layers,
+                                            cfg.kv_heads, cfg.head_dim,
+                                            kv_codec)
         self.max_pages_per_lane = paging.pages_for_rows(max_seq, page_size)
         self.decode_forecast_fraction = decode_forecast_fraction
         # validate the knob eagerly
         paging.forecast_request_pages(1, 1, page_size, max_seq,
                                       decode_forecast_fraction)
         self.state = {**init_page_pool(cfg, n_pages, page_size,
+                                       kv_codec=kv_codec,
                                        device=self.device),
                       **init_page_state(cfg, n_lanes,
                                         self.max_pages_per_lane,
