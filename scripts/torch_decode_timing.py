@@ -1,22 +1,23 @@
 #!/usr/bin/env python3
 """Device time of the port's two decode reads, at the smoke's shapes.
 
-    python scripts/torch_decode_timing.py [--repo DIR] [--label NAME]
+    python scripts/torch_decode_timing.py [--repo DIR]
 
-Times ``ops.ragged_decode.ragged_decode_attention`` (K4) at the `serve`,
-`long`, `gqa` and `f32` shapes of ``chip_smoke.py`` and
-``ops.paged_attention.paged_decode`` (K5) at its `main-path` and
-`flagship-2k` / `gqa-2k` shapes, on the bf16/fp32 rungs and, where the
-checkout has them, the int8 rungs (the same inputs quantized with
-``decode.kv_quantize``). Inputs come from fixed seeds, so two checkouts
-time the same work: ``--repo`` imports the package from another checkout
-(for example the parent commit unpacked with ``git archive``), which
-builds its own kernels. Compare two checkouts only within one machine
-session, in turns (parent, change, change, parent).
+Times ``ops.ragged_decode.ragged_decode_attention`` (K4) and
+``ops.paged_attention.paged_decode`` (K5) on the cases and inputs of
+``chip_smoke.py`` (``RAGGED_CASES`` / ``ragged_inputs``, ``PAGED_CASES``
+/ ``paged_inputs``): each on its bf16/fp32 rung and, where the checkout
+has them, its int8 rung (the same draws quantized). Inputs come from
+fixed seeds, so two checkouts time the same work: ``--repo`` imports the
+package from another checkout (for example the parent commit unpacked
+with ``git archive``), which builds its own kernels. Compare two
+checkouts only within one machine session, in turns (parent, change,
+change, parent).
 
-Prints one JSON line per (kernel, shape, rung): the median device time
-of 20 calls with the stream held busy (``chip_smoke.time_ms``). Needs a
-CUDA device; exits non-zero without one.
+Prints one JSON line per (kernel, case, q dtype, rung): the median
+device time of 20 calls with the stream held busy
+(``chip_smoke.time_ms``). Needs a CUDA device; exits non-zero without
+one.
 """
 
 from __future__ import annotations
@@ -28,82 +29,47 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 
-RAGGED = [  # (shape, B, S, H, Hkv, dtype)
-    ("serve", 4, 256, 16, 16, "bfloat16"),
-    ("long", 8, 16384, 16, 16, "bfloat16"),
-    ("gqa", 8, 16384, 16, 4, "bfloat16"),
-    ("f32", 4, 4096, 16, 16, "float32"),
-]
-PAGED = [  # (shape, B, H, Hkv, hd, page_size, table width, max kv_len)
-    ("main-path", 8, 16, 16, 128, 32, 8, 256),
-    ("flagship-2k", 8, 16, 16, 128, 32, 64, 2048),
-    ("gqa-2k", 8, 16, 4, 128, 32, 64, 2048),
-]
-
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", type=Path, default=REPO,
                     help="checkout whose tpushare_torch is timed")
-    ap.add_argument("--label", default="change")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("torch_decode_timing: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    from chip_smoke import time_ms
+    from chip_smoke import (PAGED_CASES, RAGGED_CASES, paged_inputs,
+                            ragged_inputs, time_ms)
     sys.path.insert(0, str(args.repo.resolve()))
     from tpushare_torch.workloads import decode
     from tpushare_torch.workloads.ops.paged_attention import paged_decode
     from tpushare_torch.workloads.ops.ragged_decode import (
         ragged_decode_attention)
-    int8 = hasattr(decode, "kv_quantize")
+    rungs = [False, True] if hasattr(decode, "kv_quantize") else [False]
 
-    def emit(kernel, shape, rung, ms):
-        print(json.dumps({"label": args.label, "kernel": kernel,
-                          "shape": shape, "rung": rung, "ms": ms}),
+    def emit(kernel, case, dtype, int8, ms):
+        print(json.dumps({"kernel": kernel, "case": case, "q": dtype,
+                          "rung": "int8" if int8 else dtype, "ms": ms}),
               flush=True)
 
-    for shape, B, S, H, Hkv, dtype in RAGGED:
-        gen = torch.Generator(device="cuda").manual_seed(31)
-        dt = getattr(torch, dtype)
-        q = torch.randn((B, H, 128), generator=gen, device="cuda").to(dt)
-        kf, vf = (torch.randn((B, S, Hkv, 128), generator=gen,
-                              device="cuda") for _ in range(2))
-        lens = torch.randint(0, S if shape in ("serve", "f32")
-                             else int(0.4 * S), (B,), generator=gen,
-                             device="cuda").to(torch.int32)
-        if shape in ("long", "gqa"):
-            lens[0], lens[1] = 0, S - 1
-        k, v = kf.to(dt), vf.to(dt)
-        emit("ragged_decode", shape, dtype,
-             time_ms(lambda: ragged_decode_attention(q, k, v, lens)))
-        if int8:
-            kq, vq = decode.kv_quantize(kf), decode.kv_quantize(vf)
-            emit("ragged_decode", shape, "int8",
-                 time_ms(lambda: ragged_decode_attention(q, kq, vq, lens)))
-        del kf, vf, k, v
-        torch.cuda.empty_cache()
-    for shape, B, H, Hkv, hd, ps, P, max_len in PAGED:
-        gen = torch.Generator(device="cuda").manual_seed(32)
-        n_pages = B * P + 1
-        kf, vf = (torch.randn((n_pages, ps, Hkv, hd), generator=gen,
-                              device="cuda") for _ in range(2))
-        tables = (torch.randperm(n_pages - 1, generator=gen, device="cuda")
-                  [:B * P].reshape(B, P) + 1).to(torch.int32)
-        kv_lens = torch.randint(max_len // 2 + 1, max_len + 1, (B,),
-                                generator=gen, device="cuda",
-                                dtype=torch.int32)
-        q1 = torch.randn((B, H, hd), generator=gen, device="cuda").to(
-            torch.bfloat16)
-        k, v = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
-        emit("paged_decode", shape, "bfloat16",
-             time_ms(lambda: paged_decode(q1, k, v, tables, kv_lens)))
-        if int8:
-            kq, vq = decode.kv_quantize(kf), decode.kv_quantize(vf)
-            emit("paged_decode", shape, "int8",
-                 time_ms(lambda: paged_decode(q1, kq, vq, tables, kv_lens)))
+    for label, B, S, H, Hkv, dtype in RAGGED_CASES:
+        for int8 in rungs:
+            gen = torch.Generator(device="cuda").manual_seed(31)
+            q, k, v, lens = ragged_inputs(torch, gen, label, B, S, H, Hkv,
+                                          dtype, int8)
+            emit("ragged_decode", label, dtype, int8,
+                 time_ms(lambda: ragged_decode_attention(q, k, v, lens)))
+            del k, v
+            torch.cuda.empty_cache()
+    for label, B, H, Hkv, hd, ps, P, max_len, dtype in PAGED_CASES:
+        for int8 in rungs:
+            gen = torch.Generator(device="cuda").manual_seed(32)
+            q1, k, v, tables, kv_lens = paged_inputs(
+                torch, gen, B, H, Hkv, hd, ps, P, max_len, dtype, int8)
+            emit("paged_decode", label, dtype, int8,
+                 time_ms(lambda: paged_decode(q1, k, v, tables, kv_lens)))
     return 0
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's main paths spend their time on one GPU.
 
-    python scripts/torch_profile.py [path ...]
+    python scripts/torch_profile.py
 
 At the flagship preset (1.2B, bf16, random weights from a seed) this
 profiles, with ``torch.profiler`` (CPU + CUDA activities):
@@ -22,9 +22,8 @@ For each it prints one JSON line: host wall time per step, device busy
 time per step (the sum of the device-side kernel and copy times), the
 device idle share over the window (1 - busy / wall), device launches per
 step (all kernels and copies; the decode paths also their decode
-kernel's own count), and the top kernels by device time. With path names
-as arguments only those run (default: all). Needs a CUDA device; exits
-non-zero without one.
+kernel's own count), and the top kernels by device time. Needs a CUDA
+device; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -70,21 +69,11 @@ def profile(torch, fn, n_steps_of, label, **extra):
     }), flush=True)
 
 
-PATHS = ("forward", "decode", "decode-int8", "serve-ragged",
-         "serve-ragged-int8", "train")
-
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 1
-    wanted = sys.argv[1:] or list(PATHS)
-    unknown = set(wanted) - set(PATHS)
-    if unknown:
-        print(f"torch_profile: unknown paths {sorted(unknown)}; pick from "
-              f"{PATHS}", file=sys.stderr)
-        return 2
     sys.path.insert(0, str(REPO))
     import dataclasses
 
@@ -104,16 +93,15 @@ def main() -> int:
     params = init_params(gen, cfg, "cuda")
     rng = torch.Generator().manual_seed(1)
 
-    if "forward" in wanted:
-        tokens = torch.randint(0, cfg.vocab, (8, 128), generator=gen,
-                               device="cuda")
-        forward(params, tokens, cfg)
+    tokens = torch.randint(0, cfg.vocab, (8, 128), generator=gen,
+                           device="cuda")
+    forward(params, tokens, cfg)
 
-        def forwards():
-            for _ in range(3):
-                forward(params, tokens, cfg)
-            return 3
-        profile(torch, forwards, lambda n: n, "forward")
+    def forwards():
+        for _ in range(3):
+            forward(params, tokens, cfg)
+        return 3
+    profile(torch, forwards, lambda n: n, "forward")
 
     def decode_chunks(eng, lanes, label, kernel):
         """Fill every lane (prompt 128, 120 new tokens), warm with the
@@ -138,27 +126,23 @@ def main() -> int:
     # the paged decode: 8 lanes, each with room for prompt 128 + 128 new
     ps, max_seq, lanes = 32, 256, 8
     for codec, label in (("bf16", "decode"), ("int8", "decode-int8")):
-        if label in wanted:
-            decode_chunks(PagedServingEngine(
-                params, cfg, n_lanes=lanes, max_seq=max_seq,
-                n_pages=lanes * paging.pages_for_rows(max_seq, ps) + 1,
-                page_size=ps, prompt_buckets=(128,), chunk=16,
-                kv_codec=codec), lanes, label,
-                "paged_decode_int8" if codec == "int8" else "paged_decode")
+        decode_chunks(PagedServingEngine(
+            params, cfg, n_lanes=lanes, max_seq=max_seq,
+            n_pages=lanes * paging.pages_for_rows(max_seq, ps) + 1,
+            page_size=ps, prompt_buckets=(128,), chunk=16,
+            kv_codec=codec), lanes, label,
+            "paged_decode_int8" if codec == "int8" else "paged_decode")
 
     # serve --ragged: 4 slots, prompt 128 + up to 120 new tokens
     for int8, label in ((False, "serve-ragged"),
                         (True, "serve-ragged-int8")):
-        if label in wanted:
-            decode_chunks(ServingEngine(
-                params, dataclasses.replace(cfg, ragged_decode=True,
-                                            kv_int8=int8),
-                n_slots=4, max_seq=256, prompt_buckets=(128,), chunk=16),
-                4, label, "ragged_decode_int8" if int8 else "ragged_decode")
+        decode_chunks(ServingEngine(
+            params, dataclasses.replace(cfg, ragged_decode=True,
+                                        kv_int8=int8),
+            n_slots=4, max_seq=256, prompt_buckets=(128,), chunk=16),
+            4, label, "ragged_decode_int8" if int8 else "ragged_decode")
     del params
     torch.cuda.empty_cache()
-    if "train" not in wanted:
-        return 0
 
     from tpushare_torch.workloads.models.transformer import TransformerConfig
     from tpushare_torch.workloads.train import (init_state, make_optimizer,

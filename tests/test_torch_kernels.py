@@ -241,11 +241,18 @@ def test_ragged_wrapper_rejects_what_the_kernel_cannot_take():
 # the int8 rungs of the paged (K5) and ragged (K4) reads
 # ---------------------------------------------------------------------------
 
-# element by element as a share of max(|value|, 2^-8 x the largest
-# |value|): the rung folds the scales into score and probability where
-# the twin dequantizes first, so the two differ in fp32 rounding, then
-# once in the output's rounding
-INT8_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# the limits chip_smoke.py holds the rungs to: absolute + relative at
+# TOL, then element by element as a share of max(|value|, 2^-8 x the
+# largest |value|) at INT8_TOL. The rung folds the scales into score and
+# probability where the twin dequantizes first (or walks the rows in
+# another order), so the two differ in fp32 rounding, then once in the
+# output's rounding. The output rounded to INT8_CONTROL_BITS significant
+# bits (8 is bf16's precision) must fail the element-wise limit. Sound
+# readings on an H100 at the smoke's shapes: bf16 <= 0.0077, fp32
+# 8.49e-5 (K5) and 1.0021e-4 (K4, 4096 rows); controls >= 0.0154 (6
+# bits) and >= 3.8e-3 (8 bits).
+INT8_TOL = {"bfloat16": 1e-2, "float32": 2e-4}
+INT8_CONTROL_BITS = {"bfloat16": 6, "float32": 8}
 
 
 def int8_leaf(rng, shape, dev):
@@ -258,6 +265,16 @@ def elem_share(got, want):
     floor = 2 ** -8 * want.abs().max()
     return ((got.float() - want).abs()
             / torch.maximum(want.abs(), floor)).max().item()
+
+
+def assert_int8_rung_close(got, want, dtype):
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert elem_share(got, want) <= INT8_TOL[dtype]
+    m, e = torch.frexp(got.float())
+    bits = 2 ** INT8_CONTROL_BITS[dtype]
+    control = torch.ldexp(torch.round(m * bits) / bits, e)
+    assert elem_share(control, want) > INT8_TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -283,7 +300,7 @@ def test_paged_int8_rung_matches_plain_with_aliased_tables(dtype, H, Hkv,
     assert build.LAUNCHES["paged_decode"] == before["paged_decode"]
     want = paged_attention.xla_paged_read(q1[:, None], kp, vp, tables,
                                           kv_lens, H, Hkv)[:, 0]
-    assert elem_share(got, want) <= INT8_TOL[dtype]
+    assert_int8_rung_close(got, want, dtype)
 
 
 @pytest.mark.cuda
@@ -309,7 +326,7 @@ def test_ragged_int8_rung_matches_plain(dtype, H, Hkv):
         before["ragged_decode_int8"] + 1
     assert build.LAUNCHES["ragged_decode"] == before["ragged_decode"]
     want = ragged_decode.ragged_decode_plain(q, k, v, lengths, layer=1)
-    assert elem_share(got, want) <= INT8_TOL[dtype]
+    assert_int8_rung_close(got, want, dtype)
     big = {}
     for name, leaf in (("k", kv_view(k, 1)), ("v", kv_view(v, 1))):
         big[name] = {"q": torch.zeros((B, 2 * S, Hkv, hd), dtype=torch.int8,
