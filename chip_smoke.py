@@ -5,9 +5,10 @@
 
 Builds the port's CUDA kernels (flash forward, flash backward dQ and
 dK/dV, paged decode and ragged decode, each decode read with its int8
-rung) from the sources in this checkout, holds each against its
-plain-PyTorch twin at the shapes the main paths give it (phases
-``flash-vs-plain``, ``flash-bwd-vs-plain``, ``paged-vs-plain``,
+rung, splash forward, dQ and dK/dV) from the sources in this checkout,
+holds each against its plain-PyTorch twin at the shapes the main paths
+give it (phases ``flash-vs-plain``, ``flash-bwd-vs-plain``,
+``splash-vs-plain``, ``splash-bwd-vs-plain``, ``paged-vs-plain``,
 ``paged-int8-vs-plain``, ``ragged-vs-plain``, ``ragged-int8-vs-plain``),
 then drives the main paths through their entry points at full width
 (random weights from a seed):
@@ -16,6 +17,11 @@ then drives the main paths through their entry points at full width
   seq 128) — flash-forward kernel;
 - ``infer --mode decode`` (batch 8, a 32-token prompt) — the flash
   kernel on a prefill that fits no Pallas block;
+- ``forward-longctx``: ``infer --mode forward --batch 2 --seq 4096`` —
+  the splash forward, 16 launches per forward, no flash; then
+  ``longctx-logits``, B=1 x S=4096 logits against the plain path;
+- ``decode-longctx``: ``infer --mode decode --batch 2 --seq 16384`` (a
+  4096-token prompt) — the splash forward in prefill, 16 per prefill;
 - ``infer --mode serve --paged`` (16 requests, 8 lanes, prompt 128, up
   to 128 new tokens, greedy) — paged-decode kernel, one launch per layer
   per decode step;
@@ -40,6 +46,11 @@ then drives the main paths through their entry points at full width
   one dQ and one dK/dV launch;
 - ``train-remat``: the same preset at seq 2048 with ``remat``, 2 steps
   (two forward launches per layer per step);
+- ``train-longctx``: 3 steps of ``train.make_train_step`` at the
+  flagship's widths, batch 2 x seq 4096 — per step and layer one splash
+  forward with LSE, one dQ and one dK/dV launch; ``train-longctx-f32-
+  parity``: one f32 step through the splash kernels against the plain
+  path (2 layers, 4 heads of 128, S=4096);
 - ``train-payload``: ``train_payload.main`` for 6 steps with
   checkpoints, then a restart that resumes and trains to step 9 (the
   payload's own config, head_dim 16);
@@ -422,6 +433,189 @@ def bwd_cases(torch):
                    bwd_bound_by=bwd_b[1], **controls)
         phase("flash-bwd-vs-plain", **row)
         rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# splash (K6-fwd, K6-dq, K6-dkv) against its plain twins
+# ---------------------------------------------------------------------------
+
+SPLASH_CASES = [  # (label, B, S, H, hd, dtype, with_lse)
+    ("longctx", 2, 4096, 16, 128, "bfloat16", False),
+    ("longctx-lse", 2, 4096, 16, 128, "bfloat16", True),
+    ("block-128", 1, 4224, 16, 128, "bfloat16", True),
+    ("hd256", 1, 4096, 4, 256, "bfloat16", True),
+    ("f32", 1, 4096, 4, 128, "float32", True),
+]
+
+
+def splash_inputs(torch, gen, B, S, H, hd, dtype, n=3):
+    """``n`` (B, S, H, hd) draws of ``dtype`` from ``gen``; the first is
+    returned pre-scaled, as ``splash_attention`` hands it to the
+    kernels."""
+    from tpushare_torch.workloads.ops.splash_attention import prescale
+    dt = getattr(torch, dtype)
+    xs = [torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dt)
+          for _ in range(n)]
+    return [prescale(xs[0]), *xs[1:]]
+
+
+def splash_cases(torch):
+    """The splash forward against ``splash_attention_plain`` element by
+    element (LSE too), with the 6-bit rounding control; timed beside its
+    bound, the twin and SDPA (``is_causal``, ``scale=1.0`` on the
+    pre-scaled q)."""
+    from tpushare_torch.workloads.ops import splash_mask
+    from tpushare_torch.workloads.ops.splash_attention import (
+        splash_attention_plain, splash_fwd)
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    for label, B, S, H, hd, dtype, with_lse in SPLASH_CASES:
+        qs, k, v = splash_inputs(torch, gen, B, S, H, hd, dtype)
+
+        def kernel():
+            return splash_fwd(qs, k, v, with_lse=with_lse)
+
+        def plain():
+            return splash_attention_plain(qs, k, v, with_lse=with_lse)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        extra = {}
+        if with_lse:
+            (got, lse), (want, want_lse) = got, want
+            lse_err = max_err(lse, want_lse)
+            if not lse_err <= LSE_TOL:
+                raise RuntimeError(f"splash {label}: lse differs by "
+                                   f"{lse_err} > {LSE_TOL}")
+            extra = dict(lse_max_abs_err=lse_err)
+        tol = FWD_TOL[dtype]
+        rel = elem_rel_err(got, want)
+        if not rel <= tol:
+            raise RuntimeError(f"splash {label} {B}x{S}x{H}x{hd} {dtype}: "
+                               f"{rel} of the value > {tol}")
+        if dtype == "bfloat16":
+            for b in (7, CONTROL_BITS_FWD):
+                extra[f"control_rel_err_b{b}"] = elem_rel_err(
+                    round_to_bits(torch, got, b), want)
+            if not extra[f"control_rel_err_b{CONTROL_BITS_FWD}"] > tol:
+                raise RuntimeError(f"splash {label}: the {CONTROL_BITS_FWD}"
+                                   "-bit control passes the forward check")
+        err = max_err(got, want)
+        del got, want
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain, reps=5, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (qs, k, v))
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=1.0))
+        elem = qs.element_size()
+        n_bytes = 4 * elem * B * S * H * hd + (4 * B * H * S if with_lse
+                                               else 0)
+        flops = 4 * B * H * hd * live_pairs(S, True, None)
+        bms, by = bound_ms(n_bytes, flops, dtype)
+        sched = splash_mask.fwd_schedule(S, "cuda")
+        kinds = sched.kinds.tolist()
+        row = dict(case=label, B=B, S=S, H=H, Hkv=H, hd=hd, dtype=dtype,
+                   lse=with_lse, block=sched.block,
+                   full_blocks=kinds.count(splash_mask.FULL),
+                   partial_blocks=kinds.count(splash_mask.PARTIAL),
+                   max_abs_err=err, rel_err=rel, tol=tol, **extra, ms=ms,
+                   plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bms,
+                   bound_by=by, tflops=flops / (ms * 1e-3) / 1e12)
+        phase("splash-vs-plain", **row)
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def splash_bwd_cases(torch):
+    """The dQ and dK/dV kernels against ``splash_attention_bwd_plain``
+    (both fed the kernel forward's o and lse) and against autograd through
+    ``splash_attention_plain``; each kernel timed alone, beside the plain
+    backward and SDPA's backward."""
+    from tpushare_torch.workloads.ops.attention import bwd_delta
+    from tpushare_torch.workloads.ops.splash_attention import (
+        splash_attention_bwd_plain, splash_attention_plain, splash_bwd_dkv,
+        splash_bwd_dq, splash_fwd)
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    cases = [("longctx", 1, 4096, 16, 128, "bfloat16"),
+             ("f32", 1, 4096, 4, 128, "float32")]
+    rows = []
+    for label, B, S, H, hd, dtype in cases:
+        qs, k, v, do = splash_inputs(torch, gen, B, S, H, hd, dtype, n=4)
+        o, lse = splash_fwd(qs, k, v, with_lse=True)
+        di = bwd_delta(do, o)
+
+        def dq_kernel():
+            return splash_bwd_dq(qs, k, v, do, lse, di)
+
+        def dkv_kernel():
+            return splash_bwd_dkv(qs, k, v, do, lse, di)
+
+        def plain():
+            return splash_attention_bwd_plain(qs, k, v, o, lse, do)
+        got = (dq_kernel(), *dkv_kernel())
+        want = plain()
+        leaves = [x.detach().requires_grad_() for x in (qs, k, v)]
+        auto = torch.autograd.grad(splash_attention_plain(*leaves), leaves,
+                                   do)
+        torch.cuda.synchronize()
+        tol = BWD_TOL[dtype]
+        errs = {}
+        for name, g, w, a in zip(("dq", "dk", "dv"), got, want, auto):
+            if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+                raise RuntimeError(f"splash bwd {label} {name}: not finite")
+            scale = w.float().abs().max().item()
+            rel = max_err(g, w) / scale
+            rel_auto = max_err(g, a) / scale
+            if not (rel <= tol and rel_auto <= tol):
+                raise RuntimeError(
+                    f"splash bwd {label} {name}: {rel} / {rel_auto} of "
+                    f"scale {scale} vs the plain backward / autograd > {tol}")
+            errs[name] = (rel, rel_auto, max_err(g, w),
+                          (g.float() != w.float()).float().mean().item())
+        controls = {}
+        if dtype == "bfloat16":
+            for b in (7, 6, 5, CONTROL_BITS_BWD):
+                controls[f"control_rel_err_b{b}"] = max(
+                    max_err(round_to_bits(torch, g, b), w)
+                    / w.float().abs().max().item()
+                    for g, w in zip(got, want))
+            if not controls[f"control_rel_err_b{CONTROL_BITS_BWD}"] > tol:
+                raise RuntimeError(f"the {CONTROL_BITS_BWD}-bit control "
+                                   "passes the splash backward check")
+        del got, want, auto, leaves
+        dq_ms = time_ms(dq_kernel, reps=10)
+        dkv_ms = time_ms(dkv_kernel, reps=10)
+        plain_ms = time_ms(plain, reps=3, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (qs, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            scale=1.0)
+        dot = do.transpose(1, 2)
+        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True))
+        x_bytes = qs.element_size() * B * S * H * hd
+        stat_bytes = 4 * B * H * S
+        product = 2 * B * H * hd * live_pairs(S, True, None)
+        # dq: reads q, k, v, dO, lse, di, writes dq; q k^T, dO v^T, dS k
+        dq_b = bound_ms(5 * x_bytes + 2 * stat_bytes, 3 * product, dtype)
+        # dkv: the same reads, writes dk, dv; q k^T, dO v^T, P^T dO, dS^T q
+        dkv_b = bound_ms(6 * x_bytes + 2 * stat_bytes, 4 * product, dtype)
+        row = dict(case=label, B=B, S=S, H=H, Hkv=H, hd=hd, dtype=dtype,
+                   tol=tol, **{f"{n}_rel_err": e[0] for n, e in errs.items()},
+                   **{f"{n}_differing_share": e[3] for n, e in errs.items()},
+                   autograd_rel_err=max(e[1] for e in errs.values()),
+                   dq_max_abs_err=errs["dq"][2],
+                   dkv_max_abs_err=max(errs["dk"][2], errs["dv"][2]),
+                   dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms,
+                   library_ms=sdpa_bwd_ms, dq_bound_ms=dq_b[0],
+                   dq_bound_by=dq_b[1], dkv_bound_ms=dkv_b[0],
+                   dkv_bound_by=dkv_b[1], **controls)
+        phase("splash-bwd-vs-plain", **row)
+        rows.append(row)
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -872,6 +1066,98 @@ def decode_path(torch, build, infer):
     phase("decode", tokens_per_s=res["tokens_per_s"], prompt=32,
           flash_launches=launches["flash_fwd"],
           paged_launches=launches["paged_decode"])
+    return launches
+
+
+LONGCTX_B, LONGCTX_S = 2, 4096    # the reference's long-context batch
+
+
+def forward_longctx_path(torch, build, infer):
+    """``infer --mode forward --batch 2 --seq 4096`` at the flagship: the
+    registry's ``longctx:splash`` row, exactly 16 splash launches per
+    forward (warm-up and 3 timed), no flash launch, no fallback; then
+    B=1, S=4096 logits through the kernels against the plain path, with
+    the rounding controls."""
+    from tpushare_torch.workloads.models.transformer import forward
+    from tpushare_torch.workloads.ops import registry
+    n = 3
+    build.reset_launches()
+    registry.reset_fallbacks()
+    res = infer.run(infer.parse_args(
+        ["--mode", "forward", "--batch", str(LONGCTX_B), "--seq",
+         str(LONGCTX_S), "--steps", str(n), "--hbm-limit-mib", "80000",
+         "--seed", "0"]))
+    launches = dict(build.LAUNCHES)
+    fallbacks = registry.fallback_counts()
+    cfg, params, logits = res["cfg"], res["params"], res["logits"]
+    if cfg.d_model != 2048 or cfg.n_layers != 16:
+        raise RuntimeError(f"not the flagship preset: {cfg}")
+    if logits.shape != (LONGCTX_B, LONGCTX_S, cfg.vocab) or \
+            not torch.isfinite(logits).all():
+        raise RuntimeError("long-context logits not finite / wrong shape")
+    want = (n + 1) * cfg.n_layers
+    if launches["splash_fwd"] != want or launches["flash_fwd"] or fallbacks:
+        raise RuntimeError(f"forward-longctx launches {launches}, fallbacks "
+                           f"{fallbacks}: want {want} splash_fwd (16 per "
+                           "forward), no flash, no fallback")
+    phase("forward-longctx", batch=LONGCTX_B, seq=LONGCTX_S,
+          tokens_per_s=res["tokens_per_s"],
+          splash_launches=launches["splash_fwd"],
+          splash_per_forward=launches["splash_fwd"] / (n + 1),
+          flash_launches=launches["flash_fwd"], fallbacks=len(fallbacks))
+    del res, logits
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (1, LONGCTX_S), generator=gen,
+                           device="cuda")
+    kernel = forward(params, tokens, cfg)
+    plain = forward(params, tokens,
+                    dataclasses.replace(cfg, attn_impl="xla"))
+    scale = plain.abs().max().item()
+    err = max_err(kernel, plain)
+    agree = (kernel.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    del kernel
+    controls = {f"control_rel_err_b{b}":
+                max_err(forward_rounded(torch, params, tokens, cfg, b),
+                        plain) / scale for b in (7, 6, CONTROL_BITS, 4)}
+    phase("longctx-logits", seq=LONGCTX_S, max_abs_err=err,
+          logit_scale=scale, rel_err=err / scale, tol=LOGIT_TOL,
+          argmax_agreement=agree, **controls)
+    if not err <= LOGIT_TOL * scale:
+        raise RuntimeError(f"long-context logits differ by {err} > "
+                           f"{LOGIT_TOL} x {scale}")
+    if not controls[f"control_rel_err_b{CONTROL_BITS}"] > LOGIT_TOL:
+        raise RuntimeError(f"the {CONTROL_BITS}-bit control passes the "
+                           "long-context logits check")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def decode_longctx_path(torch, build, infer):
+    """``infer --mode decode --batch 2 --seq 16384``: a 4096-token prompt
+    whose prefill runs the splash kernel, 16 launches per prefill, for
+    each of the payload's two ``generate`` calls; no flash launch."""
+    from tpushare_torch.workloads.ops import registry
+    build.reset_launches()
+    registry.reset_fallbacks()
+    res = infer.run(infer.parse_args(
+        ["--mode", "decode", "--batch", str(LONGCTX_B), "--seq",
+         str(4 * LONGCTX_S), "--steps", "16", "--hbm-limit-mib", "80000",
+         "--seed", "0"]))
+    launches = dict(build.LAUNCHES)
+    fallbacks = registry.fallback_counts()
+    n_layers = infer.pick_config(80000).n_layers
+    if launches["splash_fwd"] != 2 * n_layers or launches["flash_fwd"] \
+            or fallbacks:
+        raise RuntimeError(f"decode-longctx launches {launches}, fallbacks "
+                           f"{fallbacks}: want 2 prefills x {n_layers} "
+                           "splash_fwd, no flash, no fallback")
+    phase("decode-longctx", tokens_per_s=res["tokens_per_s"],
+          prompt=LONGCTX_S, splash_launches=launches["splash_fwd"],
+          splash_per_prefill=launches["splash_fwd"] / 2,
+          flash_launches=launches["flash_fwd"], fallbacks=len(fallbacks))
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1390,6 +1676,106 @@ def train_f32_parity(torch, build):
                            "disagree beyond the stated tolerances")
 
 
+SPLASH_KERNELS = ("splash_fwd", "splash_bwd_dq", "splash_bwd_dkv")
+
+
+def train_longctx_path(torch, build, infer, smi):
+    """3 steps of make_train_step on the flagship preset's widths at
+    B=2 x S=4096 (no remat): exactly 16 launches of each splash kernel
+    per step, no flash launch, no fallback, a finite loss."""
+    from tpushare_torch.workloads.models.transformer import (
+        TransformerConfig, forward_flops, param_count)
+    from tpushare_torch.workloads.ops import registry
+    from tpushare_torch.workloads.train import make_train_step
+    cfg = TransformerConfig(**{**infer.PRESETS[-1][1], "max_seq": LONGCTX_S})
+    opt, state, inputs, targets = train_setup(torch, cfg, 11, LONGCTX_B,
+                                              LONGCTX_S)
+    step = make_train_step(cfg, opt, "cuda")
+    n = 3
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    registry.reset_fallbacks()
+    state, times, losses = run_steps(torch, step, state, inputs, targets, n)
+    launches = dict(build.LAUNCHES)
+    fallbacks = registry.fallback_counts()
+    want = {k: n * cfg.n_layers for k in SPLASH_KERNELS}
+    flash = sum(launches[k] for k in TRAIN_KERNELS)
+    if {k: launches[k] for k in SPLASH_KERNELS} != want or flash:
+        raise RuntimeError(f"train-longctx launches {launches} != {want} "
+                           "and no flash: some layer missed the kernels")
+    if fallbacks:
+        raise RuntimeError(f"train-longctx fell back: {fallbacks}")
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"train-longctx losses not finite: {losses}")
+    step_s = statistics.median(times[1:])
+    flops = 3 * forward_flops(cfg, LONGCTX_B, LONGCTX_S)
+    phase("train-longctx", params_b=param_count(cfg) / 1e9,
+          batch=LONGCTX_B, seq=LONGCTX_S, steps=n, remat=False,
+          first_loss=losses[0], last_loss=losses[-1],
+          step_ms=step_s * 1e3, first_step_ms=times[0] * 1e3,
+          tokens_per_s=LONGCTX_B * LONGCTX_S / step_s,
+          mfu=flops / step_s / PEAK_FLOPS["bfloat16"],
+          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+          **{f"{k}_per_step": launches[k] / n for k in SPLASH_KERNELS},
+          flash_launches=flash, fallbacks=len(fallbacks), card=repr(smi))
+    del state, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_longctx_f32_parity(torch, build):
+    """A 2-layer f32 MHA config with 128-wide heads at S=4096, B=1: one
+    step through the splash kernels and one through ``attn_impl="xla"``
+    from the same state agree within the ``F32_*`` limits."""
+    from tpushare_torch.workloads.models.transformer import TransformerConfig
+    from tpushare_torch.workloads.train import (loss_and_grads,
+                                                make_train_step,
+                                                tree_leaves)
+    cfg = TransformerConfig(vocab=512, d_model=512, n_heads=4, n_layers=2,
+                            d_ff=1024, max_seq=LONGCTX_S,
+                            dtype=torch.float32)
+    plain_cfg = dataclasses.replace(cfg, attn_impl="xla")
+    opt, state, inputs, targets = train_setup(torch, cfg, 12, 1, LONGCTX_S)
+    before = dict(build.LAUNCHES)
+    _, k_grads = loss_and_grads(state["params"], inputs, targets, cfg)
+    _, p_grads = loss_and_grads(state["params"], inputs, targets, plain_cfg)
+    grad_err = max(max_err(a, b) / b.abs().max().item() for a, b in
+                   zip(tree_leaves(k_grads), tree_leaves(p_grads)))
+    del k_grads, p_grads
+    k_state, k_loss1 = make_train_step(cfg, opt, "cuda")(
+        clone_state(torch, state), inputs, targets)
+    p_state, p_loss1 = make_train_step(plain_cfg, opt, "cuda")(
+        clone_state(torch, state), inputs, targets)
+    kernel_launches = {k: build.LAUNCHES[k] - before[k]
+                       for k in SPLASH_KERNELS + TRAIN_KERNELS}
+    loss_err = abs(k_loss1.item() - p_loss1.item()) / abs(p_loss1.item())
+    pairs = list(zip(tree_leaves(k_state["params"]),
+                     tree_leaves(p_state["params"])))
+    param_err = max(max_err(a, b) for a, b in pairs)
+    off = sum(int(((a - b).abs() > F32_PARAM_TOL).sum()) for a, b in pairs)
+    off_share = off / sum(a.numel() for a, _ in pairs)
+    lr = opt.lr_at(0)
+    phase("train-longctx-f32-parity", hd=cfg.head_dim, heads=cfg.n_heads,
+          seq=LONGCTX_S, loss=p_loss1.item(), loss_rel_err=loss_err,
+          grad_rel_err=grad_err, param_max_abs_err=param_err,
+          params_off_share=off_share, loss_tol=F32_LOSS_TOL,
+          grad_tol=F32_GRAD_TOL, param_tol=F32_PARAM_TOL,
+          param_share_tol=F32_PARAM_SHARE, param_max_tol=2 * lr,
+          **{f"{k}_launches": v for k, v in kernel_launches.items()})
+    want = {k: 2 * cfg.n_layers for k in SPLASH_KERNELS}
+    if {k: kernel_launches[k] for k in SPLASH_KERNELS} != want or \
+            any(kernel_launches[k] for k in TRAIN_KERNELS):
+        raise RuntimeError("the f32 long-context kernel step did not run "
+                           f"the splash kernels alone: {kernel_launches}")
+    if not (loss_err <= F32_LOSS_TOL and grad_err <= F32_GRAD_TOL
+            and param_err <= 2 * lr and off_share <= F32_PARAM_SHARE):
+        raise RuntimeError("f32 long-context train step: splash kernels "
+                           "and plain attention disagree beyond the stated "
+                           "tolerances")
+    del k_state, p_state, state
+    torch.cuda.empty_cache()
+
+
 def train_payload_path(torch, build):
     """``train_payload.main``: 6 steps with a checkpoint every 3, then a
     restart that resumes from step 6 and trains to 9 — the payload's own
@@ -1456,6 +1842,8 @@ def main() -> int:
     flash_rows = flash_cases(torch)
     bwd_rows = bwd_cases(torch)
     torch.cuda.empty_cache()    # the S=2048 plain twins' score matrices
+    splash_rows = splash_cases(torch)
+    splash_bwd_rows = splash_bwd_cases(torch)
     paged_rows = paged_cases(torch)
     paged_int8_rows = paged_int8_cases(torch)
     ragged_rows = ragged_cases(torch)
@@ -1465,6 +1853,8 @@ def main() -> int:
     paths = {}
     paths["forward"], _, _ = forward_path(torch, build, infer)
     paths["decode"] = decode_path(torch, build, infer)
+    paths["forward-longctx"] = forward_longctx_path(torch, build, infer)
+    paths["decode-longctx"] = decode_longctx_path(torch, build, infer)
     paths["serve"], serve_fields = serve_path(torch, build, infer)
     paths["serve-int8"] = serve_int8_path(torch, build, infer, serve_fields)
     paths["serve-slot"] = serve_slot_path(torch, build, infer)
@@ -1479,6 +1869,8 @@ def main() -> int:
     paths["train"] = train_path(torch, build, smi)
     paths["train-remat"] = train_remat_path(torch, build)
     train_f32_parity(torch, build)
+    paths["train-longctx"] = train_longctx_path(torch, build, infer, smi)
+    train_longctx_f32_parity(torch, build)
     paths["train-payload"] = train_payload_path(torch, build)
 
     def by_path(name):
@@ -1538,6 +1930,26 @@ def main() -> int:
                     next(r for r in ragged_int8_rows if r["case"] == "long"),
                     "ragged-int8-vs-plain, serve-ragged-int8, "
                     "int8-f32-identity"),
+        kernel_line("splash_fwd",
+                    "tpushare_torch/workloads/kernels/splash_fwd.cu",
+                    "tpushare/workloads/ops/registry.py:494",
+                    splash_rows[0],
+                    "splash-vs-plain, longctx-logits, "
+                    "train-longctx-f32-parity"),
+        kernel_line("splash_bwd_dq",
+                    "tpushare_torch/workloads/kernels/splash_bwd.cu",
+                    "tpushare/workloads/ops/registry.py:494",
+                    splash_bwd_rows[0],
+                    "splash-bwd-vs-plain, train-longctx-f32-parity",
+                    max_abs_err="dq_max_abs_err", ms="dq_ms",
+                    bound_ms="dq_bound_ms", bound_by="dq_bound_by"),
+        kernel_line("splash_bwd_dkv",
+                    "tpushare_torch/workloads/kernels/splash_bwd.cu",
+                    "tpushare/workloads/ops/registry.py:494",
+                    splash_bwd_rows[0],
+                    "splash-bwd-vs-plain, train-longctx-f32-parity",
+                    max_abs_err="dkv_max_abs_err", ms="dkv_ms",
+                    bound_ms="dkv_bound_ms", bound_by="dkv_bound_by"),
     ]
     # the ragged reads at the serve --ragged shape
     for line, rows in ((kernels[4], ragged_rows),
@@ -1547,6 +1959,10 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms")}
     # the forward on the training path: the LSE launch at the train shape
     kernels[0]["train_shape"] = {k: train_fwd[k] for k in (
+        "B", "S", "H", "Hkv", "hd", "dtype", "max_abs_err", "ms",
+        "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    # the splash forward's LSE launch, which the training path runs
+    kernels[7]["train_shape"] = {k: splash_rows[1][k] for k in (
         "B", "S", "H", "Hkv", "hd", "dtype", "max_abs_err", "ms",
         "plain_ms", "bound_ms", "bound_by", "library_ms")}
     phase("done", seconds=time.perf_counter() - t0)

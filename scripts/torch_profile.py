@@ -7,6 +7,8 @@ At the flagship preset (1.2B, bf16, random weights from a seed) this
 profiles, with ``torch.profiler`` (CPU + CUDA activities):
 
 - ``forward``: three batch-8 x seq-128 forwards;
+- ``forward-longctx``: two batch-2 x seq-4096 forwards (the splash
+  forward, ``infer --mode forward --batch 2 --seq 4096``);
 - ``decode``: the paged serving engine's decode chunks with 8 lanes busy;
   ``decode-int8`` the same over an int8 pool (``kv_codec="int8"``);
 - ``serve-ragged``: the slot engine's decode chunks with ``ragged_decode``
@@ -16,13 +18,18 @@ profiles, with ``torch.profiler`` (CPU + CUDA activities):
 and at the reference's training preset (0.55B: d_model 1536, 16 heads of
 96, 12 layers, bf16; batch 8 x seq 1024):
 
-- ``train``: one ``train.make_train_step`` step after a warm-up step.
+- ``train``: one ``train.make_train_step`` step after a warm-up step;
+
+and at the flagship's widths, batch 2 x seq 4096:
+
+- ``train-longctx``: one step after a warm-up step (the splash forward,
+  dQ and dK/dV kernels).
 
 For each it prints one JSON line: host wall time per step, device busy
 time per step (the sum of the device-side kernel and copy times), the
 device idle share over the window (1 - busy / wall), device launches per
-step (all kernels and copies; the decode paths also their decode
-kernel's own count), and the top kernels by device time. Needs a CUDA
+step (all kernels and copies; the decode and long-context paths also
+their kernels' own counts), and the top kernels by device time. Needs a CUDA
 device; exits non-zero without one.
 """
 
@@ -103,6 +110,25 @@ def main() -> int:
         return 3
     profile(torch, forwards, lambda n: n, "forward")
 
+    def per_step(*kernels):
+        """Launch counts per step of ``kernels``, zeroed before the run."""
+        build.reset_launches()
+        return {f"{k}_launches_per_step":
+                (lambda steps, k=k: build.LAUNCHES[k] / steps)
+                for k in kernels}
+
+    long_tokens = torch.randint(0, cfg.vocab, (2, 4096), generator=gen,
+                                device="cuda")
+    forward(params, long_tokens, cfg)
+
+    def long_forwards():
+        for _ in range(2):
+            forward(params, long_tokens, cfg)
+        return 2
+    profile(torch, long_forwards, lambda n: n, "forward-longctx",
+            **per_step("splash_fwd", "flash_fwd"))
+    del long_tokens
+
     def decode_chunks(eng, lanes, label, kernel):
         """Fill every lane (prompt 128, 120 new tokens), warm with the
         admission wave and first chunk, then profile two more chunks."""
@@ -162,6 +188,19 @@ def main() -> int:
         step(state, inputs, targets)
         return 1
     profile(torch, train_step, lambda n: n, "train")
+    del state, step
+    torch.cuda.empty_cache()
+
+    lcfg = dataclasses.replace(cfg, max_seq=4096)
+    state = init_state(init_params(gen, lcfg, "cuda"), opt)
+    inputs = torch.randint(0, lcfg.vocab, (2, 4096), generator=gen,
+                           device="cuda")
+    targets = torch.roll(inputs, -1, dims=1)
+    step = make_train_step(lcfg, opt, "cuda")
+    state, _ = step(state, inputs, targets)         # warm-up
+    profile(torch, train_step, lambda n: n, "train-longctx",
+            **per_step("splash_fwd", "splash_bwd_dq", "splash_bwd_dkv",
+                       "flash_fwd"))
     return 0
 
 

@@ -89,8 +89,8 @@ def test_gather_pages_matches_reference():
     (dict(seq=512, n_heads=16, n_kv_heads=4, head_dim=128),
      ("flash", "cuda:flash")),
     (dict(seq=4096, n_heads=16, head_dim=128),
-     ("flash", "longctx:flash-for-splash")),
-    (dict(seq=4096, n_heads=16, head_dim=64), ("flash", "cuda:flash")),
+     ("splash", "longctx:splash")),
+    (dict(seq=4096, n_heads=16, head_dim=64), ("flash", "shape:flash")),
     # no Pallas block rule: an untiled S runs the kernel, never plain
     (dict(seq=100, n_heads=16, head_dim=128), ("flash", "cuda:flash")),
     (dict(seq=32, n_heads=16, n_kv_heads=4, head_dim=128),
@@ -118,7 +118,8 @@ def test_paged_rows(kw, expect):
 
 
 @pytest.mark.parametrize("kind,kw", [
-    ("prefill", dict(impl="splash", seq=4096, platform="cuda")),
+    ("prefill", dict(impl="splash", seq=4096, n_heads=16, n_kv_heads=4,
+                     head_dim=128, platform="cuda")),
     ("prefill", dict(impl="flash", platform="cpu")),
     ("prefill", dict(impl="splash", window=8, platform="cuda")),
     ("prefill", dict(impl="kernel", window=8, platform="cpu")),

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (flash forward, flash backward dQ and dK/dV,
-paged decode and ragged decode, each decode read with its int8 rung)
-against their plain-PyTorch twins, on an NVIDIA GPU.
+paged decode and ragged decode, each decode read with its int8 rung,
+splash forward, dQ and dK/dV) against their plain-PyTorch twins, on an
+NVIDIA GPU.
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these skip on a host
 without a card. The file imports no JAX, so it runs on a GPU
 machine that has only the port's dependencies:
@@ -359,3 +360,105 @@ def test_int8_wrappers_reject_what_the_rungs_cannot_take():
         paged_attention.paged_decode(q, pool, {"q": pool["q"],
                                                "s": pool["s"][:4]},
                                      tables, lengths + 1)
+
+
+# ---------------------------------------------------------------------------
+# splash (K6-fwd, K6-dq, K6-dkv)
+# ---------------------------------------------------------------------------
+
+SPLASH_CASES = [  # B, S, H, hd, dtype
+    (2, 1024, 4, 128, "bfloat16"),      # block 512: full, partial, skipped
+    (1, 384, 2, 128, "float32"),        # block 128
+    (1, 640, 2, 256, "bfloat16"),       # block 128, hd 256
+    (1, 512, 2, 256, "float32"),
+]
+# forward element by element, as a share of max(|x|, 2^-8 x scale): one
+# output rounding in bf16, summation order in fp32; the backward kernels
+# as a share of each gradient's scale (both sides round p and ds alike)
+SPLASH_FWD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+SPLASH_BWD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+
+
+def rel_err(got, want) -> float:
+    want = want.float()
+    floor = 2 ** -8 * want.abs().max()
+    return ((got.float() - want).abs()
+            / torch.maximum(want.abs(), floor)).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hd,dtype", SPLASH_CASES)
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_splash_forward_kernel_matches_plain(B, S, H, hd, dtype, with_lse):
+    from tpushare_torch.workloads.ops import splash_attention as sa
+    dev, dt = card(), getattr(torch, dtype)
+    rng = np.random.default_rng(11)
+    qs = sa.prescale(randn(rng, (B, S, H, hd), dt, dev))
+    k, v = (randn(rng, (B, S, H, hd), dt, dev) for _ in range(2))
+    before = build.LAUNCHES["splash_fwd"]
+    got = sa.splash_fwd(qs, k, v, with_lse=with_lse)
+    assert build.LAUNCHES["splash_fwd"] == before + 1
+    want = sa.splash_attention_plain(qs, k, v, with_lse=with_lse)
+    if with_lse:
+        (got, lse), (want, want_lse) = got, want
+        torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    assert got.dtype == dt
+    assert rel_err(got, want) <= SPLASH_FWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hd,dtype", SPLASH_CASES)
+def test_splash_backward_kernels_match_plain(B, S, H, hd, dtype):
+    from tpushare_torch.workloads.ops import splash_attention as sa
+    dev, dt = card(), getattr(torch, dtype)
+    rng = np.random.default_rng(12)
+    qs = sa.prescale(randn(rng, (B, S, H, hd), dt, dev))
+    k, v, do = (randn(rng, (B, S, H, hd), dt, dev) for _ in range(3))
+    o, lse = sa.splash_fwd(qs, k, v, with_lse=True)
+    before = dict(build.LAUNCHES)
+    got = sa.splash_attention_bwd(qs, k, v, o, lse, do)
+    assert {n: build.LAUNCHES[n] - before[n] for n in
+            ("splash_bwd_dq", "splash_bwd_dkv")} == \
+        {"splash_bwd_dq": 1, "splash_bwd_dkv": 1}
+    want = sa.splash_attention_bwd_plain(qs, k, v, o, lse, do)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        scale = w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= \
+            SPLASH_BWD_TOL[dtype] * scale
+
+
+@pytest.mark.cuda
+def test_splash_autograd_runs_the_kernels():
+    """Autograd through ``splash_attention`` on the card: one LSE forward,
+    one dQ and one dK/dV launch, and the plain twins' gradients."""
+    from tpushare_torch.workloads.ops import splash_attention as sa
+    dev = card()
+    rng = np.random.default_rng(13)
+    q, k, v = (randn(rng, (1, 256, 2, 128), torch.float32,
+                     dev).requires_grad_() for _ in range(3))
+    do = randn(rng, (1, 256, 2, 128), torch.float32, dev)
+    before = dict(build.LAUNCHES)
+    got = torch.autograd.grad(sa.splash_attention(q, k, v), (q, k, v), do)
+    assert {n: build.LAUNCHES[n] - before[n] for n in
+            ("splash_fwd", "splash_bwd_dq", "splash_bwd_dkv")} == \
+        {"splash_fwd": 1, "splash_bwd_dq": 1, "splash_bwd_dkv": 1}
+    want = torch.autograd.grad(
+        sa.splash_attention_plain(sa.prescale(q), k, v), (q, k, v), do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_splash_wrappers_reject_what_the_kernels_cannot_take():
+    from tpushare_torch.workloads.ops import splash_attention as sa
+    dev = card()
+    x = torch.zeros((1, 256, 2, 128), device=dev)
+    with pytest.raises(ValueError, match="MHA only"):
+        sa.splash_fwd(x, x[:, :, :1].contiguous(), x[:, :, :1].contiguous())
+    with pytest.raises(ValueError, match="does not tile"):
+        y = torch.zeros((1, 200, 2, 128), device=dev)
+        sa.splash_fwd(y, y, y)
+    with pytest.raises(ValueError, match="head_dim"):
+        z = torch.zeros((1, 256, 2, 64), device=dev)
+        sa.splash_fwd(z, z, z)

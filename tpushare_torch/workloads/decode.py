@@ -132,8 +132,10 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
             ) -> tuple[torch.Tensor, dict]:
     """Run the prompt (B, P) through the model, filling cache[:, :, :P].
     Returns (logits (B, vocab) fp32 at ``logit_pos`` — default the last
-    position — and the cache). Any P runs the flash kernel on the card:
-    unlike the reference's Pallas grid, it needs no tiled prompt."""
+    position — and the cache). On the card the registry's rows pick the
+    kernel: splash for an MHA prompt of 4096 or more that tiles its
+    block grid, else flash, which needs no tiled prompt (unlike the
+    reference's Pallas grid)."""
     P = tokens.shape[1]
     cos, sin = rope_tables(cfg, P, tokens.device)
 

@@ -15,8 +15,8 @@ tests import every module of the port and have no ``nvcc``.
 all started together.
 
 ``LAUNCHES`` counts kernel launches by kernel name (``KERNELS``; the
-``flash_bwd`` library holds two kernels, and the decode libraries count
-their int8 rungs apart): each wrapper adds one exactly where it launches
+``flash_bwd`` and ``splash_bwd`` libraries hold two kernels each, and
+the decode libraries count their int8 rungs apart): each wrapper adds one exactly where it launches
 its kernel, so a run can show that the main path went through the
 kernels.
 """
@@ -36,7 +36,8 @@ KERNEL_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNEL_DIR / "_build"
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
            "paged_decode": "paged_decode.cu",
-           "ragged_decode": "ragged_decode.cu"}
+           "ragged_decode": "ragged_decode.cu",
+           "splash_fwd": "splash_fwd.cu", "splash_bwd": "splash_bwd.cu"}
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -71,16 +72,34 @@ _SIGNATURES = {
     "ragged_decode": {"tpushare_ragged_decode":
                       [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _I, _F, _P]},
+    # q (pre-scaled), k, v, o, lse (null = none), the forward schedule
+    # (offsets, blocks, kinds), B, S, H, hd, block, is_bf16, stream
+    "splash_fwd": {"tpushare_splash_fwd":
+                   [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                    _P]},
+    "splash_bwd": {
+        # q, k, v, dout, lse, di, dq, the forward schedule, B, S, H, hd,
+        # block, is_bf16, stream
+        "tpushare_splash_bwd_dq":
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+             _P],
+        # q, k, v, dout, lse, di, dk, dv, the dK/dV schedule, B, S, H,
+        # hd, block, is_bf16, stream
+        "tpushare_splash_bwd_dkv":
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+             _I, _P]},
 }
 
 # return code of an entry point asked for a shape/dtype it has no
 # instantiation for (anything else non-zero is a cudaError_t)
 UNSUPPORTED = -1
 
-# launch counters, one per kernel (the flash_bwd library holds two; the
-# decode libraries' int8 rungs count under their own names)
+# launch counters, one per kernel (the flash_bwd and splash_bwd
+# libraries hold two each; the decode libraries' int8 rungs count under
+# their own names)
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_decode",
-           "paged_decode_int8", "ragged_decode", "ragged_decode_int8")
+           "paged_decode_int8", "ragged_decode", "ragged_decode_int8",
+           "splash_fwd", "splash_bwd_dq", "splash_bwd_dkv")
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()

@@ -10,11 +10,12 @@ reference's pytree layout, so weights cross over leaf for leaf
 (``workloads/bridge.py``).
 
 Attention goes through the port's kernel registry (``ops/registry.py``):
-on a CUDA tensor the registry picks the hand-written flash kernels
-(forward, and the dQ / dK/dV backward when a gradient is taken) where
-the reference would pick a Pallas kernel, and on a CPU tensor (the
-tests) the plain-PyTorch twin, which is the reference's fp32 einsum
-branch op for op.
+on a CUDA tensor the registry picks a hand-written kernel where the
+reference would pick a Pallas kernel — splash (forward, and its dQ /
+dK/dV backward when a gradient is taken) for MHA prefill at seq >= 4096
+that it can serve, flash (forward and backward) everywhere else — and
+on a CPU tensor (the tests) the plain-PyTorch twin, which is the
+reference's fp32 einsum branch op for op.
 
 ``loss_fn`` is the reference's training loss; ``cfg.remat`` recomputes
 each layer in the backward (``torch.utils.checkpoint``), the counterpart
@@ -195,8 +196,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               cfg: TransformerConfig) -> torch.Tensor:
     """Causal attention core, q (B, S, H, hd), k/v (B, S, Hkv, hd) ->
     (B, S, H, hd). The registry picks the implementation from the shape
-    and the tensors' device; a choice other than "xla" runs the flash
-    kernel, "xla" runs the plain fp32 einsum twin with the -1e30 mask."""
+    and the tensors' device; "splash" and "flash" run their kernels
+    (differentiable: ``loss_fn`` and ``remat`` take their backward
+    kernels), "xla" runs the plain fp32 einsum twin with the -1e30
+    mask."""
     impl = cfg.attn_impl or ("kernel" if cfg.use_flash
                              else "xla" if cfg.use_flash is False
                              else "auto")

@@ -155,7 +155,9 @@ def _kernel_shape(q, k, v, causal, window, extra=()) -> tuple[int, ...]:
     return B, S, H, Hkv, hd
 
 
-def _check_stats(B, H, S, device, **stats) -> None:
+def check_stats(B, H, S, device, **stats) -> None:
+    """Row statistics (LSE, delta / di) as the backward kernels read them:
+    contiguous fp32 (B, H, S) on q's device."""
     for name, t in stats.items():
         if (t.device != device or t.dtype != torch.float32
                 or t.shape != (B, H, S) or not t.is_contiguous()):
@@ -163,7 +165,7 @@ def _check_stats(B, H, S, device, **stats) -> None:
                              f"{(B, H, S)} tensor on q's device")
 
 
-def _stream() -> int:
+def cuda_stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
@@ -186,7 +188,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None, B, S, H, Hkv, hd,
             int(causal), window or 0, int(q.dtype == torch.bfloat16),
-            hd ** -0.5, _stream())
+            hd ** -0.5, cuda_stream())
     build.check(lib, "flash_fwd", rc)
     build.LAUNCHES["flash_fwd"] += 1
     return (out, lse) if with_lse else out
@@ -197,7 +199,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
     """dQ through the dQ kernel (CUDA tensors; ``do`` contiguous)."""
     B, S, H, Hkv, hd = _kernel_shape(q, k, v, causal, window,
                                      extra=(("do", do),))
-    _check_stats(B, H, S, q.device, lse=lse, delta=delta)
+    check_stats(B, H, S, q.device, lse=lse, delta=delta)
     dq = torch.empty_like(q)
     lib = build.library("flash_bwd")
     with torch.cuda.device(q.device):
@@ -205,7 +207,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, H, Hkv,
             hd, int(causal), window or 0, int(q.dtype == torch.bfloat16),
-            hd ** -0.5, _stream())
+            hd ** -0.5, cuda_stream())
     build.check(lib, "flash_bwd_dq", rc)
     build.LAUNCHES["flash_bwd_dq"] += 1
     return dq
@@ -217,7 +219,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
     """Grouped (dK, dV) through the dK/dV kernel (CUDA tensors)."""
     B, S, H, Hkv, hd = _kernel_shape(q, k, v, causal, window,
                                      extra=(("do", do),))
-    _check_stats(B, H, S, q.device, lse=lse, delta=delta)
+    check_stats(B, H, S, q.device, lse=lse, delta=delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = build.library("flash_bwd")
     with torch.cuda.device(q.device):
@@ -225,7 +227,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, S, H, Hkv, hd, int(causal), window or 0,
-            int(q.dtype == torch.bfloat16), hd ** -0.5, _stream())
+            int(q.dtype == torch.bfloat16), hd ** -0.5, cuda_stream())
     build.check(lib, "flash_bwd_dkv", rc)
     build.LAUNCHES["flash_bwd_dkv"] += 1
     return dk, dv

@@ -23,15 +23,21 @@ or the dequantizing gather twin). The slot-cache read's int8 rung
 follows the cache's leaf type in the ragged wrapper (the reference's
 ``quantized=`` flag only keyed its build cache).
 
-Where the port departs from the reference's rows: the flash kernel
-takes any S (it masks a partial last tile), so the reference's
-Pallas-block gate (``seq:untiled``) is gone and every CUDA prefill runs
-the kernel; a causal window runs the kernel's banded grid
-(``window:flash-banded``); and the reference's ``longctx:splash`` row
-runs the flash kernel under its own reason (``longctx:flash-for-splash``)
-until the splash kernel has a counterpart. The decode rows keep the
-reference's gates (``RAGGED_HEAD_DIM``, ``RAGGED_BLOCK``) so the same
-configs are refused with the same reasons.
+The prefill rows that involve splash are the reference's: an MHA
+prefill at ``seq >= SPLASH_MIN_SEQ`` that splash can serve
+(:func:`_splash_servable`: no window, ``seq % 128 == 0``,
+``head_dim % 128 == 0``) runs the splash kernels (``longctx:splash``),
+one it cannot serve runs flash (``shape:flash``), an explicit
+``splash`` is refused with the reference's four messages, and an
+``auto`` fallback is charged to splash wherever splash could have
+served. Where the port departs from the reference's rows: the flash
+kernel takes any S (it masks a partial last tile), so the reference's
+Pallas-block gate (``seq:untiled``) is gone and every other CUDA
+prefill runs the flash kernel (``cuda:flash``, GQA included); a causal
+window runs the kernel's banded grid (``window:flash-banded``). The
+decode rows keep the reference's gates (``RAGGED_HEAD_DIM``,
+``RAGGED_BLOCK``) so the same configs are refused with the same
+reasons.
 """
 
 from __future__ import annotations
@@ -49,9 +55,11 @@ from tpushare_torch.workloads.ops.paged_attention import (paged_decode,
                                                           xla_paged_read)
 from tpushare_torch.workloads.ops.ragged_decode import (
     ragged_decode_attention)
+from tpushare_torch.workloads.ops.splash_attention import splash_attention
+from tpushare_torch.workloads.ops.splash_mask import MIN_BLOCK
 
 IMPL_FLASH = "flash"      # kernels/flash_fwd.cu, flash_bwd.cu
-IMPL_SPLASH = "splash"    # no Hopper counterpart yet
+IMPL_SPLASH = "splash"    # kernels/splash_fwd.cu, splash_bwd.cu
 IMPL_PAGED = "paged"      # kernels/paged_decode.cu
 IMPL_RAGGED = "ragged"    # kernels/ragged_decode.cu
 IMPL_XLA = "xla"          # the plain-PyTorch twins
@@ -130,6 +138,20 @@ def reset_fallbacks() -> None:
 # ---------------------------------------------------------------------------
 # the decision table (pure)
 # ---------------------------------------------------------------------------
+
+def _splash_servable(seq: int | None, window: int | None,
+                     n_heads: int | None, n_kv_heads: int | None,
+                     head_dim: int | None) -> bool:
+    """Could the splash kernels serve this shape at all: MHA, full
+    causal, block-tiled seq, head_dim % 128 — the reference's rule,
+    shared by the decision table and the fallback attribution."""
+    if n_kv_heads is None:
+        n_kv_heads = n_heads
+    return ((n_heads is None or n_kv_heads == n_heads)
+            and window is None
+            and seq is not None and seq % MIN_BLOCK == 0
+            and head_dim is not None and head_dim % SPLASH_HEAD_DIM == 0)
+
 
 def decide(kind: str, *, seq: int | None = None, window: int | None = None,
            n_heads: int | None = None, n_kv_heads: int | None = None,
@@ -217,27 +239,47 @@ def decide(kind: str, *, seq: int | None = None, window: int | None = None,
             "'xla'; paged/ragged are decode-side reads")
     if impl == IMPL_XLA:
         return IMPL_XLA, "explicit:xla"
+    mha = n_heads is None or n_kv_heads == n_heads
+    splash_ok = _splash_servable(seq, window, n_heads, n_kv_heads, head_dim)
     if impl == IMPL_SPLASH:
-        raise KernelUnavailable(
-            impl, kind, "the splash kernel has no Hopper counterpart yet",
-            advice="use impl='flash' (or 'auto', whose long-context row "
-            "runs the flash kernel)")
+        # the reference's refusals, in its order and words (no mesh here:
+        # tp is 1)
+        if not mha:
+            raise KernelUnavailable(
+                impl, kind, f"splash_mha is MHA-only: n_kv_heads "
+                f"{n_kv_heads} != n_heads {n_heads} (the flash kernel "
+                "reads grouped K/V natively — use impl='flash')")
+        if window is not None:
+            raise KernelUnavailable(
+                impl, kind, "windowed attention runs the flash kernel's "
+                "compact banded grid — use impl='flash'")
+        if head_dim is None or head_dim % SPLASH_HEAD_DIM:
+            raise KernelUnavailable(
+                impl, kind, f"splash needs head_dim % {SPLASH_HEAD_DIM} "
+                f"== 0, got {head_dim}")
+        if not splash_ok:
+            raise KernelUnavailable(
+                impl, kind, f"seq {seq} does not tile the splash block "
+                f"grid under tp=1")
     if platform != PLATFORM:
         if impl == IMPL_AUTO:
             return IMPL_XLA, "platform:" + (platform or "none")
+        kernel = IMPL_SPLASH if impl == IMPL_SPLASH else IMPL_FLASH
         raise KernelUnavailable(
-            IMPL_FLASH, kind, f"the flash kernel needs a CUDA device "
+            kernel, kind, f"the {kernel} kernel needs a CUDA device "
             f"(platform {platform!r})")
+    if impl == IMPL_SPLASH:
+        return IMPL_SPLASH, "explicit:splash"
     if impl == IMPL_FLASH:
         return IMPL_FLASH, "explicit:flash"
-    # auto/kernel: the kernel serves any S, GQA, head_dim and window; the
-    # distinct rows mark the banded grid and where the reference would
-    # run splash
+    # auto/kernel: the flash kernel serves any S, GQA, head_dim and
+    # window; splash takes the long MHA rows it can serve
     if window is not None:
         return IMPL_FLASH, "window:flash-banded"
-    if (seq is not None and seq >= SPLASH_MIN_SEQ and n_kv_heads == n_heads
-            and head_dim is not None and head_dim % SPLASH_HEAD_DIM == 0):
-        return IMPL_FLASH, "longctx:flash-for-splash"
+    if mha and seq is not None and seq >= SPLASH_MIN_SEQ:
+        if splash_ok:
+            return IMPL_SPLASH, "longctx:splash"
+        return IMPL_FLASH, "shape:flash"
     return IMPL_FLASH, "cuda:flash"
 
 
@@ -261,9 +303,21 @@ def select_attention(kind: str, *, seq: int | None = None,
                             n_kv_heads=n_kv_heads, head_dim=head_dim,
                             platform=platform, impl=impl, codec=codec)
     if chosen == IMPL_XLA and impl == IMPL_AUTO:
-        record_fallback({KIND_PREFILL: IMPL_FLASH, KIND_DECODE: IMPL_RAGGED,
-                         KIND_PAGED: IMPL_PAGED}[kind], reason)
-    if kind == KIND_PREFILL and chosen == IMPL_FLASH:
+        # charged to the kernel the table would have picked for this
+        # shape: splash only where splash could serve it
+        wanted = {KIND_PREFILL: IMPL_FLASH, KIND_DECODE: IMPL_RAGGED,
+                  KIND_PAGED: IMPL_PAGED}[kind]
+        if (kind == KIND_PREFILL and (seq or 0) >= SPLASH_MIN_SEQ
+                and _splash_servable(seq, window, n_heads, n_kv_heads,
+                                     head_dim)):
+            wanted = IMPL_SPLASH
+        record_fallback(wanted, reason)
+    if kind == KIND_PREFILL and chosen == IMPL_SPLASH:
+        if not causal:
+            raise ValueError("the splash kernels serve causal attention "
+                             "only")
+        fn = splash_attention
+    elif kind == KIND_PREFILL and chosen == IMPL_FLASH:
         fn = functools.partial(flash_attention, causal=causal, window=window)
     elif kind == KIND_PREFILL:
         fn = functools.partial(flash_attention_plain, causal=causal,
