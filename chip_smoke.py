@@ -539,7 +539,8 @@ def splash_bwd_cases(torch):
         splash_bwd_dq, splash_fwd)
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(10)
-    cases = [("longctx", 1, 4096, 16, 128, "bfloat16"),
+    # the bf16 row is train-longctx's shape (flagship heads, B=2 x S=4096)
+    cases = [("train-longctx", 2, 4096, 16, 128, "bfloat16"),
              ("f32", 1, 4096, 4, 128, "float32")]
     rows = []
     for label, B, S, H, hd, dtype in cases:
@@ -1893,6 +1894,9 @@ def main() -> int:
 
     bwd = bwd_rows[0]
     train_fwd = next(r for r in flash_rows if r["case"] == "train-lse")
+    splash_lse = next(r for r in splash_rows if r["case"] == "longctx-lse")
+    splash_bwd = next(r for r in splash_bwd_rows
+                      if r["case"] == "train-longctx")
     kernels = [
         kernel_line("flash_fwd", "tpushare_torch/workloads/kernels/flash_fwd.cu",
                     "tpushare/workloads/ops/attention.py:94", flash_rows[0],
@@ -1933,38 +1937,36 @@ def main() -> int:
         kernel_line("splash_fwd",
                     "tpushare_torch/workloads/kernels/splash_fwd.cu",
                     "tpushare/workloads/ops/registry.py:494",
-                    splash_rows[0],
+                    next(r for r in splash_rows if r["case"] == "longctx"),
                     "splash-vs-plain, longctx-logits, "
                     "train-longctx-f32-parity"),
         kernel_line("splash_bwd_dq",
                     "tpushare_torch/workloads/kernels/splash_bwd.cu",
                     "tpushare/workloads/ops/registry.py:494",
-                    splash_bwd_rows[0],
+                    splash_bwd,
                     "splash-bwd-vs-plain, train-longctx-f32-parity",
                     max_abs_err="dq_max_abs_err", ms="dq_ms",
                     bound_ms="dq_bound_ms", bound_by="dq_bound_by"),
         kernel_line("splash_bwd_dkv",
                     "tpushare_torch/workloads/kernels/splash_bwd.cu",
                     "tpushare/workloads/ops/registry.py:494",
-                    splash_bwd_rows[0],
+                    splash_bwd,
                     "splash-bwd-vs-plain, train-longctx-f32-parity",
                     max_abs_err="dkv_max_abs_err", ms="dkv_ms",
                     bound_ms="dkv_bound_ms", bound_by="dkv_bound_by"),
     ]
+    line_of = {line["name"]: line for line in kernels}
+    fields = ("B", "S", "H", "Hkv", "hd", "dtype", "max_abs_err", "ms",
+              "plain_ms", "bound_ms", "bound_by", "library_ms")
     # the ragged reads at the serve --ragged shape
-    for line, rows in ((kernels[4], ragged_rows),
-                       (kernels[6], ragged_int8_rows)):
-        line["serve_shape"] = {k: rows[0][k] for k in (
-            "B", "S", "H", "Hkv", "hd", "dtype", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    for name, rows in (("ragged_decode", ragged_rows),
+                       ("ragged_decode_int8", ragged_int8_rows)):
+        line_of[name]["serve_shape"] = {k: rows[0][k] for k in fields}
     # the forward on the training path: the LSE launch at the train shape
-    kernels[0]["train_shape"] = {k: train_fwd[k] for k in (
-        "B", "S", "H", "Hkv", "hd", "dtype", "max_abs_err", "ms",
-        "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    line_of["flash_fwd"]["train_shape"] = {k: train_fwd[k] for k in fields}
     # the splash forward's LSE launch, which the training path runs
-    kernels[7]["train_shape"] = {k: splash_rows[1][k] for k in (
-        "B", "S", "H", "Hkv", "hd", "dtype", "max_abs_err", "ms",
-        "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    line_of["splash_fwd"]["train_shape"] = {k: splash_lse[k]
+                                            for k in fields}
     phase("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

@@ -5,9 +5,10 @@ Each ``*.cu`` source in this directory exports a plain C interface
 into its own shared library under ``_build/`` (listed in
 ``.gitignore``), then loaded with ``ctypes``. No source includes
 PyTorch's headers, so a build takes seconds rather than the minutes a
-``torch.utils.cpp_extension`` build costs. Libraries are named by a
-digest of their source and flags, so an edited kernel is never served
-from a stale build.
+``torch.utils.cpp_extension`` build costs. The sources share their
+element conversions through ``common.cuh`` (``HEADERS``). Libraries are
+named by a digest of their source, the shared headers and the flags, so
+an edited kernel is never served from a stale build.
 
 A kernel is built on first use (``library``) — never at import: the CPU
 tests import every module of the port and have no ``nvcc``.
@@ -38,6 +39,7 @@ SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
            "paged_decode": "paged_decode.cu",
            "ragged_decode": "ragged_decode.cu",
            "splash_fwd": "splash_fwd.cu", "splash_bwd": "splash_bwd.cu"}
+HEADERS = ("common.cuh",)   # included by every source
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -129,9 +131,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = KERNEL_DIR / SOURCES[name]
+    text = b"".join((KERNEL_DIR / f).read_bytes()
+                    for f in (SOURCES[name], *HEADERS))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -46,27 +46,13 @@
 // compute-bound in principle. Without tensor cores it runs at the fp32
 // FMA rate; mma/wgmma tiles are the lever for a later version.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int BM = 64;          // query rows per tile
 constexpr int BN = 64;          // key rows per tile
 constexpr int THREADS = 256;    // 16 x 16
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // does query qi see key kj under the forward's mask?
 __device__ __forceinline__ bool live(int qi, int kj, int S, int causal,
@@ -505,8 +491,4 @@ extern "C" int tpushare_flash_bwd_dkv(const void* q, const void* k,
                                        Hkv, hd, causal, window, scale, st);
   return dispatch_dkv<float>(q, k, v, dout, l, dl, dk, dv, B, S, H, Hkv, hd,
                              causal, window, scale, st);
-}
-
-extern "C" const char* tpushare_cuda_error(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -37,8 +37,7 @@
 // tensor cores (simple and exact for fp32 inputs); mma/wgmma tiles are
 // the lever for a later version.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
@@ -46,19 +45,6 @@ constexpr int BM = 64;          // query rows per CTA
 constexpr int BN = 64;          // key rows per tile
 constexpr int THREADS = 256;    // 16 x 16
 constexpr float MASKED = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -267,8 +253,4 @@ extern "C" int tpushare_flash_fwd(const void* q, const void* k,
                                    window, scale, st);
   return dispatch<float>(q, k, v, o, l, B, S, H, Hkv, hd, causal, window,
                          scale, st);
-}
-
-extern "C" const char* tpushare_cuda_error(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

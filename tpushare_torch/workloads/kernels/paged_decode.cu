@@ -45,23 +45,18 @@
 // row and head, against 2 hd for bf16); the kernel reads only live rows
 // (no gather copy, no dead pages) to stay near it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "common.cuh"
 
 namespace {
 
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int U = 4;   // rows per warp step
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // one lane's PER contiguous elements of a row, as fp32, in one vector
 // load (4 or 2 bytes int8, 8 or 4 bytes bf16, 16 or 8 bytes fp32)
@@ -106,14 +101,6 @@ __device__ __forceinline__ void load_row(const KV* p, float out[PER]) {
     out[0] = x.x;
     out[1] = x.y;
   }
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // the launch's arguments; ks / vs are the int8 rung's scale planes
@@ -327,8 +314,4 @@ extern "C" int tpushare_paged_decode(const void* q, const void* kp,
   if (is_bf16)
     return dispatch_kv<__nv_bfloat16>(is_int8, hd, H / Hkv, a, st);
   return dispatch_kv<float>(is_int8, hd, H / Hkv, a, st);
-}
-
-extern "C" const char* tpushare_cuda_error(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

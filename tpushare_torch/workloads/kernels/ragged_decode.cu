@@ -46,12 +46,12 @@
 // can be smaller than the 132 SMs at long caches; a split over the rows
 // is later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "common.cuh"
 
 namespace {
 
@@ -88,15 +88,6 @@ __device__ __forceinline__ void load4(const int8_t* p, float out[PER]) {
   out[1] = x.y;
   out[2] = x.z;
   out[3] = x.w;
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // the launch's arguments: k / v one layer's (B, S, Hkv, HD) base; ks / vs
@@ -291,8 +282,4 @@ extern "C" int tpushare_ragged_decode(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) return dispatch_kv<__nv_bfloat16>(is_int8, H / Hkv, a, st);
   return dispatch_kv<float>(is_int8, H / Hkv, a, st);
-}
-
-extern "C" const char* tpushare_cuda_error(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

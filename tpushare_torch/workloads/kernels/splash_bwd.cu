@@ -50,31 +50,13 @@
 // is compute-bound in principle; without tensor cores it runs at the
 // fp32 FMA rate (mma/wgmma tiles are the lever for a later version).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int BK = 64;          // key rows per tile
 constexpr int THREADS = 256;    // 16 x 16
 constexpr int PARTIAL = 1;      // schedule kinds: 1 partial, 2 full
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// x rounded to T and back: the input-dtype rounding of P and dS
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
 
 template <int HD>
 __host__ __device__ constexpr int query_tile() { return HD > 128 ? 32 : 64; }
@@ -500,8 +482,4 @@ extern "C" int tpushare_splash_bwd_dkv(const void* q, const void* k,
                                        kd, B, S, H, hd, block, st);
   return dispatch_dkv<float>(q, k, v, dout, l, d, dk, dv, off, blk, kd, B, S,
                              H, hd, block, st);
-}
-
-extern "C" const char* tpushare_cuda_error(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

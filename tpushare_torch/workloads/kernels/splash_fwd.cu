@@ -44,8 +44,7 @@
 // shared memory, not the tensor cores; mma/wgmma tiles and a K/V ring
 // are the levers for a later version.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
@@ -55,19 +54,6 @@ constexpr int THREADS = 256;    // 16 x 16
 constexpr int PARTIAL = 1;      // schedule kinds: 1 partial, 2 full
 // upstream DEFAULT_MASK_VALUE, rounded to fp32 as the reference rounds it
 constexpr float MASK_VALUE = (float)(-0.7 * 3.4028234663852886e38);
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -276,8 +262,4 @@ extern "C" int tpushare_splash_fwd(const void* q, const void* k,
                                    block, st);
   return dispatch<float>(q, k, v, o, l, off, blk, kd, B, S, H, hd, block,
                          st);
-}
-
-extern "C" const char* tpushare_cuda_error(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
