@@ -531,8 +531,12 @@ def splash_cases(torch):
 def splash_bwd_cases(torch):
     """The dQ and dK/dV kernels against ``splash_attention_bwd_plain``
     (both fed the kernel forward's o and lse) and against autograd through
-    ``splash_attention_plain``; each kernel timed alone, beside the plain
-    backward and SDPA's backward."""
+    ``splash_attention_plain``, at ``BWD_TOL`` of each gradient's scale
+    (the bf16 kernels sum on tensor cores in another order than the twin:
+    ``*_differing_share`` counts the elements that differ at all); each
+    kernel timed alone, beside the plain backward and SDPA's backward,
+    with its rate on the live pairs, its time over its bound, and the
+    pair's time over SDPA's backward."""
     from tpushare_torch.workloads.ops.attention import bwd_delta
     from tpushare_torch.workloads.ops.splash_attention import (
         splash_attention_bwd_plain, splash_attention_plain, splash_bwd_dkv,
@@ -604,6 +608,11 @@ def splash_bwd_cases(torch):
         dq_b = bound_ms(5 * x_bytes + 2 * stat_bytes, 3 * product, dtype)
         # dkv: the same reads, writes dk, dv; q k^T, dO v^T, P^T dO, dS^T q
         dkv_b = bound_ms(6 * x_bytes + 2 * stat_bytes, 4 * product, dtype)
+        rates = dict(dq_tflops=3 * product / (dq_ms * 1e-3) / 1e12,
+                     dkv_tflops=4 * product / (dkv_ms * 1e-3) / 1e12,
+                     dq_over_bound=dq_ms / dq_b[0],
+                     dkv_over_bound=dkv_ms / dkv_b[0],
+                     pair_over_library=(dq_ms + dkv_ms) / sdpa_bwd_ms)
         row = dict(case=label, B=B, S=S, H=H, Hkv=H, hd=hd, dtype=dtype,
                    tol=tol, **{f"{n}_rel_err": e[0] for n, e in errs.items()},
                    **{f"{n}_differing_share": e[3] for n, e in errs.items()},
@@ -613,7 +622,7 @@ def splash_bwd_cases(torch):
                    dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=plain_ms,
                    library_ms=sdpa_bwd_ms, dq_bound_ms=dq_b[0],
                    dq_bound_by=dq_b[1], dkv_bound_ms=dkv_b[0],
-                   dkv_bound_by=dkv_b[1], **controls)
+                   dkv_bound_by=dkv_b[1], **rates, **controls)
         phase("splash-bwd-vs-plain", **row)
         rows.append(row)
         torch.cuda.empty_cache()

@@ -9,6 +9,9 @@ machine that has only the port's dependencies:
     python -m pytest tests/test_torch_kernels.py -q -m cuda
 """
 
+import re
+import shutil
+
 import numpy as np
 import pytest
 
@@ -429,6 +432,26 @@ def test_splash_backward_kernels_match_plain(B, S, H, hd, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hd,dtype", SPLASH_CASES)
+def test_splash_backward_kernels_are_deterministic(B, S, H, hd, dtype):
+    """No atomics: two launches on the same inputs give the same bits."""
+    from tpushare_torch.workloads.ops import splash_attention as sa
+    from tpushare_torch.workloads.ops.attention import bwd_delta
+    dev, dt = card(), getattr(torch, dtype)
+    rng = np.random.default_rng(14)
+    qs = sa.prescale(randn(rng, (B, S, H, hd), dt, dev))
+    k, v, do = (randn(rng, (B, S, H, hd), dt, dev) for _ in range(3))
+    o, lse = sa.splash_fwd(qs, k, v, with_lse=True)
+    di = bwd_delta(do, o)
+    first = (sa.splash_bwd_dq(qs, k, v, do, lse, di),
+             *sa.splash_bwd_dkv(qs, k, v, do, lse, di))
+    second = (sa.splash_bwd_dq(qs, k, v, do, lse, di),
+              *sa.splash_bwd_dkv(qs, k, v, do, lse, di))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_splash_autograd_runs_the_kernels():
     """Autograd through ``splash_attention`` on the card: one LSE forward,
     one dQ and one dK/dV launch, and the plain twins' gradients."""
@@ -462,3 +485,40 @@ def test_splash_wrappers_reject_what_the_kernels_cannot_take():
     with pytest.raises(ValueError, match="head_dim"):
         z = torch.zeros((1, 256, 2, 64), device=dev)
         sa.splash_fwd(z, z, z)
+
+
+# ---------------------------------------------------------------------------
+# the build's digest (CPU: reads files only, needs no nvcc)
+# ---------------------------------------------------------------------------
+
+def _local_includes(path):
+    return re.findall(r'^\s*#\s*include\s+"([^"]+)"', path.read_text(),
+                      re.MULTILINE)
+
+
+def test_every_included_header_is_in_the_build_digest():
+    """Every ``#include "..."`` of every kernel source and header is listed
+    in ``build.HEADERS``, so no kernel is served from a stale build after
+    a header edit."""
+    files = sorted(build.KERNEL_DIR.glob("*.cu")) + \
+        sorted(build.KERNEL_DIR.glob("*.cuh"))
+    assert {p.name for p in files if p.suffix == ".cu"} == \
+        set(build.SOURCES.values())
+    included = {name for p in files for name in _local_includes(p)}
+    assert "mma_tile.cuh" in included
+    assert included <= set(build.HEADERS)
+    assert all((build.KERNEL_DIR / h).is_file() for h in build.HEADERS)
+
+
+@pytest.mark.parametrize("header", build.HEADERS)
+def test_a_header_edit_renames_every_library(tmp_path, monkeypatch, header):
+    """``library_path`` digests the shared headers: an edit to one names
+    a new library for every source."""
+    for f in (*build.SOURCES.values(), *build.HEADERS):
+        shutil.copy(build.KERNEL_DIR / f, tmp_path / f)
+    monkeypatch.setattr(build, "KERNEL_DIR", tmp_path)
+    before = {n: build.library_path(n) for n in build.SOURCES}
+    with open(tmp_path / header, "a") as fh:
+        fh.write("\n// edited\n")
+    after = {n: build.library_path(n) for n in build.SOURCES}
+    assert all(before[n] != after[n] for n in build.SOURCES)

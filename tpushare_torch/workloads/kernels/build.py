@@ -6,9 +6,11 @@ into its own shared library under ``_build/`` (listed in
 ``.gitignore``), then loaded with ``ctypes``. No source includes
 PyTorch's headers, so a build takes seconds rather than the minutes a
 ``torch.utils.cpp_extension`` build costs. The sources share their
-element conversions through ``common.cuh`` (``HEADERS``). Libraries are
-named by a digest of their source, the shared headers and the flags, so
-an edited kernel is never served from a stale build.
+element conversions through ``common.cuh`` and the tensor-core tile loop
+(``mma.sync``, ``ldmatrix``, the ``cp.async`` ring) through
+``mma_tile.cuh`` (``HEADERS``). Libraries are named by a digest of their
+source, every shared header and the flags, so an edited kernel or header
+is never served from a stale build.
 
 A kernel is built on first use (``library``) — never at import: the CPU
 tests import every module of the port and have no ``nvcc``.
@@ -39,7 +41,8 @@ SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
            "paged_decode": "paged_decode.cu",
            "ragged_decode": "ragged_decode.cu",
            "splash_fwd": "splash_fwd.cu", "splash_bwd": "splash_bwd.cu"}
-HEADERS = ("common.cuh",)   # included by every source
+# every header a source includes: each library's digest covers them all
+HEADERS = ("common.cuh", "mma_tile.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
