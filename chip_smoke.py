@@ -83,11 +83,15 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # paged kernel vs plain twin: bf16 outputs round once at the end of a
 # tiled online softmax vs an einsum/softmax chain; fp32 only reorders sums
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
-# flash forward vs plain twin, element by element as a share of
-# max(|want|, FWD_FLOOR x the output's largest magnitude). Both sides
-# compute in fp32 and round once to the output dtype, so a sound bf16
-# kernel differs by at most one bf16 ulp, 2^-7 of the value; fp32 only
-# reorders sums. The control — the kernel's output rounded to
+# flash and splash forwards vs plain twin, element by element as a share
+# of max(|want|, FWD_FLOOR x the output's largest magnitude). The twin
+# computes in fp32 and rounds once to the output dtype. The bf16 rungs
+# run both products on tensor cores and keep P for P V as two bf16
+# halves, hi = bf16(p) and lo = bf16(p - hi): about 16 bits, where P
+# rounded once to bf16 would miss this limit about 20-fold near the
+# floor (tests/test_torch_fwd_split_p.py). So a sound bf16 kernel differs
+# by at most one bf16 ulp, 2^-7 of the value; fp32 only reorders sums.
+# The control — the kernel's output rounded to
 # CONTROL_BITS_FWD significant bits (bf16 keeps 8) — must land above
 # the bf16 limit, which shows the check tells a kernel that loses
 # precision anywhere in the output, not only at its largest entries.
@@ -313,7 +317,9 @@ def flash_cases(torch):
                    window=window, lse=with_lse, max_abs_err=err,
                    rel_err=rel, tol=tol, **extra,
                    ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
-                   bound_ms=bms, bound_by=by)
+                   bound_ms=bms, bound_by=by,
+                   tflops=flops / (ms * 1e-3) / 1e12, over_bound=ms / bms,
+                   over_library=ms / sdpa_ms)
         phase("flash-vs-plain", **row)
         rows.append(row)
     return rows
@@ -521,7 +527,8 @@ def splash_cases(torch):
                    partial_blocks=kinds.count(splash_mask.PARTIAL),
                    max_abs_err=err, rel_err=rel, tol=tol, **extra, ms=ms,
                    plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=bms,
-                   bound_by=by, tflops=flops / (ms * 1e-3) / 1e12)
+                   bound_by=by, tflops=flops / (ms * 1e-3) / 1e12,
+                   over_bound=ms / bms, over_library=ms / sdpa_ms)
         phase("splash-vs-plain", **row)
         rows.append(row)
         torch.cuda.empty_cache()

@@ -28,8 +28,9 @@ and at the flagship's widths, batch 2 x seq 4096:
 For each it prints one JSON line: host wall time per step, device busy
 time per step (the sum of the device-side kernel and copy times), the
 device idle share over the window (1 - busy / wall), device launches per
-step (all kernels and copies; the decode and long-context paths also
-their kernels' own counts), and the top kernels by device time. Needs a CUDA
+step (all kernels and copies; the decode, long-context and training
+paths also their kernels' own counts), and the top kernels by device
+time. Needs a CUDA
 device; exits non-zero without one.
 """
 
@@ -187,7 +188,8 @@ def main() -> int:
     def train_step():
         step(state, inputs, targets)
         return 1
-    profile(torch, train_step, lambda n: n, "train")
+    profile(torch, train_step, lambda n: n, "train",
+            **per_step("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
     del state, step
     torch.cuda.empty_cache()
 

@@ -488,6 +488,125 @@ def test_splash_wrappers_reject_what_the_kernels_cannot_take():
 
 
 # ---------------------------------------------------------------------------
+# the bf16 forwards on tensor cores (K1, K6-fwd: P as two bf16 halves)
+# ---------------------------------------------------------------------------
+
+# element by element, as chip_smoke.py holds them (FWD_TOL, FWD_FLOOR):
+# one bf16 rounding of the output on each side; the fp32 LSE from the
+# same fp32 scores
+FWD_TOL, LSE_TOL = 1e-2, 1e-4
+FLASH_BF16_CASES = [  # B, S, H, Hkv, hd, causal, window
+    (2, 128, 16, 16, 128, True, None),     # the forward's heads
+    (2, 300, 16, 16, 128, True, None),     # S past the last tile
+    (2, 32, 8, 8, 64, True, None),         # the decode prompt
+    (2, 77, 4, 2, 64, True, None),
+    (8, 64, 8, 8, 16, True, None),         # the payload's heads
+    (2, 256, 8, 8, 32, True, None),
+    (2, 1024, 16, 16, 96, True, None),     # the train shape's heads
+    (2, 1024, 16, 4, 96, True, None),      # GQA 16:4
+    (2, 1024, 16, 16, 96, True, 256),      # the window band
+    (2, 512, 16, 16, 128, False, None),    # full attention
+    (2, 300, 8, 2, 96, False, None),
+]
+SPLASH_BF16_CASES = [  # B, S, H, hd
+    (2, 4096, 2, 128),                     # block 512
+    (1, 4224, 4, 128),                     # block 128
+    (1, 4096, 2, 256),
+]
+
+
+def flash_bf16_inputs(seed, B, S, H, Hkv, hd):
+    dev = card()
+    rng = np.random.default_rng(seed)
+    return (randn(rng, (B, S, H, hd), torch.bfloat16, dev),
+            *(randn(rng, (B, S, Hkv, hd), torch.bfloat16, dev)
+              for _ in range(2)))
+
+
+def splash_bf16_inputs(seed, B, S, H, hd):
+    from tpushare_torch.workloads.ops import splash_attention as sa
+    dev = card()
+    rng = np.random.default_rng(seed)
+    qs = sa.prescale(randn(rng, (B, S, H, hd), torch.bfloat16, dev))
+    return (qs, *(randn(rng, (B, S, H, hd), torch.bfloat16, dev)
+                  for _ in range(2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,window", FLASH_BF16_CASES)
+def test_flash_bf16_forward_matches_plain_element_by_element(
+        B, S, H, Hkv, hd, causal, window):
+    q, k, v = flash_bf16_inputs(15, B, S, H, Hkv, hd)
+    before = build.LAUNCHES["flash_fwd"]
+    got, lse = attention.flash_attention_fwd(q, k, v, causal, window,
+                                             with_lse=True)
+    bare = attention.flash_attention_fwd(q, k, v, causal, window)
+    assert build.LAUNCHES["flash_fwd"] == before + 2
+    want, want_lse = attention.flash_attention_plain(
+        q, k, v, causal=causal, window=window, with_lse=True)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, bare)
+    assert rel_err(got, want) <= FWD_TOL
+    assert (lse - want_lse).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hd", SPLASH_BF16_CASES)
+def test_splash_bf16_forward_matches_plain_at_the_long_shapes(B, S, H, hd):
+    from tpushare_torch.workloads.ops import splash_attention as sa
+    qs, k, v = splash_bf16_inputs(16, B, S, H, hd)
+    got, lse = sa.splash_fwd(qs, k, v, with_lse=True)
+    want, want_lse = sa.splash_attention_plain(qs, k, v, with_lse=True)
+    assert rel_err(got, want) <= FWD_TOL
+    assert (lse - want_lse).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape", [
+    ("flash", (2, 1024, 16, 16, 96, True, None)),
+    ("flash", (2, 1024, 16, 16, 96, True, 256)),
+    ("flash", (2, 300, 8, 2, 64, False, None)),
+    ("splash", (1, 4224, 4, 128)),
+    ("splash", (1, 1024, 2, 256)),
+])
+def test_forward_kernels_are_deterministic(kind, shape):
+    """No atomics and a fixed order of sums: two launches on the same
+    inputs give the same bits, output and LSE."""
+    from tpushare_torch.workloads.ops import splash_attention as sa
+    if kind == "flash":
+        B, S, H, Hkv, hd, causal, window = shape
+        q, k, v = flash_bf16_inputs(17, B, S, H, Hkv, hd)
+
+        def launch():
+            return attention.flash_attention_fwd(q, k, v, causal, window,
+                                                 with_lse=True)
+    else:
+        qs, k, v = splash_bf16_inputs(17, *shape)
+
+        def launch():
+            return sa.splash_fwd(qs, k, v, with_lse=True)
+    first, second = launch(), launch()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bf16_forwards_refuse_a_misaligned_tensor():
+    """cp.async reads 16-byte chunks: a bf16 view that starts 2 bytes off
+    is refused with CUDA's misaligned-address error, not run or sent to a
+    twin."""
+    from tpushare_torch.workloads.ops import splash_attention as sa
+    dev = card()
+    buf = torch.zeros(2 * 256 * 2 * 128 + 1, dtype=torch.bfloat16,
+                      device=dev)
+    off = buf[1:].view(2, 256, 2, 128)
+    ok = torch.zeros_like(off)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        attention.flash_attention_fwd(off, ok, ok)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        sa.splash_fwd(ok, off, ok)
+
+
+# ---------------------------------------------------------------------------
 # the build's digest (CPU: reads files only, needs no nvcc)
 # ---------------------------------------------------------------------------
 

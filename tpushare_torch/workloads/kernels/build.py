@@ -6,9 +6,11 @@ into its own shared library under ``_build/`` (listed in
 ``.gitignore``), then loaded with ``ctypes``. No source includes
 PyTorch's headers, so a build takes seconds rather than the minutes a
 ``torch.utils.cpp_extension`` build costs. The sources share their
-element conversions through ``common.cuh`` and the tensor-core tile loop
+element conversions through ``common.cuh``, the tensor-core tile loop
 (``mma.sync``, ``ldmatrix``, the ``cp.async`` ring) through
-``mma_tile.cuh`` (``HEADERS``). Libraries are named by a digest of their
+``mma_tile.cuh``, and the attention forward's tile body (the bf16 rungs
+of the flash and splash forwards) through ``attn_fwd_tile.cuh``
+(``HEADERS``). Libraries are named by a digest of their
 source, every shared header and the flags, so an edited kernel or header
 is never served from a stale build.
 
@@ -42,7 +44,7 @@ SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
            "ragged_decode": "ragged_decode.cu",
            "splash_fwd": "splash_fwd.cu", "splash_bwd": "splash_bwd.cu"}
 # every header a source includes: each library's digest covers them all
-HEADERS = ("common.cuh", "mma_tile.cuh")
+HEADERS = ("common.cuh", "mma_tile.cuh", "attn_fwd_tile.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

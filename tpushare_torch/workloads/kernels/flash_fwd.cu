@@ -19,24 +19,38 @@
 // The tensors stay in the model's (B, S, heads, hd) layout; the kernel
 // computes its own offsets, so the wrapper makes no transposed copies.
 //
-// Design: one CTA per (64-row query tile, b*H + h); 256 threads as a
-// 16 x 16 grid. The Q tile and each 64-row K/V tile are staged in shared
-// memory as fp32 (bf16 and fp32 inputs both), each thread owns a 4 x 4
-// block of the score tile and a 4 x (hd/16) block of the accumulator,
-// rows reduced across the 16 threads that share them with warp
-// shuffles. The K/V loop stops at the causal diagonal (block-level skip,
-// as the reference's _block_live) and, with a window, starts at the
-// band's first tile; a partial last tile is masked, so any S works.
-// Query tiles launch heaviest first. Head dims 16, 32, 64, 96 and 128
-// (every config of the repo) are instantiated.
+// Bound on this card: at the forward's shapes (S <= 2048, hd 96 / 128)
+// the causal FLOPs over bf16 tensor-core peak exceed the bytes over HBM
+// bandwidth, so the kernel is compute-bound in principle; at short S
+// (the forward's S = 128) the bytes bound it.
 //
-// Bound on this card: at the forward's shapes (S <= 2048, hd 128) the
-// causal FLOPs over bf16 tensor-core peak exceed the bytes over HBM
-// bandwidth, so the kernel is compute-bound in principle. This version
-// does its dot products with plain fp32 FMAs from shared memory, not the
-// tensor cores (simple and exact for fp32 inputs); mma/wgmma tiles are
-// the lever for a later version.
+// bf16: tensor cores, through attn_fwd_tile.cuh (the tile body K6-fwd's
+// bf16 rung shares). One CTA per (64-row query tile, b*H + h), 4 warps
+// with a 16-row strip each and its Q fragments in registers; 64-key K/V
+// tiles stream through a two-slot cp.async ring over the band's tiles.
+// Rows past S load as zeros and are never stored, keys past S are
+// masked, so any S works. Each warp skips the tiles its strip cannot see
+// (past its diagonal, before its window, or all of it past S) and masks
+// only those that cross the diagonal, the window's edge or S. The
+// scores are products of bf16 values, exact in fp32, so the softmax
+// scale is folded into the exp2 (the reference scales q in fp32 first:
+// equal up to rounding). P stays in registers, split into two bf16
+// halves for P V (see the tile header). Head dims 16, 32, 64, 96 and
+// 128; the padded rows of mma_tile.cuh (24, 40, 72, 104, 136 elements)
+// put ldmatrix's eight row reads in disjoint groups of 4 banks at each.
+//
+// fp32: CUDA cores (TF32 would fail the fp32 check). 256 threads as a
+// 16 x 16 grid; the Q tile and each 64-row K/V tile staged in shared
+// memory as fp32, each thread owning a 4 x 4 block of the score tile and
+// a 4 x (hd/16) block of the accumulator, rows reduced across the 16
+// threads that share them with warp shuffles. The K/V loop stops at the
+// causal diagonal (block-level skip, as the reference's _block_live)
+// and, with a window, starts at the band's first tile; a partial last
+// tile is masked.
+//
+// Both launch query tiles heaviest first.
 
+#include "attn_fwd_tile.cuh"
 #include "common.cuh"
 
 namespace {
@@ -199,6 +213,114 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+using mma::bf16;
+
+// which (query, key) scores live: keys before S, and with ``causal`` at
+// or before the query and, with a window, inside its band
+struct Keep {
+  int S, window;
+  bool causal;
+  __device__ bool operator()(int q, int k) const {
+    return k < S && (!causal || (k <= q && (window <= 0 || k > q - window)));
+  }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(fwd::Tiles<HD>::THREADS, 1)
+    flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                  float* __restrict__ lse, int S, int H, int Hkv, int causal,
+                  int window, float scale) {
+  using C = fwd::Tiles<HD>;
+  static_assert(C::WC == 1, "one warp holds a strip's O up to hd 128");
+  constexpr int LD = C::LD;
+  constexpr int BN = fwd::BN;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  bf16* sq = C::q_tile(mma_smem);
+  bf16* ring = C::ring(mma_smem);   // STAGES slots of (K, V)
+
+  const int wr = threadIdx.x >> 5;              // row strip
+  const int g = mma::frag_row(), fc = mma::frag_col();
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::BM;   // heaviest first
+  const int r0 = q0 + wr * 16;                  // the strip's first row
+  const int r_last = r0 + 15;                   // and its last
+  const int row = blockIdx.y;                   // b * H + h
+  const int b = row / H;
+  const int h = row - b * H;
+  const int hk = h / (H / Hkv);
+
+  const size_t q_step = (size_t)H * HD;         // between positions
+  const size_t kv_step = (size_t)Hkv * HD;
+  const size_t q_off = (size_t)b * S * q_step + (size_t)h * HD;
+  const size_t kv_off = (size_t)b * S * kv_step + (size_t)hk * HD;
+
+  auto slot_k = [&](int i) { return ring + (i % C::STAGES) * 2 * BN * LD; };
+  auto fill = [&](int i, int t) {
+    bf16* sk = slot_k(i);
+    const size_t at = kv_off + (size_t)t * BN * kv_step;
+    mma::load_tile_rows<BN, HD, C::THREADS>(sk, k + at, kv_step, S - t * BN);
+    mma::load_tile_rows<BN, HD, C::THREADS>(sk + BN * LD, v + at, kv_step,
+                                            S - t * BN);
+  };
+
+  const int q_last = min(q0 + C::BM, S) - 1;
+  const int t_first =
+      causal && window > 0 ? max(q0 - window + 1, 0) / BN : 0;
+  const int t_end = causal ? q_last / BN + 1 : (S + BN - 1) / BN;
+
+  // Q is its own commit group, ahead of the ring's
+  mma::load_tile_rows<C::BM, HD, C::THREADS>(sq, q + q_off + q0 * q_step,
+                                             q_step, S - q0);
+  mma::commit();
+#pragma unroll
+  for (int s = 0; s < C::STAGES - 1; ++s) {
+    if (t_first + s < t_end) fill(s, t_first + s);
+    mma::commit();
+  }
+  mma::wait_newest<C::STAGES - 1>();
+  __syncthreads();
+  const fwd::QFrags<HD, C::Q_IN_REGISTERS> qf(sq, wr * 16);
+  fwd::Strip<C::N8> st(MASKED);
+  const Keep keep{S, window, causal != 0};
+  const float c = fwd::LOG2E * scale;
+
+  for (int t = t_first, i = 0; t < t_end; ++t, ++i) {
+    mma::ring_wait<C::STAGES>();
+    if (t + C::STAGES - 1 < t_end) fill(i + C::STAGES - 1, t + C::STAGES - 1);
+    mma::commit();
+    const bf16* sk = slot_k(i);
+    const int k0 = t * BN;
+    // tiles this strip sees nothing of: rows all past S, keys all past
+    // its diagonal or all before its window
+    if (r0 >= S || (causal && (k0 > r_last ||
+                               (window > 0 && k0 + BN - 1 <= r0 - window))))
+      continue;
+    const bool masked = k0 + BN > S ||
+                        (causal && (k0 + BN - 1 > r0 ||
+                                    (window > 0 && k0 <= r_last - window)));
+    if (masked)
+      fwd::tile<true, HD>(st, qf, sk, sk + BN * LD, 0, c, r0 + g, k0 + fc,
+                          keep);
+    else
+      fwd::tile<false, HD>(st, qf, sk, sk + BN * LD, 0, c, r0 + g, k0 + fc,
+                           keep);
+  }
+
+  st.finish();
+  mma::store_acc<C::N8>(o + q_off + (size_t)r0 * q_step, q_step, st.o,
+                        S - r0);
+  if (lse != nullptr && fc == 0) {
+    if (r0 + g < S)
+      lse[(size_t)row * S + r0 + g] = st.m[0] * scale + logf(st.l[0]);
+    if (r0 + g + 8 < S)
+      lse[(size_t)row * S + r0 + g + 8] = st.m[1] * scale + logf(st.l[1]);
+  }
+}
+
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int S, int H, int Hkv, int causal,
@@ -235,6 +357,34 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   return -1;
 }
 
+template <int HD>
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int S, int H, int Hkv, int causal,
+               int window, float scale, cudaStream_t stream) {
+  using C = fwd::Tiles<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)C::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + C::BM - 1) / C::BM, B * H);
+  flash_fwd_mma<HD><<<grid, C::THREADS, C::SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, S, H, Hkv,
+      causal, window, scale);
+  return cudaGetLastError();
+}
+
+// cp.async copies 16-byte chunks: every bf16 tensor and row must start
+// 16-byte aligned, as a tensor from the caching allocator does
+bool misaligned(const void* q, const void* k, const void* v, const void* o,
+                int H, int Hkv, int hd) {
+  const void* ptrs[] = {q, k, v, o};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return true;
+  return (size_t)H * hd * sizeof(bf16) % 16 != 0 ||
+         (size_t)Hkv * hd * sizeof(bf16) % 16 != 0;
+}
+
 }  // namespace
 
 // lse: null, or fp32 (B, H, S); window: 0 = none (causal only)
@@ -248,9 +398,22 @@ extern "C" int tpushare_flash_fwd(const void* q, const void* k,
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, l, B, S, H, Hkv, hd, causal,
-                                   window, scale, st);
+  if (is_bf16) {
+    if (misaligned(q, k, v, o, H, Hkv, hd)) return cudaErrorMisalignedAddress;
+    switch (hd) {
+      case 16: return launch_mma<16>(q, k, v, o, l, B, S, H, Hkv, causal,
+                                     window, scale, st);
+      case 32: return launch_mma<32>(q, k, v, o, l, B, S, H, Hkv, causal,
+                                     window, scale, st);
+      case 64: return launch_mma<64>(q, k, v, o, l, B, S, H, Hkv, causal,
+                                     window, scale, st);
+      case 96: return launch_mma<96>(q, k, v, o, l, B, S, H, Hkv, causal,
+                                     window, scale, st);
+      case 128: return launch_mma<128>(q, k, v, o, l, B, S, H, Hkv, causal,
+                                       window, scale, st);
+    }
+    return -1;
+  }
   return dispatch<float>(q, k, v, o, l, B, S, H, Hkv, hd, causal, window,
                          scale, st);
 }

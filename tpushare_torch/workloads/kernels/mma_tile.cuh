@@ -98,6 +98,34 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
   }
 }
 
+// cp_async_16 that copies `bytes` (16 or 0) and zero-fills the rest of
+// the 16: with 0 nothing is read from src, which must still be a valid
+// address
+__device__ __forceinline__ void cp_async_16_zfill(void* dst, const void* src,
+                                                  int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// load_tile for a tile that may run past the end of the data: rows at or
+// past `n_rows` are zero-filled and read nothing (n_rows <= 0: all zero).
+template <int ROWS, int COLS, int THREADS>
+__device__ __forceinline__ void load_tile_rows(bf16* dst, const bf16* src,
+                                               size_t stride, int n_rows) {
+  static_assert(COLS % 8 == 0, "rows of whole 16-byte chunks");
+  constexpr int CHUNKS = COLS / 8;
+#pragma unroll
+  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
+    const bool live = r < n_rows;
+    cp_async_16_zfill(dst + r * ld<COLS>() + c,
+                      src + (live ? (size_t)r * stride + c : 0),
+                      live ? 16 : 0);
+  }
+}
+
 // Start the copy of N contiguous fp32 values (N % 4 == 0, 16-byte aligned)
 template <int N, int THREADS>
 __device__ __forceinline__ void load_f32(float* dst, const float* src) {
@@ -192,6 +220,24 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
   a[3] = pack_bf16(hi[2], hi[3]);
 }
 
+// acc_to_a with the rounding error kept: hi = bf16(x) and lo =
+// bf16(x - hi), so hi + lo holds x to about 16 significant bits, and
+// (hi + lo) b, as two products on the same B fragments, is x b to about
+// 2^-17 of each term where hi b alone is to 2^-9.
+__device__ __forceinline__ void acc_to_a_split(uint32_t (&hi)[4],
+                                               uint32_t (&lo)[4],
+                                               const float (&a)[4],
+                                               const float (&b)[4]) {
+  const float x[8] = {a[0], a[1], a[2], a[3], b[0], b[1], b[2], b[3]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+    const float2 hf = __bfloat1622float2(h);
+    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[i] = pack_bf16(x[2 * i] - hf.x, x[2 * i + 1] - hf.y);
+  }
+}
+
 // This lane's place in a C fragment: row g (and g + 8), column 2t (and
 // 2t + 1) of each n8 tile.
 __device__ __forceinline__ int frag_row() { return (threadIdx.x & 31) >> 2; }
@@ -210,6 +256,25 @@ __device__ __forceinline__ void store_acc(bf16* dst, size_t stride,
     *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)(g + 8) * stride +
                                        8 * j + c) =
         __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+  }
+}
+
+// store_acc of the strip's first n_rows rows only (rows past the data)
+template <int N8>
+__device__ __forceinline__ void store_acc(bf16* dst, size_t stride,
+                                          const float (&acc)[N8][4],
+                                          int n_rows) {
+  const int g = frag_row(), c = frag_col();
+#pragma unroll
+  for (int j = 0; j < N8; ++j) {
+    if (g < n_rows)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)g * stride + 8 * j +
+                                         c) =
+          __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+    if (g + 8 < n_rows)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)(g + 8) * stride +
+                                         8 * j + c) =
+          __floats2bfloat162_rn(acc[j][2], acc[j][3]);
   }
 }
 

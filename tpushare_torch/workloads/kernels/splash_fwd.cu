@@ -26,24 +26,34 @@
 // key tiles run in order, the first holding each row's key 0 or a live
 // full block), so they are not read either.
 //
-// Design: one CTA per (64-row query tile, b*H + h); 256 threads as a
-// 16 x 16 grid. The tiles divide every reference block (b >= 128). The
-// Q tile and each 64-row K/V tile are staged in shared memory as fp32,
-// each thread owns a 4 x 4 block of the score tile and a 4 x (hd/16)
-// block of the accumulator, rows reduced across the 16 threads that
-// share them with warp shuffles. It reads the model's (B, S, H, hd)
-// layout directly (the reference's transposes are its layout, not its
-// function). Query tiles launch heaviest first. Element type (bf16,
-// fp32) and head dim (128, 256) are template arguments; at hd 256 the
-// tiles take 209 KiB of shared memory.
+// Bound on this card: operations. At the long-context shape (S = 4096,
+// hd 128) the causal FLOPs over bf16 tensor-core peak exceed the bytes
+// over HBM bandwidth about 3.5 times.
 //
-// Bound on this card: at the long-context shape (S = 4096, hd 128) the
-// causal FLOPs over bf16 tensor-core peak exceed the bytes over HBM
-// bandwidth about 3.5 times, so the kernel is compute-bound in
-// principle. This version does its products with plain fp32 FMAs from
-// shared memory, not the tensor cores; mma/wgmma tiles and a K/V ring
-// are the levers for a later version.
+// bf16: tensor cores, through attn_fwd_tile.cuh (the tile body K1's bf16
+// rung shares). One CTA per (64-row query tile, b*H + h): at hd 128 four
+// warps, a 16-row strip each with its Q fragments in registers, two CTAs
+// an SM; at hd 256 eight (two warps a strip, one per half of O's
+// columns). 64-key K/V tiles stream through a two-slot cp.async ring
+// along the schedule's walk; each warp skips the tiles wholly past its
+// strip's last row, and masks only the tiles that cross its diagonal. P
+// stays in registers, split into two bf16 halves for P V (so the output
+// keeps the fp32-P reference's precision; see the tile header). Shared
+// memory: 68 KiB at hd 128 (Q staged in a ring slot), 165 KiB at hd 256.
+//
+// fp32: CUDA cores. On tensor cores fp32 operands run as TF32, which the
+// fp32 check would rightly refuse, so fp32 stays on plain FMAs: 256
+// threads as a 16 x 16 grid, the Q tile and each 64-row K/V tile staged
+// in shared memory as fp32, each thread owning a 4 x 4 block of the
+// score tile and a 4 x (hd/16) block of the accumulator, rows reduced
+// across the 16 threads that share them with warp shuffles. At hd 256
+// those tiles take 209 KiB of shared memory.
+//
+// Both read the model's (B, S, H, hd) layout directly (the reference's
+// transposes are its layout, not its function), and launch query tiles
+// heaviest first.
 
+#include "attn_fwd_tile.cuh"
 #include "common.cuh"
 
 namespace {
@@ -207,6 +217,129 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+using mma::bf16;
+
+// The key tiles of a query tile's walk along its row of the schedule: for
+// each live block in order, BN-key tiles from the block's first row to its
+// end, lowered to hi (the query tile's end) inside a partial block.
+struct Walk {
+  const int* blocks;
+  const int* kinds;
+  int e, e_end, block, hi;
+  int pos, end;      // the current tile's first key; its block's end
+  bool partial;
+
+  __device__ Walk(const int* offsets, const int* blocks_, const int* kinds_,
+                  int r, int block_, int hi_)
+      : blocks(blocks_), kinds(kinds_), e(offsets[r]), e_end(offsets[r + 1]),
+        block(block_), hi(hi_) {
+    enter();
+  }
+  __device__ bool done() const { return e >= e_end; }
+  __device__ void next() {
+    pos += fwd::BN;
+    if (pos >= end) {
+      ++e;
+      enter();
+    }
+  }
+  __device__ void enter() {
+    for (; e < e_end; ++e) {
+      partial = kinds[e] == PARTIAL;
+      pos = blocks[e] * block;
+      end = partial ? min(pos + block, hi) : pos + block;
+      if (pos < end) return;
+    }
+  }
+};
+
+struct Causal {
+  __device__ bool operator()(int q, int k) const { return k <= q; }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(fwd::Tiles<HD>::THREADS, 1)
+    splash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ o,
+                   float* __restrict__ lse, const int* __restrict__ offsets,
+                   const int* __restrict__ blocks,
+                   const int* __restrict__ kinds, int S, int H, int block) {
+  using C = fwd::Tiles<HD>;
+  constexpr int LD = C::LD;
+  constexpr int BN = fwd::BN;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  bf16* sq = C::q_tile(mma_smem);
+  bf16* ring = C::ring(mma_smem);   // STAGES slots of (K, V)
+
+  const int warp = threadIdx.x >> 5;
+  const int wr = warp % C::WR;                  // row strip
+  const int c0 = (warp / C::WR) * (HD / C::WC); // first O column
+  const int g = mma::frag_row(), fc = mma::frag_col();
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::BM;   // heaviest first
+  const int r0 = q0 + wr * 16;                  // the strip's first row
+  const int row = blockIdx.y;                   // b * H + h
+  const int b = row / H;
+  const int h = row - b * H;
+  const size_t step = (size_t)H * HD;           // between positions
+  const size_t off = (size_t)b * S * step + (size_t)h * HD;
+
+  auto slot_k = [&](int i) { return ring + (i % C::STAGES) * 2 * BN * LD; };
+  auto fill = [&](int i, int k0) {
+    bf16* sk = slot_k(i);
+    mma::load_tile<BN, HD, C::THREADS>(sk, k + off + k0 * step, step);
+    mma::load_tile<BN, HD, C::THREADS>(sk + BN * LD, v + off + k0 * step,
+                                       step);
+  };
+
+  // Q is its own commit group, ahead of the ring's
+  mma::load_tile<C::BM, HD, C::THREADS>(sq, q + off + q0 * step, step);
+  mma::commit();
+  // keys past the query tile's last row are masked out: not read
+  Walk walk(offsets, blocks, kinds, q0 / block, block, q0 + C::BM);
+  Walk ahead = walk;
+#pragma unroll
+  for (int s = 0; s < C::STAGES - 1; ++s) {
+    if (!ahead.done()) {
+      fill(s, ahead.pos);
+      ahead.next();
+    }
+    mma::commit();
+  }
+  mma::wait_newest<C::STAGES - 1>();
+  __syncthreads();
+  const fwd::QFrags<HD, C::Q_IN_REGISTERS> qf(sq, wr * 16);
+  fwd::Strip<C::N8> st(MASK_VALUE);
+
+  for (int i = 0; !walk.done(); ++i, walk.next()) {
+    mma::ring_wait<C::STAGES>();
+    if (!ahead.done()) {
+      fill(i + C::STAGES - 1, ahead.pos);
+      ahead.next();
+    }
+    mma::commit();
+    const bf16* sk = slot_k(i);
+    const int k0 = walk.pos;
+    if (walk.partial && k0 > r0 + 15) continue;   // past its rows
+    if (walk.partial && k0 + BN - 1 > r0)         // its diagonal
+      fwd::tile<true, HD>(st, qf, sk, sk + BN * LD, c0, fwd::LOG2E, r0 + g,
+                          k0 + fc, Causal{});
+    else
+      fwd::tile<false, HD>(st, qf, sk, sk + BN * LD, c0, fwd::LOG2E, r0 + g,
+                           k0 + fc, Causal{});
+  }
+
+  st.finish();
+  mma::store_acc<C::N8>(o + off + (size_t)r0 * step + c0, step, st.o);
+  if (lse != nullptr && c0 == 0 && fc == 0) {
+    lse[(size_t)row * S + r0 + g] = st.m[0] + logf(st.l[0]);
+    lse[(size_t)row * S + r0 + g + 8] = st.m[1] + logf(st.l[1]);
+  }
+}
+
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, const int* offsets, const int* blocks,
@@ -239,6 +372,35 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
   return -1;
 }
 
+template <int HD>
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, const int* offsets, const int* blocks,
+               const int* kinds, int B, int S, int H, int block,
+               cudaStream_t stream) {
+  using C = fwd::Tiles<HD>;
+  if (block % C::BM) return -1;
+  cudaError_t err = cudaFuncSetAttribute(
+      splash_fwd_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)C::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(S / C::BM, B * H);
+  splash_fwd_mma<HD><<<grid, C::THREADS, C::SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, offsets,
+      blocks, kinds, S, H, block);
+  return cudaGetLastError();
+}
+
+// cp.async copies 16-byte chunks: every bf16 tensor and row must start
+// 16-byte aligned, as a tensor from the caching allocator does
+bool misaligned(const void* q, const void* k, const void* v, const void* o,
+                int H, int hd) {
+  const void* ptrs[] = {q, k, v, o};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return true;
+  return (size_t)H * hd * sizeof(bf16) % 16 != 0;
+}
+
 }  // namespace
 
 // q (pre-scaled), k, v, o: (B, S, H, hd); lse: null, or fp32 (B, H, S);
@@ -257,9 +419,16 @@ extern "C" int tpushare_splash_fwd(const void* q, const void* k,
   const int* off = static_cast<const int*>(offsets);
   const int* blk = static_cast<const int*>(blocks);
   const int* kd = static_cast<const int*>(kinds);
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, l, off, blk, kd, B, S, H, hd,
-                                   block, st);
+  if (is_bf16) {
+    if (misaligned(q, k, v, o, H, hd)) return cudaErrorMisalignedAddress;
+    switch (hd) {
+      case 128: return launch_mma<128>(q, k, v, o, l, off, blk, kd, B, S, H,
+                                       block, st);
+      case 256: return launch_mma<256>(q, k, v, o, l, off, blk, kd, B, S, H,
+                                       block, st);
+    }
+    return -1;
+  }
   return dispatch<float>(q, k, v, o, l, off, blk, kd, B, S, H, hd, block,
                          st);
 }
