@@ -329,35 +329,49 @@ def flash_cases(torch):
 # flash backward (K2 dQ, K3 dK/dV) against its plain twin
 # ---------------------------------------------------------------------------
 
+BWD_CASES = [  # (label, B, S, H, Hkv, hd, dtype, causal, window)
+    ("main-path", TRAIN_B, TRAIN_S, 16, 16, 96, "bfloat16", True, None),
+    ("gqa-16:4", TRAIN_B, TRAIN_S, 16, 4, 96, "bfloat16", True, None),
+    ("window-256", TRAIN_B, TRAIN_S, 16, 16, 96, "bfloat16", True, 256),
+    ("train-remat", TRAIN_B, 2 * TRAIN_S, 16, 16, 96, "bfloat16", True,
+     None),
+    ("full", 2, TRAIN_S, 16, 16, 96, "bfloat16", False, None),
+    ("f32", 2, TRAIN_S, 16, 16, 96, "float32", True, None),
+    ("odd-S", 2, 300, 16, 16, 96, "bfloat16", True, None),
+    ("payload-hd16", 8, 64, 8, 8, 16, "bfloat16", True, None),
+    # the flagship's heads (16 x 128), trained through flash below S=4096
+    ("hd128", 2, 2 * TRAIN_S, 16, 16, 128, "bfloat16", True, None),
+]
+
+
+def bwd_inputs(torch, gen, B, S, H, Hkv, hd, dtype):
+    """q, k, v, dO of one flash backward case on the card, from
+    ``gen``."""
+    dt = getattr(torch, dtype)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+    return rn(B, S, H, hd), rn(B, S, Hkv, hd), rn(B, S, Hkv, hd), \
+        rn(B, S, H, hd)
+
+
 def bwd_cases(torch):
     """dQ and dK/dV kernels against ``flash_attention_bwd_plain`` (both
     fed the kernel forward's o and lse) and against autograd through
-    ``flash_attention_plain``; times each kernel alone, the plain
-    backward, and SDPA's backward as the library yardstick."""
+    ``flash_attention_plain``, at ``BWD_TOL`` of each gradient's scale
+    (the bf16 kernels sum on tensor cores, P and dS as two bf16 halves,
+    in another order than the twin); times each kernel alone, the plain
+    backward, and SDPA's backward as the library yardstick, with each
+    kernel's rate on the live pairs, its time over its bound, and the
+    pair's time over SDPA's backward."""
     from tpushare_torch.workloads.ops.attention import (
         bwd_delta, flash_attention_bwd_plain, flash_attention_fwd,
         flash_attention_plain, flash_bwd_dkv, flash_bwd_dq)
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(5)
-    cases = [  # (label, B, S, H, Hkv, hd, dtype, causal, window)
-        ("main-path", TRAIN_B, TRAIN_S, 16, 16, 96, "bfloat16", True, None),
-        ("gqa-16:4", TRAIN_B, TRAIN_S, 16, 4, 96, "bfloat16", True, None),
-        ("window-256", TRAIN_B, TRAIN_S, 16, 16, 96, "bfloat16", True, 256),
-        ("train-remat", TRAIN_B, 2 * TRAIN_S, 16, 16, 96, "bfloat16", True,
-         None),
-        ("full", 2, TRAIN_S, 16, 16, 96, "bfloat16", False, None),
-        ("f32", 2, TRAIN_S, 16, 16, 96, "float32", True, None),
-        ("odd-S", 2, 300, 16, 16, 96, "bfloat16", True, None),
-        ("payload-hd16", 8, 64, 8, 8, 16, "bfloat16", True, None),
-    ]
     rows = []
-    for label, B, S, H, Hkv, hd, dtype, causal, window in cases:
-        dt = getattr(torch, dtype)
-
-        def rn(*shape):
-            return torch.randn(shape, generator=gen, device="cuda").to(dt)
-        q, k, v, do = rn(B, S, H, hd), rn(B, S, Hkv, hd), rn(B, S, Hkv, hd), \
-            rn(B, S, H, hd)
+    for label, B, S, H, Hkv, hd, dtype, causal, window in BWD_CASES:
+        q, k, v, do = bwd_inputs(torch, gen, B, S, H, Hkv, hd, dtype)
         o, lse = flash_attention_fwd(q, k, v, causal, window, with_lse=True)
         delta = bwd_delta(do, o)
 
@@ -425,6 +439,13 @@ def bwd_cases(torch):
         # dv; five products at the least
         bwd_b = bound_ms(4 * q_bytes + 4 * kv_bytes + stat_bytes,
                          5 * product, dtype)
+        # each kernel's rate on the live pairs, its time over its bound,
+        # and the pair's time over SDPA's backward
+        rates = dict(dq_tflops=3 * product / (dq_ms * 1e-3) / 1e12,
+                     dkv_tflops=4 * product / (dkv_ms * 1e-3) / 1e12,
+                     dq_over_bound=dq_ms / dq_b[0],
+                     dkv_over_bound=dkv_ms / dkv_b[0],
+                     pair_over_library=(dq_ms + dkv_ms) / sdpa_bwd_ms)
         row = dict(case=label, B=B, S=S, H=H, Hkv=Hkv, hd=hd, dtype=dtype,
                    causal=causal, window=window, tol=tol,
                    dq_rel_err=errs["dq"][0], dk_rel_err=errs["dk"][0],
@@ -436,7 +457,7 @@ def bwd_cases(torch):
                    library_ms=sdpa_bwd_ms, dq_bound_ms=dq_b[0],
                    dq_bound_by=dq_b[1], dkv_bound_ms=dkv_b[0],
                    dkv_bound_by=dkv_b[1], bwd_bound_ms=bwd_b[0],
-                   bwd_bound_by=bwd_b[1], **controls)
+                   bwd_bound_by=bwd_b[1], **rates, **controls)
         phase("flash-bwd-vs-plain", **row)
         rows.append(row)
     return rows

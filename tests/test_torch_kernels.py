@@ -139,6 +139,11 @@ BWD_CASES = [  # B, S, H, Hkv, hd, dtype, causal, window
     (2, 200, 4, 2, 16, "float32", True, 48),        # window, payload hd
     (1, 130, 4, 1, 32, "float32", False, None),     # full attention
     (2, 256, 8, 2, 128, "bfloat16", True, 100),
+    (4, 77, 8, 8, 16, "bfloat16", True, None),      # payload hd, S = 77
+    (2, 200, 4, 2, 32, "bfloat16", True, 48),       # window, hd 32
+    (2, 77, 4, 1, 64, "bfloat16", False, None),     # full, GQA 4:1, S = 77
+    (2, 300, 8, 2, 96, "bfloat16", False, None),    # full, partial tile
+    (1, 1024, 16, 4, 96, "bfloat16", True, None),   # train heads, GQA 16:4
 ]
 
 
@@ -167,6 +172,31 @@ def test_flash_backward_kernels_match_plain(B, S, H, Hkv, hd, dtype, causal,
         scale = max(1.0, w.float().abs().max().item())
         torch.testing.assert_close(g.float(), w.float(),
                                    atol=TOL[dtype] * scale, rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,hd,dtype,causal,window",
+                         [c for c in BWD_CASES if c[5] == "bfloat16"])
+def test_flash_backward_kernels_are_deterministic(B, S, H, Hkv, hd, dtype,
+                                                  causal, window):
+    """No atomics and a fixed order of sums, the GQA group's included: two
+    launches on the same inputs give the same bits."""
+    dev, dt = card(), getattr(torch, dtype)
+    rng = np.random.default_rng(18)
+    q, do = (randn(rng, (B, S, H, hd), dt, dev) for _ in range(2))
+    k, v = (randn(rng, (B, S, Hkv, hd), dt, dev) for _ in range(2))
+    o, lse = attention.flash_attention_fwd(q, k, v, causal, window,
+                                           with_lse=True)
+    delta = attention.bwd_delta(do, o)
+
+    def launch():
+        return (attention.flash_bwd_dq(q, k, v, do, lse, delta, causal,
+                                       window),
+                *attention.flash_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                         window))
+    first, second = launch(), launch()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -604,6 +634,26 @@ def test_bf16_forwards_refuse_a_misaligned_tensor():
         attention.flash_attention_fwd(off, ok, ok)
     with pytest.raises(RuntimeError, match="misaligned"):
         sa.splash_fwd(ok, off, ok)
+
+
+@pytest.mark.cuda
+def test_bf16_backwards_refuse_a_misaligned_tensor():
+    """The flash backward's bf16 kernels read 16-byte chunks too: a view
+    that starts 2 bytes off is refused by the dQ and the dK/dV kernel
+    alike, not run or sent to a twin."""
+    dev = card()
+    B, S, H, hd = 2, 256, 2, 128
+    buf = torch.zeros(B * S * H * hd + 1, dtype=torch.bfloat16, device=dev)
+    off = buf[1:].view(B, S, H, hd)
+    ok = torch.zeros_like(off)
+    stat = torch.zeros((B, H, S), dtype=torch.float32, device=dev)
+    before = dict(build.LAUNCHES)
+    for args in ((off, ok, ok, ok), (ok, ok, ok, off)):
+        with pytest.raises(RuntimeError, match="misaligned"):
+            attention.flash_bwd_dq(*args, stat, stat)
+        with pytest.raises(RuntimeError, match="misaligned"):
+            attention.flash_bwd_dkv(*args, stat, stat)
+    assert build.LAUNCHES == before
 
 
 # ---------------------------------------------------------------------------

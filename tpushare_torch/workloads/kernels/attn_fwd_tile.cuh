@@ -46,16 +46,10 @@ namespace fwd {
 
 using mma::bf16;
 
-constexpr int BN = 64;   // keys per tile
-constexpr float LOG2E = 1.4426950408889634f;
+using mma::ex2;
+using mma::LOG2E;
 
-// 2^x on the SFU, subnormal results flushed to 0: for P, where a term
-// below 2^-126 of the row max adds nothing to an fp32 sum that holds 1
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+constexpr int BN = 64;   // keys per tile
 
 // The tiles of a forward kernel at head dim HD. A warp owns a 16-row
 // strip; up to hd 128 it holds all of O's columns (64 fp32 registers at

@@ -1,7 +1,8 @@
 // The tensor-core tile loop for Hopper (sm_90a), for kernel sources that
 // compute on bf16 tiles: warp-level mma.sync products with fp32
 // accumulators, operands read from shared memory with ldmatrix, tiles
-// filled by a cp.async ring.
+// (and the row statistics beside them) filled by a cp.async ring, and
+// the SFU's exp2 for the probabilities between two products.
 //
 // Shared-memory layout. A tile is ROWS rows of COLS bf16 values, each row
 // padded by 16 bytes: ld<COLS>() = COLS + 8 elements a row. For 128- and
@@ -132,6 +133,33 @@ __device__ __forceinline__ void load_f32(float* dst, const float* src) {
   static_assert(N % 4 == 0, "whole 16-byte chunks");
   for (int i = threadIdx.x; i < N / 4; i += THREADS)
     cp_async_16(dst + 4 * i, src + 4 * i);
+}
+
+// Start the copy of N fp32 values, one cp.async of 4 bytes each, so src
+// need only be 4-byte aligned (a row statistic at any offset): values at
+// or past n are zero-filled and read nothing (n <= 0: all zero).
+template <int N, int THREADS>
+__device__ __forceinline__ void load_f32_rows(float* dst, const float* src,
+                                              int n) {
+  for (int i = threadIdx.x; i < N; i += THREADS) {
+    const bool live = i < n;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(dst + i)),
+                 "l"(src + (live ? i : 0)), "r"(live ? 4 : 0)
+                 : "memory");
+  }
+}
+
+// ---- elementwise ----------------------------------------------------------
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x on the SFU, subnormal results flushed to 0: for a probability, where
+// a term below 2^-126 adds nothing to an fp32 sum of order 1
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---- fragments ------------------------------------------------------------
