@@ -783,6 +783,17 @@ def ragged_inputs(torch, gen, label, B, S, H, Hkv, dtype, int8=False):
     return q, k.to(dt), v.to(dt), lens
 
 
+def ragged_split(torch, B, S, Hkv, lens) -> dict:
+    """How K4 cuts a case: rows per pass-1 CTA, pass 1's grid (chunks x
+    kv heads x slots, dead chunks included) and the longest slot's live
+    rows."""
+    from tpushare_torch.workloads.ops.ragged_decode import (CHUNK_ROWS,
+                                                            n_chunks)
+    return dict(chunk_rows=CHUNK_ROWS, ctas=n_chunks(S) * Hkv * B,
+                longest_slot_rows=int((lens.long() + 1).clamp(max=S)
+                                      .max().item()))
+
+
 def ragged_cases(torch):
     """K4 against ``ragged_decode_plain`` at the ``serve --ragged`` shape
     and at long caches (element by element, with a rounding control),
@@ -831,6 +842,7 @@ def ragged_cases(torch):
         n_bytes = kv_bytes + 2 * q.numel() * elem + 4 * B
         bms, by = bound_ms(n_bytes, 4 * H * hd * live, dtype)
         row = dict(case=label, B=B, S=S, H=H, Hkv=Hkv, hd=hd, dtype=dtype,
+                   **ragged_split(torch, B, S, Hkv, lens),
                    live_rows=live, fill=live / (B * S), live_kv_bytes=kv_bytes,
                    max_abs_err=max_err(got, want), rel_err=rel, tol=tol,
                    control_rel_err_b6=control, ms=ms, plain_ms=plain_ms,
@@ -981,6 +993,7 @@ def ragged_int8_cases(torch):
             + 2 * q.numel() * q.element_size() + 4 * B
         bms, by = bound_ms(n_bytes, 4 * H * hd * live, dtype)
         row = dict(case=label, B=B, S=S, H=H, Hkv=Hkv, hd=hd, dtype=dtype,
+                   **ragged_split(torch, B, S, Hkv, lens),
                    live_rows=live, fill=live / (B * S),
                    live_kv_bytes=int8_rows_bytes(live, Hkv, hd), **checked,
                    ms=ms, plain_ms=plain_ms,

@@ -396,6 +396,128 @@ def test_int8_wrappers_reject_what_the_rungs_cannot_take():
 
 
 # ---------------------------------------------------------------------------
+# the ragged read's split: chunk edges, stragglers, determinism, counts
+# ---------------------------------------------------------------------------
+
+# the smoke's element-wise limits for the ragged rows (FWD_TOL)
+RAGGED_ELEM_TOL = {"bfloat16": 1e-2, "float32": 1e-3}
+
+
+def ragged_case(rng, dev, dtype, S, H, Hkv, lengths, int8):
+    """q (B, H, 128) and (B, S, Hkv, 128) caches of ``dtype`` (int8
+    ``{q, s}`` leaves with ``int8``), B = len(lengths)."""
+    B = len(lengths)
+    q = randn(rng, (B, H, 128), getattr(torch, dtype), dev)
+    if int8:
+        k, v = (int8_leaf(rng, (B, S, Hkv, 128), dev) for _ in range(2))
+    else:
+        k, v = (randn(rng, (B, S, Hkv, 128), getattr(torch, dtype), dev)
+                for _ in range(2))
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def assert_ragged_close(got, want, dtype, int8):
+    if int8:
+        assert_int8_rung_close(got, want, dtype)
+        return
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert elem_share(got, want) <= RAGGED_ELEM_TOL[dtype]
+
+
+def slot(leaf, b):
+    """Slot b of a cache leaf, kept as a batch of one."""
+    if isinstance(leaf, dict):
+        return {p: x[b:b + 1].contiguous() for p, x in leaf.items()}
+    return leaf[b:b + 1].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("dtype,H,Hkv", [("bfloat16", 16, 16),
+                                         ("bfloat16", 16, 4),
+                                         ("bfloat16", 16, 2),
+                                         ("float32", 8, 1)])
+def test_ragged_rungs_at_the_chunk_edges(dtype, H, Hkv, int8):
+    """Live rows ending just inside, at and just past a chunk boundary
+    (lengths are inclusive: length C - 1 is one full chunk), against the
+    twin; every group size, so both lane layouts of the int8 rung."""
+    from tpushare_torch.workloads.ops import ragged_decode
+    dev = card()
+    C = ragged_decode.CHUNK_ROWS
+    S = 4 * C
+    lengths = [0, C - 2, C - 1, C, C + 1, 2 * C - 1, 3 * C, S - 1]
+    q, k, v, lens = ragged_case(np.random.default_rng(40), dev, dtype, S, H,
+                                Hkv, lengths, int8)
+    got = ragged_decode.ragged_decode_attention(q, k, v, lens)
+    assert_ragged_close(got, ragged_decode.ragged_decode_plain(q, k, v, lens),
+                        dtype, int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["dense", "int8"])
+def test_ragged_straggler_slot_is_read_whole_and_alone(int8):
+    """One slot at S - 1 and the others short, at S=4096 with GQA 16:4:
+    the batch matches the twin, and each slot's output equals, bit for
+    bit, that slot read alone — no slot depends on its neighbours."""
+    from tpushare_torch.workloads.ops import ragged_decode
+    dev = card()
+    rng = np.random.default_rng(41)
+    S = 4096
+    lengths = [0, S - 1, *rng.integers(1, 400, size=6).tolist()]
+    q, k, v, lens = ragged_case(rng, dev, "bfloat16", S, 16, 4, lengths,
+                                int8)
+    got = ragged_decode.ragged_decode_attention(q, k, v, lens)
+    assert_ragged_close(got, ragged_decode.ragged_decode_plain(q, k, v, lens),
+                        "bfloat16", int8)
+    for b in range(len(lengths)):
+        alone = ragged_decode.ragged_decode_attention(
+            q[b:b + 1].contiguous(), slot(k, b), slot(v, b), lens[b:b + 1])
+        assert torch.equal(got[b:b + 1], alone), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("dtype,H,Hkv", [("bfloat16", 16, 4),
+                                         ("float32", 16, 16)])
+def test_ragged_rungs_are_deterministic(dtype, H, Hkv, int8):
+    """No atomics, a fixed order in every sum: two launches on the same
+    inputs give the same bits."""
+    from tpushare_torch.workloads.ops import ragged_decode
+    dev = card()
+    S = 2048
+    lengths = [S - 1, 0, 700, 1500]
+    q, k, v, lens = ragged_case(np.random.default_rng(42), dev, dtype, S, H,
+                                Hkv, lengths, int8)
+    first = ragged_decode.ragged_decode_attention(q, k, v, lens)
+    second = ragged_decode.ragged_decode_attention(q, k, v, lens)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["dense", "int8"])
+def test_one_ragged_call_counts_one_launch(int8):
+    """One wrapper call adds exactly one to its counter and nothing to
+    any other, with the combine (many chunks) and without it (one chunk
+    covers S); the one-chunk output equals the combine's bit for bit."""
+    from tpushare_torch.workloads.ops import ragged_decode
+    dev = card()
+    C = ragged_decode.CHUNK_ROWS
+    name = "ragged_decode_int8" if int8 else "ragged_decode"
+    lengths = [0, C // 2, C - 1]
+    q, k, v, lens = ragged_case(np.random.default_rng(43), dev, "bfloat16",
+                                4 * C, 16, 4, lengths, int8)
+    outs = []
+    for S in (C, 4 * C):
+        kS, vS = ({p: x[:, :S].contiguous() for p, x in leaf.items()}
+                  if int8 else leaf[:, :S].contiguous() for leaf in (k, v))
+        before = dict(build.LAUNCHES)
+        outs.append(ragged_decode.ragged_decode_attention(q, kS, vS, lens))
+        assert build.LAUNCHES == {**before, name: before[name] + 1}
+    assert torch.equal(outs[0], outs[1])
+
+
+# ---------------------------------------------------------------------------
 # splash (K6-fwd, K6-dq, K6-dkv)
 # ---------------------------------------------------------------------------
 

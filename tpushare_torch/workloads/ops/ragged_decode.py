@@ -8,9 +8,12 @@ rows but still reads them. This read scales with each slot's live
 length instead.
 
 - ``ragged_decode_attention`` wraps ``kernels/ragged_decode.cu``, the
-  Hopper counterpart of the reference's Pallas ``_kernel``: its row loop
-  stops at each slot's length, so dead rows are never loaded and the
-  result does not depend on the allocated S.
+  Hopper counterpart of the reference's Pallas ``_kernel``: a split-row
+  read — one CTA per ``CHUNK_ROWS`` rows of a slot and kv head writes
+  that chunk's fp32 softmax state, and a second kernel combines a
+  slot's live chunks in index order. A chunk past a slot's length exits
+  before any load, so dead rows are never read, and the chunks' bounds
+  do not depend on the allocated S, so neither does the result.
 - ``ragged_decode_plain`` is the twin, the per-row branch of the
   reference's ``make_cached_attn_core`` op for op — what CPU tensors
   get.
@@ -36,6 +39,13 @@ from tpushare_torch.workloads.kernels import build
 KERNEL_HEAD_DIM = 128
 KERNEL_GROUPS = (1, 2, 4, 8)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+# rows a pass-1 CTA reads: ``CHUNK`` in kernels/ragged_decode.cu
+CHUNK_ROWS = 512
+
+
+def n_chunks(S: int) -> int:
+    """Pass 1's chunks over an S-row cache (its grid's first axis)."""
+    return -(-S // CHUNK_ROWS)
 
 
 def _layer_views(k, v, layer):
@@ -125,10 +135,16 @@ def ragged_decode_attention(q: torch.Tensor, k, v, lengths: torch.Tensor,
     out = torch.empty_like(q)
     lib = build.library("ragged_decode")
     ks, vs = (k["s"].data_ptr(), v["s"].data_ptr()) if int8 else (None, None)
+    chunks = n_chunks(S)
+    # the chunks' fp32 partials: acc (hd floats) and (m, l) per chunk and
+    # query head; one chunk writes the output directly
+    ws = (torch.empty(B * H * chunks * (hd + 2), dtype=torch.float32,
+                      device=q.device) if chunks > 1 else None)
     with torch.cuda.device(q.device):
         rc = lib.tpushare_ragged_decode(
             q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks, vs,
-            lengths.data_ptr(), out.data_ptr(), B, S, H, Hkv, hd,
+            lengths.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), chunks, B, S, H, Hkv, hd,
             int(q.dtype == torch.bfloat16), int(int8), hd ** -0.5,
             torch.cuda.current_stream().cuda_stream)
     name = "ragged_decode_int8" if int8 else "ragged_decode"
