@@ -81,7 +81,12 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # paged kernel vs plain twin: bf16 outputs round once at the end of a
-# tiled online softmax vs an einsum/softmax chain; fp32 only reorders sums
+# tiled online softmax vs an einsum/softmax chain; fp32 only reorders sums.
+# The paged rows are then also held element by element at FWD_TOL, with
+# the rounding control below and, where a lane spans more than one chunk,
+# the twin without that lane's first chunk as a second control: a long
+# lane's |o| lies below TOL's absolute term, so only the element-wise
+# check can tell a kernel that drops a chunk.
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # flash and splash forwards vs plain twin, element by element as a share
 # of max(|want|, FWD_FLOOR x the output's largest magnitude). The twin
@@ -661,21 +666,25 @@ def splash_bwd_cases(torch):
 # phase 3: paged kernel against its plain twin
 # ---------------------------------------------------------------------------
 
-PAGED_CASES = [  # (label, B, H, Hkv, hd, ps, table width, max kv_len, dtype)
-    ("main-path", 8, 16, 16, 128, 32, 8, 256, "bfloat16"),
-    ("flagship-2k", 8, 16, 16, 128, 32, 64, 2048, "bfloat16"),
-    ("flagship-2k", 8, 16, 16, 128, 32, 64, 2048, "float32"),
-    ("gqa-2k", 8, 16, 4, 128, 32, 64, 2048, "bfloat16"),
+PAGED_CASES = [  # (label, B, H, Hkv, hd, ps, table width, max kv_len,
+    #              short lanes' top kv_len or None, dtype)
+    ("main-path", 8, 16, 16, 128, 32, 8, 256, None, "bfloat16"),
+    ("flagship-2k", 8, 16, 16, 128, 32, 64, 2048, None, "bfloat16"),
+    ("flagship-2k", 8, 16, 16, 128, 32, 64, 2048, None, "float32"),
+    ("gqa-2k", 8, 16, 4, 128, 32, 64, 2048, None, "bfloat16"),
+    # a long-context request among short ones in one paged engine
+    ("straggler-16k", 8, 16, 16, 128, 32, 512, 16384, 1024, "bfloat16"),
 ]
 
 
-def paged_inputs(torch, gen, B, H, Hkv, hd, ps, P, max_len, dtype,
-                 int8=False):
+def paged_inputs(torch, gen, B, H, Hkv, hd, ps, P, max_len, short_max,
+                 dtype, int8=False):
     """One paged-read case on the card from ``gen``: q (B, H, hd); the K
     and V pools (B·P + 1 pages of ``dtype``, or ``{q, s}`` int8 pools
     quantized from the same fp32 draws); tables of distinct pages with
     lane 1's first P/2 entries aliased onto lane 0's (a shared prefix);
-    kv_lens in (max_len/2, max_len]."""
+    kv_lens in (max_len/2, max_len], or, where ``short_max`` is given,
+    lane 0 at max_len and the others in [1, short_max]."""
     dt = getattr(torch, dtype)
     n_pages = B * P + 1
 
@@ -685,8 +694,14 @@ def paged_inputs(torch, gen, B, H, Hkv, hd, ps, P, max_len, dtype,
     tables = (torch.randperm(n_pages - 1, generator=gen, device="cuda")
               [:B * P].reshape(B, P) + 1).to(torch.int32)
     tables[1, :P // 2] = tables[0, :P // 2]     # aliased prefix pages
-    kv_lens = torch.randint(max_len // 2 + 1, max_len + 1, (B,),
-                            generator=gen, device="cuda", dtype=torch.int32)
+    if short_max is not None:
+        kv_lens = torch.randint(1, short_max + 1, (B,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+        kv_lens[0] = max_len
+    else:
+        kv_lens = torch.randint(max_len // 2 + 1, max_len + 1, (B,),
+                                generator=gen, device="cuda",
+                                dtype=torch.int32)
     q1 = rn(B, H, hd).to(dt)
     if int8:
         from tpushare_torch.workloads.decode import kv_quantize
@@ -703,23 +718,139 @@ def paged_unique_rows(torch, tables, kv_lens, ps: int) -> int:
     return int(torch.unique(rows[r[None, :] < kv_lens[:, None]]).numel())
 
 
+def paged_split(torch, tables, kv_lens, ps: int, Hkv: int) -> dict:
+    """How K5 cuts a case: rows per pass-1 CTA, pass 1's grid (chunks x
+    kv heads x lanes, dead chunks included) and the longest lane's live
+    rows."""
+    from tpushare_torch.workloads.ops.paged_attention import (CHUNK_ROWS,
+                                                              n_chunks)
+    B, P = tables.shape
+    return dict(chunk_rows=CHUNK_ROWS, ctas=n_chunks(P * ps) * Hkv * B,
+                longest_lane_rows=int(kv_lens.clamp(max=P * ps).max()
+                                      .item()))
+
+
+def check_paged(label, got, want, dtype) -> dict:
+    """K5 against its twin: TOL (absolute + relative), then element by
+    element at FWD_TOL, with the CONTROL_BITS_FWD-bit rounding control
+    that must fail the element-wise check."""
+    import torch
+    err = check_close(label, got, want, dtype)
+    tol = FWD_TOL[dtype]
+    rel = elem_rel_err(got, want)
+    control = elem_rel_err(round_to_bits(torch, got, CONTROL_BITS_FWD), want)
+    if not rel <= tol:
+        raise RuntimeError(f"{label}: {rel} of the value > {tol}")
+    if not control > tol:
+        raise RuntimeError(f"{label}: the {CONTROL_BITS_FWD}-bit control "
+                           "passes the check")
+    return {"max_abs_err": err, "tol": TOL[dtype], "rel_err": rel,
+            "rel_tol": tol, f"control_rel_err_b{CONTROL_BITS_FWD}": control}
+
+
+def paged_lost_chunk(torch, label, q1, kp, vp, tables, kv_lens, ps, Hkv,
+                     want, tol) -> dict:
+    """The control for a kernel that drops one chunk of a lane: the twin's
+    output with the longest lane's first CHUNK_ROWS rows left out (its
+    table moved on by CHUNK_ROWS / ps pages, its kv_len cut by
+    CHUNK_ROWS), which must miss the element-wise limit ``tol``. Empty
+    where that lane fits in one chunk."""
+    from tpushare_torch.workloads.ops.paged_attention import (CHUNK_ROWS,
+                                                              xla_paged_read)
+    P = tables.shape[1]
+    lens = kv_lens.clamp(max=P * ps)
+    b = int(lens.argmax().item())
+    if int(lens[b].item()) <= CHUNK_ROWS:
+        return {}
+    assert CHUNK_ROWS % ps == 0, (CHUNK_ROWS, ps)
+    shift = CHUNK_ROWS // ps
+    cut_tables, cut_lens = tables.clone(), lens.clone()
+    cut_tables[b, :P - shift] = tables[b, shift:]
+    cut_lens[b] -= CHUNK_ROWS
+    lost = elem_rel_err(xla_paged_read(q1[:, None], kp, vp, cut_tables,
+                                       cut_lens, q1.shape[1], Hkv)[:, 0],
+                        want)
+    if not lost > tol:
+        raise RuntimeError(f"{label}: the twin without lane {b}'s first "
+                           f"chunk passes the check ({lost} <= {tol})")
+    return {"control_rel_err_lost_chunk": lost}
+
+
+def gather_sdpa(torch, q1, kp, vp, tables, kv_lens):
+    """A reference point, not a library call for this function (none
+    reads a block-paged pool): ``gather_pages`` to a contiguous view in
+    the pool's dtype, then SDPA with a boolean mask."""
+    import torch.nn.functional as F
+    from tpushare_torch.workloads.ops.paged_attention import gather_pages
+    k, v = gather_pages(kp, tables), gather_pages(vp, tables)
+    mask = (torch.arange(k.shape[1], device="cuda")[None, :]
+            < kv_lens[:, None])[:, None, None, :]            # (B, 1, 1, R)
+    return F.scaled_dot_product_attention(
+        q1[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=k.shape[2] != q1.shape[1])[:, :, 0]
+
+
+def paged_bitwise_rows(torch, phase_name, q1, kp, vp, tables, kv_lens, ps):
+    """On the straggler case: the short lanes through the engine's
+    power-of-two table rung over their longest live lane (a column
+    slice) and through the whole table give the same bits; every lane
+    of the batch reads the same bits as that lane read alone (B = 1)."""
+    from tpushare_torch.workloads.ops.paged_attention import paged_decode
+    B, P = tables.shape
+    got = paged_decode(q1, kp, vp, tables, kv_lens)
+    short = kv_lens[1:]
+    width = 1 << (-(-int(short.max().item()) // ps) - 1).bit_length()
+    narrow = paged_decode(q1[1:], kp, vp, tables[1:, :width], short)
+    wide = paged_decode(q1[1:], kp, vp, tables[1:], short)
+    torch.cuda.synchronize()
+    if not (torch.equal(narrow, wide) and torch.equal(wide, got[1:])):
+        raise RuntimeError(f"{phase_name} narrow-wide: the short lanes "
+                           f"through {width} and {P} table pages differ "
+                           f"({max_err(narrow, wide)})")
+    phase(phase_name, case="narrow-wide", lanes=B - 1, narrow_pages=width,
+          wide_pages=P, bitwise_equal=True,
+          ms_narrow=time_ms(lambda: paged_decode(
+              q1[1:], kp, vp, tables[1:, :width], short)),
+          ms_wide=time_ms(lambda: paged_decode(q1[1:], kp, vp, tables[1:],
+                                               short)))
+    for b in range(B):
+        alone = paged_decode(q1[b:b + 1], kp, vp, tables[b:b + 1],
+                             kv_lens[b:b + 1])
+        torch.cuda.synchronize()
+        if not torch.equal(alone, got[b:b + 1]):
+            raise RuntimeError(f"{phase_name} straggler-alone: lane {b} "
+                               "read alone differs from the batch "
+                               f"({max_err(alone, got[b:b + 1])})")
+    phase(phase_name, case="straggler-alone", lanes=B,
+          longest_lane_rows=int(kv_lens.max().item()), bitwise_equal=True)
+
+
 def paged_cases(torch):
     from tpushare_torch.workloads.ops.paged_attention import (paged_decode,
                                                               xla_paged_read)
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
-    for label, B, H, Hkv, hd, ps, P, max_len, dtype in PAGED_CASES:
+    for label, B, H, Hkv, hd, ps, P, max_len, short_max, dtype in \
+            PAGED_CASES:
         q1, kp, vp, tables, kv_lens = paged_inputs(
-            torch, gen, B, H, Hkv, hd, ps, P, max_len, dtype)
+            torch, gen, B, H, Hkv, hd, ps, P, max_len, short_max, dtype)
         got = paged_decode(q1, kp, vp, tables, kv_lens)
         torch.cuda.synchronize()
 
         def plain():
             return xla_paged_read(q1[:, None], kp, vp, tables, kv_lens,
                                   H, Hkv)[:, 0]
-        err = check_close(f"paged {label} {dtype}", got, plain(), dtype)
+        want = plain()
+        what = f"paged {label} {dtype}"
+        checked = check_paged(what, got, want, dtype)
+        checked.update(paged_lost_chunk(torch, what, q1, kp, vp, tables,
+                                        kv_lens, ps, Hkv, want,
+                                        FWD_TOL[dtype]))
+        del want
         ms = time_ms(lambda: paged_decode(q1, kp, vp, tables, kv_lens))
         plain_ms = time_ms(plain)
+        gather_sdpa_ms = time_ms(lambda: gather_sdpa(torch, q1, kp, vp,
+                                                     tables, kv_lens))
         rows_read = int(kv_lens.sum().item())
         unique = paged_unique_rows(torch, tables, kv_lens, ps)
         elem = q1.element_size()
@@ -729,12 +860,20 @@ def paged_cases(torch):
         flops = 4 * H * hd * rows_read
         bms, by = bound_ms(n_bytes, flops, dtype)
         row = dict(case=label, B=B, H=H, Hkv=Hkv, hd=hd, ps=ps, P=P,
-                   dtype=dtype, kv_rows=rows_read, unique_kv_rows=unique,
-                   bytes_read=n_bytes, max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                   dtype=dtype, **paged_split(torch, tables, kv_lens, ps,
+                                              Hkv),
+                   kv_rows=rows_read, unique_kv_rows=unique,
+                   bytes_read=n_bytes, **checked, ms=ms,
+                   plain_ms=plain_ms, library_ms=None,
+                   gather_sdpa_ms=gather_sdpa_ms, bound_ms=bms,
                    bound_by=by, gb_per_s=n_bytes / (ms * 1e-3) / 1e9)
         phase("paged-vs-plain", **row)
         rows.append(row)
+        if short_max is not None:
+            paged_bitwise_rows(torch, "paged-vs-plain", q1, kp, vp, tables,
+                               kv_lens, ps)
+        del q1, kp, vp, got
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -911,10 +1050,12 @@ def paged_int8_cases(torch):
                                                               xla_paged_read)
     gen = torch.Generator(device="cuda").manual_seed(21)
     rows = []
-    for label, B, H, Hkv, hd, ps, P, max_len, dtype in PAGED_CASES:
+    for label, B, H, Hkv, hd, ps, P, max_len, short_max, dtype in \
+            PAGED_CASES:
         dt = getattr(torch, dtype)
         q1, kp, vp, tables, kv_lens = paged_inputs(
-            torch, gen, B, H, Hkv, hd, ps, P, max_len, dtype, int8=True)
+            torch, gen, B, H, Hkv, hd, ps, P, max_len, short_max, dtype,
+            int8=True)
 
         def kernel():
             return paged_decode(q1, kp, vp, tables, kv_lens)
@@ -924,12 +1065,19 @@ def paged_int8_cases(torch):
                                   H, Hkv)[:, 0]
         got, want = kernel(), plain()
         torch.cuda.synchronize()
-        checked = check_int8(f"paged-int8 {label} {dtype}", got, want, dtype)
+        what = f"paged-int8 {label} {dtype}"
+        checked = check_int8(what, got, want, dtype)
+        checked.update(paged_lost_chunk(torch, what, q1, kp, vp, tables,
+                                        kv_lens, ps, Hkv, want,
+                                        INT8_TOL[dtype]))
         kb, vb = kv_dequantize(kp, dt), kv_dequantize(vp, dt)
         ms = time_ms(kernel)
         plain_ms = time_ms(plain)
         bf16_rung_ms = time_ms(lambda: paged_decode(q1, kb, vb, tables,
                                                     kv_lens))
+        gather_sdpa_ms = time_ms(lambda: gather_sdpa(torch, q1, kb, vb,
+                                                     tables, kv_lens))
+        del kb, vb
         rows_read = int(kv_lens.sum().item())
         unique = paged_unique_rows(torch, tables, kv_lens, ps)
         elem = q1.element_size()
@@ -937,14 +1085,22 @@ def paged_int8_cases(torch):
             + 2 * q1.numel() * elem + tables.numel() * 4 + kv_lens.numel() * 4
         bms, by = bound_ms(n_bytes, 4 * H * hd * rows_read, dtype)
         row = dict(case=label, B=B, H=H, Hkv=Hkv, hd=hd, ps=ps, P=P,
-                   dtype=dtype, kv_rows=rows_read, unique_kv_rows=unique,
+                   dtype=dtype, **paged_split(torch, tables, kv_lens, ps,
+                                              Hkv),
+                   kv_rows=rows_read, unique_kv_rows=unique,
                    bytes_read=n_bytes,
                    **checked, ms=ms, plain_ms=plain_ms,
                    same_shape_dense_rung_ms=bf16_rung_ms, library_ms=None,
+                   gather_sdpa_on_dequantized_copy_ms=gather_sdpa_ms,
                    bound_ms=bms, bound_by=by,
                    gb_per_s=n_bytes / (ms * 1e-3) / 1e9)
         phase("paged-int8-vs-plain", **row)
         rows.append(row)
+        if short_max is not None:
+            paged_bitwise_rows(torch, "paged-int8-vs-plain", q1, kp, vp,
+                               tables, kv_lens, ps)
+        del q1, kp, vp, got, want
+        torch.cuda.empty_cache()
     return rows
 
 

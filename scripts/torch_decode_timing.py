@@ -63,13 +63,17 @@ def main() -> int:
                  time_ms(lambda: ragged_decode_attention(q, k, v, lens)))
             del k, v
             torch.cuda.empty_cache()
-    for label, B, H, Hkv, hd, ps, P, max_len, dtype in PAGED_CASES:
+    for label, B, H, Hkv, hd, ps, P, max_len, short_max, dtype in \
+            PAGED_CASES:
         for int8 in rungs:
             gen = torch.Generator(device="cuda").manual_seed(32)
             q1, k, v, tables, kv_lens = paged_inputs(
-                torch, gen, B, H, Hkv, hd, ps, P, max_len, dtype, int8)
+                torch, gen, B, H, Hkv, hd, ps, P, max_len, short_max, dtype,
+                int8)
             emit("paged_decode", label, dtype, int8,
                  time_ms(lambda: paged_decode(q1, k, v, tables, kv_lens)))
+            del q1, k, v
+            torch.cuda.empty_cache()
     return 0
 
 

@@ -518,6 +518,195 @@ def test_one_ragged_call_counts_one_launch(int8):
 
 
 # ---------------------------------------------------------------------------
+# the paged read's split: chunk edges, page sizes, stragglers, table
+# widths, determinism, counts, empty lanes
+# ---------------------------------------------------------------------------
+
+def paged_case(rng, dev, dtype, H, Hkv, hd, ps, P, lengths, int8):
+    """q1 (B, H, hd), K/V pools of distinct pages (int8 ``{q, s}``
+    leaves with ``int8``), (B, P) tables with lane 1's first half aliased
+    onto lane 0's, kv_lens; B = len(lengths)."""
+    B = len(lengths)
+    n_pages = B * P + 1
+    shape = (n_pages, ps, Hkv, hd)
+    if int8:
+        kp, vp = (int8_leaf(rng, shape, dev) for _ in range(2))
+    else:
+        kp, vp = (randn(rng, shape, getattr(torch, dtype), dev)
+                  for _ in range(2))
+    tables = rng.permutation(np.arange(1, n_pages))[:B * P].reshape(B, P)
+    tables[1, :P // 2] = tables[0, :P // 2]
+    tables = torch.from_numpy(tables.astype(np.int32)).to(dev)
+    q1 = randn(rng, (B, H, hd), getattr(torch, dtype), dev)
+    kv_lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q1, kp, vp, tables, kv_lens
+
+
+def paged_twin(q1, kp, vp, tables, kv_lens):
+    Hkv = (kp["q"] if isinstance(kp, dict) else kp).shape[2]
+    return paged_attention.xla_paged_read(q1[:, None], kp, vp, tables,
+                                          kv_lens, q1.shape[1], Hkv)[:, 0]
+
+
+def lane(leaf, b):
+    """Lane b of a per-lane tensor, kept as a batch of one."""
+    return leaf[b:b + 1].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("dtype,H,Hkv,hd", [
+    ("bfloat16", 16, 16, 128), ("float32", 8, 8, 64),      # G = 1
+    ("bfloat16", 16, 8, 64), ("float32", 8, 4, 128),       # G = 2
+    ("bfloat16", 16, 4, 128), ("bfloat16", 16, 4, 64),     # G = 4
+    ("float32", 16, 2, 128), ("bfloat16", 8, 1, 64),       # G = 8
+])
+def test_paged_rungs_at_the_chunk_edges(dtype, H, Hkv, hd, int8):
+    """Live rows ending just inside, at and just past a chunk boundary,
+    and the table's whole width, against the twin: every group size and
+    both head dims, so every lane layout of both rungs."""
+    dev = card()
+    C, ps = paged_attention.CHUNK_ROWS, 16
+    P = 3 * C // ps
+    lengths = [1, C - 1, C, C + 1, 2 * C - 1, 2 * C + 1, P * ps, 7]
+    case = paged_case(np.random.default_rng(50), dev, dtype, H, Hkv, hd, ps,
+                      P, lengths, int8)
+    got = paged_attention.paged_decode(*case)
+    assert_ragged_close(got, paged_twin(*case), dtype, int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("ps", [16, 32, 24, 1, 1024])
+def test_paged_rungs_at_any_page_size(ps, int8):
+    """Page sizes that divide the chunk and ones that do not (a chunk
+    then starts mid-page), down to one row a page and up to pages longer
+    than a chunk, with lane 1's first pages aliased onto lane 0's."""
+    dev = card()
+    C = paged_attention.CHUNK_ROWS
+    P = -(-(2 * C + 5) // ps)
+    lengths = [P * ps, C + 1, C, 3, C - 1, 2 * C + 5]
+    case = paged_case(np.random.default_rng(51), dev, "bfloat16", 16, 4,
+                      128, ps, P, lengths, int8)
+    got = paged_attention.paged_decode(*case)
+    assert_ragged_close(got, paged_twin(*case), "bfloat16", int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["dense", "int8"])
+def test_paged_straggler_lane_is_read_whole_and_alone(int8):
+    """One lane at 16384 rows among short ones: the batch matches the
+    twin, and each lane's output equals, bit for bit, that lane read
+    alone (B = 1) through its own table row — no lane depends on its
+    neighbours."""
+    dev = card()
+    rng = np.random.default_rng(52)
+    ps, P = 32, 512
+    lengths = [P * ps, *rng.integers(1, 1024, size=7).tolist()]
+    q1, kp, vp, tables, kv_lens = paged_case(rng, dev, "bfloat16", 16, 4,
+                                             128, ps, P, lengths, int8)
+    got = paged_attention.paged_decode(q1, kp, vp, tables, kv_lens)
+    assert_ragged_close(got, paged_twin(q1, kp, vp, tables, kv_lens),
+                        "bfloat16", int8)
+    for b in range(len(lengths)):
+        alone = paged_attention.paged_decode(lane(q1, b), kp, vp,
+                                             lane(tables, b),
+                                             lane(kv_lens, b))
+        assert torch.equal(got[b:b + 1], alone), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("dtype,H,Hkv,hd", [("bfloat16", 16, 16, 128),
+                                            ("float32", 8, 1, 64)])
+def test_paged_narrow_and_wide_tables_read_the_same_bits(dtype, H, Hkv, hd,
+                                                         int8):
+    """The engine narrows the table to a power-of-two rung over the
+    longest live lane (a column slice, its row stride the wide table's):
+    the same lanes read through the narrow rung, a contiguous copy of it
+    and the whole table give bitwise-equal outputs, one chunk or many."""
+    dev = card()
+    C, ps = paged_attention.CHUNK_ROWS, 32
+    P = 4 * C // ps
+    lengths = [C + 1, 1, C, 2 * C - 3, 5, C - 1]
+    q1, kp, vp, tables, kv_lens = paged_case(
+        np.random.default_rng(53), dev, dtype, H, Hkv, hd, ps, P, lengths,
+        int8)
+    wide = paged_attention.paged_decode(q1, kp, vp, tables, kv_lens)
+    assert_ragged_close(wide, paged_twin(q1, kp, vp, tables, kv_lens),
+                        dtype, int8)
+    for width in (2 * C // ps, 3 * C // ps):
+        narrow = tables[:, :width]
+        assert torch.equal(paged_attention.paged_decode(
+            q1, kp, vp, narrow, kv_lens), wide), width
+        assert torch.equal(paged_attention.paged_decode(
+            q1, kp, vp, narrow.contiguous(), kv_lens), wide), width
+    # lanes of at most one chunk, through a one-chunk table (pass 1
+    # writes o, no combine) and the wide one (the combine of one chunk)
+    short = kv_lens.clamp(max=C)
+    assert torch.equal(
+        paged_attention.paged_decode(q1, kp, vp, tables[:, :C // ps], short),
+        paged_attention.paged_decode(q1, kp, vp, tables, short))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("dtype,H,Hkv", [("bfloat16", 16, 4),
+                                         ("float32", 16, 16)])
+def test_paged_rungs_are_deterministic(dtype, H, Hkv, int8):
+    """No atomics, a fixed order in every sum: two launches on the same
+    inputs give the same bits."""
+    dev = card()
+    ps, P = 32, 64
+    lengths = [P * ps, 1, 700, 1500]
+    case = paged_case(np.random.default_rng(54), dev, dtype, H, Hkv, 128, ps,
+                      P, lengths, int8)
+    first = paged_attention.paged_decode(*case)
+    second = paged_attention.paged_decode(*case)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["dense", "int8"])
+def test_one_paged_call_counts_one_launch(int8):
+    """One wrapper call adds exactly one to its counter and nothing to
+    any other, with the combine (a table of many chunks) and without it
+    (one chunk covers the table)."""
+    dev = card()
+    C, ps = paged_attention.CHUNK_ROWS, 32
+    name = "paged_decode_int8" if int8 else "paged_decode"
+    q1, kp, vp, tables, kv_lens = paged_case(
+        np.random.default_rng(55), dev, "bfloat16", 16, 4, 128, ps,
+        4 * C // ps, [3, C // 2, C - 1], int8)
+    for width in (C // ps, 4 * C // ps):
+        before = dict(build.LAUNCHES)
+        paged_attention.paged_decode(q1, kp, vp, tables[:, :width], kv_lens)
+        assert build.LAUNCHES == {**before, name: before[name] + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["dense", "int8"])
+def test_a_paged_lane_with_no_live_row_writes_zeros(int8):
+    """kv_lens 0 (the engine never issues one) writes zeros, with one
+    chunk and with many, and leaves the other lanes as they were."""
+    dev = card()
+    C, ps = paged_attention.CHUNK_ROWS, 32
+    q1, kp, vp, tables, kv_lens = paged_case(
+        np.random.default_rng(56), dev, "bfloat16", 16, 4, 128, ps,
+        4 * C // ps, [C + 7, 0, 300], int8)
+    for width in (C // ps, 4 * C // ps):
+        got = paged_attention.paged_decode(q1, kp, vp, tables[:, :width],
+                                           kv_lens)
+        assert torch.equal(got[1], torch.zeros_like(got[1])), width
+        assert torch.isfinite(got.float()).all(), width
+        for b in (0, 2):
+            alone = paged_attention.paged_decode(
+                lane(q1, b), kp, vp, lane(tables[:, :width], b),
+                lane(kv_lens, b))
+            assert torch.equal(got[b:b + 1], alone), (width, b)
+
+
+# ---------------------------------------------------------------------------
 # splash (K6-fwd, K6-dq, K6-dkv)
 # ---------------------------------------------------------------------------
 

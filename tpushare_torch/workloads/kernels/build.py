@@ -68,10 +68,10 @@ _SIGNATURES = {
             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
              _F, _P]},
     # q, kp, vp, ks, vs (int8 scale planes or null), tables, table_stride,
-    # n_table, kv_lens, o, B, H, Hkv, hd, page_size, is_bf16, is_int8,
-    # scale, stream
+    # n_table, kv_lens, o, ws (fp32 partials or null), n_chunks, B, H,
+    # Hkv, hd, page_size, is_bf16, is_int8, scale, stream
     "paged_decode": {"tpushare_paged_decode":
-                     [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                     [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I,
                       _I, _I, _I, _I, _I, _I, _I, _F, _P]},
     # q, k, v (one layer's (B, S, Hkv, hd) base), ks, vs (int8 scale
     # planes or null), lengths, o, ws (fp32 partials or null), n_chunks,

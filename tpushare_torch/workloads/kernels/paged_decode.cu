@@ -14,36 +14,69 @@
 // gather twin (xla_paged_read), not the upstream kernel: q is read as
 // fp32, the dot product is taken first and then scaled by hd^-0.5, and
 // the softmax runs online in fp32. Table entries may alias (shared
-// prefix pages): every row is addressed through its own table slot.
-// A lane with kv_lens 0 writes zeros (the serving engine never issues
-// one: its read covers the just-written row, kv_lens >= 1).
-//
-// int8 rung: the same kernel with int8 K/V (the KV template argument).
-// A lane reads its hd/32 int8 elements of a row as one 4-byte (hd 128)
-// or 2-byte (hd 64) load, and the row's K and V scales as one fp32 each
-// (one address for the warp, a broadcast). The K scale multiplies the
-// score after hd^-0.5; the V scale multiplies the probability before it
-// weights the row, while the running sum takes the unscaled probability.
-// The twin dequantizes first (q * s) and then takes fp32 einsums, so the
-// two differ in fp32 rounding only. The upstream kernel's /127.5 scale
-// convention belongs to that kernel and is not carried over.
-//
-// Design: one CTA per (kv head, lane), serving that KV head's G query
-// heads, so each K/V row is read from HBM once for the whole group. Eight
-// warps split the rows round-robin, four rows per warp step: a warp
-// issues all four rows' loads (table entry, K, V, scales) before it uses
-// any, so their round trips overlap — rows past the length re-read the
-// last live row and are masked. A warp reads one row as 32 lanes x hd/32
-// contiguous elements in one vector load per lane (coalesced), reduces
-// the dot products with xor shuffles and keeps its own running max /
-// sum / accumulator. The eight partial states merge through shared
-// memory at the end.
+// prefix pages): every row is addressed through its own table slot. A
+// table may be a column slice of a wider one (its row stride exceeds its
+// width). A lane with kv_lens 0 writes zeros (the serving engine never
+// issues one: its read covers the just-written row, kv_lens >= 1).
 //
 // Bound on this card: bytes. A decode read does ~4 FLOPs per K/V element
 // it loads, far below Hopper's ~295 FLOP/byte balance point, so the
 // floor is the live K/V bytes over HBM bandwidth (int8: hd + 4 bytes per
-// row and head, against 2 hd for bf16); the kernel reads only live rows
-// (no gather copy, no dead pages) to stay near it.
+// row and head, against 2 hd for bf16). Reaching it takes many bytes in
+// flight on every SM, whatever the lanes' lengths.
+//
+// Design: a split-row read with a fixed-order combine (flash-decoding),
+// as ragged_decode.cu reads a slot cache, over pages. The Pallas kernel
+// walks a lane's pages in compute blocks along a sequential grid axis;
+// here a lane's rows are cut into chunks of CHUNK rows and every chunk
+// is a CTA.
+//
+// - Pass 1, partials: grid (ceil(n_table ps / CHUNK), Hkv, B), sized on
+//   the host from the table's width, so kv_lens never crosses to the
+//   host. CTA (c, hk, b) reads rows [c CHUNK, min((c + 1) CHUNK, len)) of
+//   lane b, len = min(kv_lens[b], n_table ps), for kv head hk and its G
+//   query heads, so each live K/V row is read from HBM once for the whole
+//   group, and writes the chunk's fp32 softmax state (m, l, acc[G][hd])
+//   to a workspace. A CTA whose chunk starts at or past len exits before
+//   any load.
+//   The CTA first stages the chunk's table entries in shared memory
+//   (ceil(CHUNK / ps) + 1 at most, for any ps >= 1; a chunk may start
+//   mid-page) and expands them to one pool row index per chunk row, so
+//   a row's address is a shared-memory read: no dependent global load
+//   and no division in the row loop.
+//   Four warps; a lane reads 16 bytes of a row (8 bytes for the int8
+//   rung at G >= 4, where 16 would take 64 accumulator registers), so a
+//   warp load covers 1 or 2 (fp32), 2 or 4 (bf16) or up to 8 (int8)
+//   rows, for head_dim 128 or 64. Each lane keeps two steps of U such
+//   loads of K and of V (and the int8 rung's scales) in flight: the next
+//   step's are issued before this step's are used. Rows past the
+//   chunk's live count re-read its last live row and are masked. Dots
+//   reduce with xor shuffles inside a row's lanes; each row group keeps
+//   its own running max / sum / accumulator; the groups of a warp merge
+//   through xor shuffles, the warps through shared memory, each in a
+//   fixed order.
+// - Pass 2, combine: grid (H, B), one CTA per (query head, lane), a
+//   thread per head-dim column. It reads chunks 0 .. ceil(len / CHUNK) - 1
+//   IN INDEX ORDER, rescales each by exp(m_c - m) and writes o, rounded
+//   once to q's dtype. When one chunk covers n_table ps, pass 1 writes o
+//   itself: the combine of one chunk is acc / l bit for bit (its weight
+//   is exp(0) = 1), so the two routes give the same bits.
+//
+// Chunk bounds are multiples of CHUNK from the lane's first row and
+// depend on nothing else — not on the table's width, not on any other
+// lane's length — and no sum uses atomics. So two launches give the same
+// bits, a lane's result does not depend on its neighbours, and a lane
+// read through a narrow table (the engine's power-of-two rung over the
+// longest live lane) and through a wide one gives bitwise-equal output.
+//
+// int8 rung: the same kernels with int8 K/V (the KV template argument),
+// in the twin's order: s = dot(q, k_q) * hd^-0.5 * k_s, an fp32 online
+// softmax whose running sum takes the unscaled probability p, and an
+// accumulator that adds (p * v_s) * v_q. The twin dequantizes first
+// (q * s) and then takes fp32 einsums, so the two differ in fp32
+// rounding only. A row's two scales are one fp32 load each (one address
+// per row group). The upstream kernel's /127.5 scale convention belongs
+// to that kernel and is not carried over.
 
 #include <math.h>
 #include <stdint.h>
@@ -54,57 +87,76 @@
 
 namespace {
 
-constexpr int WARPS = 8;
+constexpr int CHUNK = 512;    // rows a pass-1 CTA reads (PERF.md: the sweep)
+constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
-constexpr int U = 4;   // rows per warp step
+constexpr int U = 4;          // loads of K (and of V) a lane issues a step
 
-// one lane's PER contiguous elements of a row, as fp32, in one vector
-// load (4 or 2 bytes int8, 8 or 4 bytes bf16, 16 or 8 bytes fp32)
-template <int PER, typename KV>
-__device__ __forceinline__ void load_row(const KV* p, float out[PER]) {
-  if constexpr (std::is_same<KV, int8_t>::value) {
-    static_assert(PER == 2 || PER == 4, "int8 rows: head_dim 64 or 128");
-    if constexpr (PER == 4) {
-      const char4 x = *reinterpret_cast<const char4*>(p);
-      out[0] = x.x;
-      out[1] = x.y;
-      out[2] = x.z;
-      out[3] = x.w;
-    } else {
-      const char2 x = *reinterpret_cast<const char2*>(p);
-      out[0] = x.x;
-      out[1] = x.y;
-    }
-  } else if constexpr (std::is_same<KV, float>::value && PER == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    out[0] = x.x;
-    out[1] = x.y;
-    out[2] = x.z;
-    out[3] = x.w;
-  } else if constexpr (std::is_same<KV, float>::value) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    out[0] = x.x;
-    out[1] = x.y;
-  } else if constexpr (PER == 4) {
-    const uint2 x = *reinterpret_cast<const uint2*>(p);
-    const float2 lo =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.x));
-    const float2 hi =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.y));
-    out[0] = lo.x;
-    out[1] = lo.y;
-    out[2] = hi.x;
-    out[3] = hi.y;
-  } else {
-    const float2 x =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    out[0] = x.x;
-    out[1] = x.y;
+// a row's layout over a warp: E elements a lane, LPR lanes a row, RPW
+// rows a warp load; 16 bytes a lane unless the G accumulators would pass
+// 32 registers on the int8 rung (64 on the others)
+template <typename KV, int HD, int G>
+struct Layout {
+  static constexpr int E16 = 16 / static_cast<int>(sizeof(KV));
+  static constexpr int E =
+      G * E16 <= (sizeof(KV) == 1 ? 32 : 64) ? E16 : E16 / 2;
+  static constexpr int LPR = HD / E;
+  static constexpr int RPW = 32 / LPR;
+  static constexpr int BYTES = E * static_cast<int>(sizeof(KV));
+  static_assert(HD % E == 0 && LPR <= 32, "a row spans at most one warp");
+};
+
+template <int BYTES> struct RawOf;
+template <> struct RawOf<16> { using type = uint4; };
+template <> struct RawOf<8> { using type = uint2; };
+
+__device__ __forceinline__ void words(const uint4& r, uint32_t w[4]) {
+  w[0] = r.x;
+  w[1] = r.y;
+  w[2] = r.z;
+  w[3] = r.w;
+}
+__device__ __forceinline__ void words(const uint2& r, uint32_t w[2]) {
+  w[0] = r.x;
+  w[1] = r.y;
+}
+
+// element i of a vector held as 32-bit words, as fp32 (exact)
+template <typename X> __device__ __forceinline__ float elem(const uint32_t* w,
+                                                            int i);
+template <> __device__ __forceinline__ float elem<float>(const uint32_t* w,
+                                                         int i) {
+  return __uint_as_float(w[i]);
+}
+template <> __device__ __forceinline__ float elem<__nv_bfloat16>(
+    const uint32_t* w, int i) {
+  const uint32_t x = w[i >> 1];
+  return __uint_as_float(i & 1 ? x & 0xffff0000u : x << 16);
+}
+template <> __device__ __forceinline__ float elem<int8_t>(const uint32_t* w,
+                                                          int i) {
+  return static_cast<float>(
+      static_cast<int32_t>(w[i >> 2] << (24 - 8 * (i & 3))) >> 24);
+}
+
+// E consecutive elements of T at p (16-byte aligned) as fp32
+template <typename T, int E>
+__device__ __forceinline__ void load_f32(const T* p, float out[E]) {
+  constexpr int PER = 16 / static_cast<int>(sizeof(T));
+  static_assert(E % PER == 0, "q slices are whole 16-byte vectors");
+#pragma unroll
+  for (int j = 0; j < E / PER; ++j) {
+    uint32_t w[4];
+    words(*reinterpret_cast<const uint4*>(p + j * PER), w);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) out[j * PER + i] = elem<T>(w, i);
   }
 }
 
-// the launch's arguments; ks / vs are the int8 rung's scale planes
-// (n_pages, ps, Hkv), null for a bf16/fp32 pool
+// the launch's arguments: kp / vp one layer's (n_pages, ps, Hkv, hd)
+// pool; ks / vs the int8 rung's (n_pages, ps, Hkv) scale planes, null for
+// a bf16/fp32 pool; ws the partials, acc (B, Hkv, n_chunks, G, hd) then
+// (m, l) (B, Hkv, n_chunks, G, 2), null when n_chunks is 1
 struct Args {
   const void* q;
   const void* kp;
@@ -116,77 +168,119 @@ struct Args {
   int n_table;
   const int* kv_lens;
   void* o;
-  int B, H, Hkv, ps;
+  float* ws;
+  int B, H, Hkv, ps, n_chunks;
   float scale;
 };
 
+// the lane's rows the read covers: kv_lens clipped to the table
+__device__ __forceinline__ int live_rows(const Args& a, int b) {
+  return max(0, min(a.kv_lens[b], a.n_table * a.ps));
+}
+
 template <typename T, typename KV, int HD, int G>
-__global__ void __launch_bounds__(THREADS) paged_decode_kernel(Args a) {
+__global__ void __launch_bounds__(THREADS) paged_partial_kernel(Args a) {
+  using L = Layout<KV, HD, G>;
+  constexpr int E = L::E, LPR = L::LPR, RPW = L::RPW;
   constexpr bool INT8 = std::is_same<KV, int8_t>::value;
-  constexpr int PER = HD / 32;   // head-dim elements per lane
-  const T* __restrict__ q = static_cast<const T*>(a.q);
-  const KV* __restrict__ kp = static_cast<const KV*>(a.kp);
-  const KV* __restrict__ vp = static_cast<const KV*>(a.vp);
-  T* __restrict__ o = static_cast<T*>(a.o);
-  const int H = a.H, Hkv = a.Hkv, ps = a.ps;
+  using Raw = typename RawOf<L::BYTES>::type;
+  constexpr int NW = L::BYTES / 4;
+  // the chunk's table entries (at most CHUNK + 1, at ps = 1 and any
+  // start), then one pool row index (page x ps + row in page) per row;
+  // a pool of 2^31 rows would be 512 GB at the narrowest width
+  __shared__ int sm_tab[CHUNK + 1];
+  __shared__ int sm_row[CHUNK];
   __shared__ float sm_m[WARPS][G];
   __shared__ float sm_l[WARPS][G];
   __shared__ float sm_acc[WARPS][G][HD];
 
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int len = max(0, min(a.kv_lens[b], a.n_table * ps));
+  const int c = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int H = a.H, Hkv = a.Hkv, ps = a.ps;
+  T* __restrict__ o = static_cast<T*>(a.o);
+  const int len = live_rows(a, b);
+  const int r0 = c * CHUNK;
+  if (r0 >= len) {
+    // a lane with no live row reads zeros; with one chunk no combine
+    // runs, so this CTA writes them
+    if (a.n_chunks == 1)
+      for (int i = threadIdx.x; i < G * HD; i += THREADS)
+        o[((size_t)b * H + hk * G) * HD + i] = from_f32<T>(0.f);
+    return;
+  }
+  const int n = min(CHUNK, len - r0);   // the chunk's live rows
+  const T* __restrict__ q = static_cast<const T*>(a.q);
+  const KV* __restrict__ kp = static_cast<const KV*>(a.kp);
+  const KV* __restrict__ vp = static_cast<const KV*>(a.vp);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int rg = lane / LPR, sl = lane % LPR;
 
-  float qf[G][PER];
+  const int p0 = r0 / ps;
+  const int n_pages = (r0 + n - 1) / ps - p0 + 1;
+  const int* __restrict__ trow = a.tables + (size_t)b * a.table_stride;
+  for (int i = threadIdx.x; i < n_pages; i += THREADS)
+    sm_tab[i] = trow[p0 + i];
+
+  float qf[G][E];
 #pragma unroll
   for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < PER; ++e)
-      qf[g][e] = to_f32(q[((size_t)b * H + hk * G + g) * HD + lane * PER + e]);
+    load_f32<T, E>(q + ((size_t)b * H + hk * G + g) * HD + sl * E, qf[g]);
 
-  float m[G], l[G], acc[G][PER];
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += THREADS) {
+    const int r = r0 + i, pg = r / ps;
+    sm_row[i] = sm_tab[pg - p0] * ps + (r - pg * ps);
+  }
+  __syncthreads();
+
+  float m[G], l[G], acc[G][E];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < PER; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
   }
 
-  const int* trow = a.tables + (size_t)b * a.table_stride;
-
-  for (int r0 = w * U; r0 < len; r0 += WARPS * U) {
-    // every row's loads are issued before any is used, so each warp
-    // keeps U rows in flight; a row past the length re-reads the last
-    // live one (len >= 1 inside the loop) and is masked below
-    float kf[U][PER], vv[U][PER], ksc[U], vsc[U];
+  // a CTA step covers WARPS x U x RPW rows; warp w takes U x RPW of them
+  constexpr int STEP = WARPS * U * RPW;
+  Raw kr[U], vr[U], kn[U], vn[U];
+  float ksc[U], vsc[U], ksn[U], vsn[U];
+  // the rows of the step at base (past the live count: its last row)
+  auto fetch = [&](int base, Raw (&kx)[U], Raw (&vx)[U], float (&ksx)[U],
+                   float (&vsx)[U]) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int r = min(r0 + u, len - 1);
-      // (page, row in page, kv head): the scale's index; x HD the row's
-      const size_t srow =
-          ((size_t)trow[r / ps] * ps + (size_t)(r % ps)) * Hkv + hk;
-      const size_t base = srow * HD + lane * PER;
-      load_row<PER>(kp + base, kf[u]);
-      load_row<PER>(vp + base, vv[u]);
-      ksc[u] = vsc[u] = 1.f;
+      const int i = min(base + u * RPW + rg, n - 1);
+      // (pool row, kv head): the scale's index; x HD the row's
+      const size_t srow = (size_t)sm_row[i] * Hkv + hk;
+      const size_t off = srow * HD + sl * E;
+      kx[u] = *reinterpret_cast<const Raw*>(kp + off);
+      vx[u] = *reinterpret_cast<const Raw*>(vp + off);
+      ksx[u] = vsx[u] = 1.f;
       if constexpr (INT8) {
-        ksc[u] = a.ks[srow];
-        vsc[u] = a.vs[srow];
+        ksx[u] = a.ks[srow];
+        vsx[u] = a.vs[srow];
       }
     }
-    float s[U][G];
+  };
+  fetch(w * U * RPW, kr, vr, ksc, vsc);
+  for (int base = w * U * RPW; base < n; base += STEP) {
+    // the next step's loads are in flight while this step computes
+    fetch(base + STEP, kn, vn, ksn, vsn);
     bool valid[U];
 #pragma unroll
+    for (int u = 0; u < U; ++u) valid[u] = base + u * RPW + rg < n;
+    float s[U][G];
+#pragma unroll
     for (int u = 0; u < U; ++u) {
-      valid[u] = r0 + u < len;   // warp-uniform
+      uint32_t kw[NW];
+      words(kr[u], kw);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float part = 0.f;
 #pragma unroll
-        for (int e = 0; e < PER; ++e) part = fmaf(qf[g][e], kf[u][e], part);
+        for (int e = 0; e < E; ++e)
+          part = fmaf(qf[g][e], elem<KV>(kw, e), part);
         s[u][g] = part;
       }
     }
@@ -195,7 +289,7 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(Args a) {
 #pragma unroll
       for (int g = 0; g < G; ++g)
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
+        for (int off = LPR / 2; off > 0; off >>= 1)
           s[u][g] += __shfl_xor_sync(0xffffffffu, s[u][g], off);
 
 #pragma unroll
@@ -208,37 +302,70 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(Args a) {
           if constexpr (INT8) s[u][g] *= ksc[u];
           mx = fmaxf(mx, s[u][g]);
         }
-      const float corr = expf(m[g] - mx);   // 0 on the first step
+      // a row group with no live row yet keeps l = acc = 0
+      const float corr = m[g] == -INFINITY ? 0.f : expf(m[g] - mx);
       l[g] *= corr;
 #pragma unroll
-      for (int e = 0; e < PER; ++e) acc[g][e] *= corr;
+      for (int e = 0; e < E; ++e) acc[g][e] *= corr;
 #pragma unroll
       for (int u = 0; u < U; ++u)
         if (valid[u]) {
+          uint32_t vw[NW];
+          words(vr[u], vw);
           const float p = expf(s[u][g] - mx);
           l[g] += p;
           const float pv = INT8 ? p * vsc[u] : p;
 #pragma unroll
-          for (int e = 0; e < PER; ++e)
-            acc[g][e] = fmaf(pv, vv[u][e], acc[g][e]);
+          for (int e = 0; e < E; ++e)
+            acc[g][e] = fmaf(pv, elem<KV>(vw, e), acc[g][e]);
         }
       m[g] = mx;
     }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      kr[u] = kn[u];
+      vr[u] = vn[u];
+      ksc[u] = ksn[u];
+      vsc[u] = vsn[u];
+    }
   }
 
+  // the warp's row groups merge pairwise, lane rg = 0 ending with
+  // ((0, 1), (2, 3)) ...: a fixed order
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      sm_m[w][g] = m[g];
-      sm_l[w][g] = l[g];
+  for (int off = LPR; off < 32; off <<= 1)
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float mx = fmaxf(m[g], mo);
+      const float ca = m[g] == -INFINITY ? 0.f : expf(m[g] - mx);
+      const float cb = mo == -INFINITY ? 0.f : expf(mo - mx);
+      l[g] = l[g] * ca + lo * cb;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+        acc[g][e] = acc[g][e] * ca + ao * cb;
+      }
+      m[g] = mx;
     }
+  if (rg == 0) {
 #pragma unroll
-    for (int e = 0; e < PER; ++e) sm_acc[w][g][lane * PER + e] = acc[g][e];
+    for (int g = 0; g < G; ++g) {
+      if (sl == 0) {
+        sm_m[w][g] = m[g];
+        sm_l[w][g] = l[g];
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e) sm_acc[w][g][sl * E + e] = acc[g][e];
+    }
   }
   __syncthreads();
 
+  const size_t first = ((size_t)(b * Hkv + hk) * a.n_chunks + c) * G;
+  const size_t n_states = (size_t)a.B * H * a.n_chunks;
   for (int i = threadIdx.x; i < G * HD; i += THREADS) {
-    const int g = i / HD, d = i - (i / HD) * HD;
+    const int g = i / HD, d = i - g * HD;
     float mx = -INFINITY;
 #pragma unroll
     for (int ww = 0; ww < WARPS; ++ww) mx = fmaxf(mx, sm_m[ww][g]);
@@ -246,19 +373,54 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(Args a) {
 #pragma unroll
     for (int ww = 0; ww < WARPS; ++ww) {
       const float mw = sm_m[ww][g];
-      const float c = mw == -INFINITY ? 0.f : expf(mw - mx);
-      lsum += sm_l[ww][g] * c;
-      osum += sm_acc[ww][g][d] * c;
+      const float cw = mw == -INFINITY ? 0.f : expf(mw - mx);
+      lsum = fmaf(sm_l[ww][g], cw, lsum);
+      osum = fmaf(sm_acc[ww][g][d], cw, osum);
     }
-    o[((size_t)b * H + hk * G + g) * HD + d] =
-        from_f32<T>(lsum > 0.f ? osum / lsum : 0.f);
+    if (a.n_chunks == 1) {
+      o[((size_t)b * H + hk * G + g) * HD + d] =
+          from_f32<T>(lsum > 0.f ? osum / lsum : 0.f);
+    } else {
+      a.ws[(first + g) * HD + d] = osum;
+      if (d == 0) {
+        a.ws[n_states * HD + (first + g) * 2] = mx;
+        a.ws[n_states * HD + (first + g) * 2 + 1] = lsum;
+      }
+    }
   }
+}
+
+template <typename T, int HD, int G>
+__global__ void __launch_bounds__(HD) paged_combine_kernel(Args a) {
+  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const int hk = h / G, g = h - hk * G;
+  const int nc = (live_rows(a, b) + CHUNK - 1) / CHUNK;
+  const size_t first = ((size_t)(b * a.Hkv + hk) * a.n_chunks) * G + g;
+  const float* __restrict__ acc = a.ws + first * HD + d;
+  const float* __restrict__ ml =
+      a.ws + (size_t)a.B * a.H * a.n_chunks * HD + first * 2;
+  // chunk c's state sits G states after chunk c - 1's
+  float mx = -INFINITY;
+#pragma unroll 8
+  for (int c = 0; c < nc; ++c) mx = fmaxf(mx, ml[(size_t)c * G * 2]);
+  float lsum = 0.f, osum = 0.f;
+#pragma unroll 8
+  for (int c = 0; c < nc; ++c) {
+    const float wc = expf(ml[(size_t)c * G * 2] - mx);
+    lsum = fmaf(ml[(size_t)c * G * 2 + 1], wc, lsum);
+    osum = fmaf(acc[(size_t)c * G * HD], wc, osum);
+  }
+  static_cast<T*>(a.o)[((size_t)b * a.H + h) * HD + d] =
+      from_f32<T>(lsum > 0.f ? osum / lsum : 0.f);
 }
 
 template <typename T, typename KV, int HD, int G>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const dim3 grid(a.Hkv, a.B);
-  paged_decode_kernel<T, KV, HD, G><<<grid, THREADS, 0, stream>>>(a);
+  const dim3 grid(a.n_chunks, a.Hkv, a.B);
+  paged_partial_kernel<T, KV, HD, G><<<grid, THREADS, 0, stream>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_chunks == 1) return err;
+  paged_combine_kernel<T, HD, G><<<dim3(a.H, a.B), HD, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -294,22 +456,30 @@ int dispatch_kv(int is_int8, int hd, int G, const Args& a, cudaStream_t st) {
 }  // namespace
 
 // ks / vs: the int8 rung's scale planes (n_pages, ps, Hkv) fp32, or null
-// with is_int8 0 (then kp / vp hold q's dtype)
+// with is_int8 0 (then kp / vp hold q's dtype); ws: fp32 partials of
+// B * H * n_chunks * (hd + 2) floats, n_chunks = ceil(n_table * ps /
+// CHUNK), null when n_chunks is 1
 extern "C" int tpushare_paged_decode(const void* q, const void* kp,
                                      const void* vp, const void* ks,
                                      const void* vs, const void* tables,
                                      int table_stride, int n_table,
-                                     const void* kv_lens, void* o, int B,
-                                     int H, int Hkv, int hd, int ps,
-                                     int is_bf16, int is_int8, float scale,
+                                     const void* kv_lens, void* o, void* ws,
+                                     int n_chunks, int B, int H, int Hkv,
+                                     int hd, int ps, int is_bf16,
+                                     int is_int8, float scale,
                                      void* stream) {
-  if (B < 1 || B > 65535 || Hkv < 1 || H % Hkv != 0 || ps < 1 ||
-      n_table < 1 || (is_int8 && (ks == nullptr || vs == nullptr)))
+  const long long rows = (long long)n_table * ps;
+  if (B < 1 || B > 65535 || Hkv < 1 || Hkv > 65535 || H % Hkv != 0 ||
+      ps < 1 || n_table < 1 || rows > INT32_MAX ||
+      n_chunks != (rows + CHUNK - 1) / CHUNK ||
+      (n_chunks > 1 && ws == nullptr) ||
+      (is_int8 && (ks == nullptr || vs == nullptr)))
     return -1;
   const Args a{q, kp, vp, static_cast<const float*>(ks),
                static_cast<const float*>(vs),
                static_cast<const int*>(tables), table_stride, n_table,
-               static_cast<const int*>(kv_lens), o, B, H, Hkv, ps, scale};
+               static_cast<const int*>(kv_lens), o, static_cast<float*>(ws),
+               B, H, Hkv, ps, n_chunks, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return dispatch_kv<__nv_bfloat16>(is_int8, hd, H / Hkv, a, st);

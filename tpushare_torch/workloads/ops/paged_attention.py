@@ -7,8 +7,13 @@ query token per lane over its block-table pages.
 
 - ``paged_decode`` wraps ``kernels/paged_decode.cu``, the Hopper
   counterpart of the upstream Pallas paged kernel the reference runs on
-  a TPU: it walks each lane's table in the kernel, so the bytes read
-  scale with each lane's live rows.
+  a TPU: a split-row read — one CTA per ``CHUNK_ROWS`` rows of a lane
+  and kv head walks that chunk's table slots and writes its fp32
+  softmax state, and a second kernel combines a lane's live chunks in
+  index order. A chunk past a lane's length exits before any load, so
+  the bytes read scale with each lane's live rows, and the chunks'
+  bounds do not depend on the table's width, so neither does the
+  result.
 - ``xla_paged_read`` gathers the lane's pages into a contiguous view and
   runs the reference's grouped-einsum attention op for op — the plain
   twin, what CPU tensors get, and the engine's "xla" path.
@@ -35,6 +40,14 @@ PAGED_IMPLS = ("auto", "paged", "xla")
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_GROUPS = (1, 2, 4, 8)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+# rows a pass-1 CTA reads: ``CHUNK`` in kernels/paged_decode.cu
+CHUNK_ROWS = 512
+
+
+def n_chunks(rows: int) -> int:
+    """Pass 1's chunks over a table of ``rows`` = width x page_size rows
+    (its grid's first axis)."""
+    return -(-rows // CHUNK_ROWS)
 
 
 def resolve_paged_impl(impl: str, platform: str,
@@ -145,15 +158,23 @@ def paged_decode(q1: torch.Tensor, kp, vp, tables: torch.Tensor,
                          f"dtype in {KERNEL_DTYPES} and query groups in "
                          f"{KERNEL_GROUPS}, got {hd} / {q1.dtype} / "
                          f"{H}:{Hkv}")
+    if any(t.data_ptr() % 16 for t in (q1, kq, vq)):
+        raise ValueError("q, k and v must be 16-byte aligned (vector loads)")
     out = torch.empty_like(q1)
     lib = build.library("paged_decode")
     ks, vs = (kp["s"].data_ptr(), vp["s"].data_ptr()) if int8 else (None,
                                                                      None)
+    chunks = n_chunks(tables.shape[1] * ps)
+    # the chunks' fp32 partials: acc (hd floats) and (m, l) per chunk and
+    # query head; one chunk writes the output directly
+    ws = (torch.empty(B * H * chunks * (hd + 2), dtype=torch.float32,
+                      device=q1.device) if chunks > 1 else None)
     with torch.cuda.device(q1.device):
         rc = lib.tpushare_paged_decode(
             q1.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks, vs,
             tables.data_ptr(), tables.stride(0), tables.shape[1],
-            kv_lens.data_ptr(), out.data_ptr(), B, H, Hkv, hd, ps,
+            kv_lens.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), chunks, B, H, Hkv, hd, ps,
             int(q1.dtype == torch.bfloat16), int(int8), hd ** -0.5,
             torch.cuda.current_stream().cuda_stream)
     name = "paged_decode_int8" if int8 else "paged_decode"
