@@ -37,6 +37,20 @@ then drives the main paths through their entry points at full width
 - ``serve-ragged-int8``: the ``serve --ragged`` engine built with
   ``cfg.kv_int8`` (int8 slot caches; the payload has no flag for it) —
   the ragged kernel's int8 rung, one launch per layer per decode step;
+  every serve phase runs ``infer``'s default admission controller;
+- ``serve-traffic``: ``traffic.generate("bursty", seed=0, duration_s=20,
+  rate_rps=4.0)`` (155 requests) replayed in real time through the
+  ``serve --paged`` engine (8 lanes, 32 bf16 pages, K5) under the
+  default SLO (TTFT 2 s, 0.1 s per token): offered and terminal counts,
+  tokens/s, goodput, TTFT and decode p50 / p99, SLO verdicts by phase;
+  ``serve-traffic-ragged``: ``agentic`` traffic (dependency chains)
+  through ``serve --ragged`` (4 slots, K4);
+- ``serve-overload``: the reference's acceptance storm (dispatch OOM x
+  3, a 0.6 s hang at the sync under a 0.1 s watchdog, a queue bound of
+  4 against 16 requests, AIMD admission) on the flagship over a bf16
+  and an int8 pool (K5, K5-int8): exact accounting, healthz seen
+  degraded then ok, the watermark cut to 1 and reopened; then a genuine
+  CUDA out-of-memory at a dispatch, survived;
 - ``f32-identity``, ``slot-f32-identity``, ``int8-f32-identity``: small
   f32 configs whose kernel and plain reads give the same greedy tokens
   (bf16/f32 pools and caches, then int8 ones);
@@ -1582,6 +1596,292 @@ def serve_ring_path(torch, build, infer):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the serving control plane: seeded traffic under the SLO, overload
+# ---------------------------------------------------------------------------
+
+# bursty (traffic.generate, seed 0, 20 s): rate_rps 4.0 offers 155
+# requests (7.75 a second, bursts 6x) of 111.9 decode tokens a second —
+# about half of `serve`'s 190-218 tokens/s (PERF.md)
+TRAFFIC_RPS = 4.0
+TRAFFIC_S = 20.0
+
+
+def control_fields(report, eng, launches, name):
+    """The control plane's figures of one replay: offered and terminal
+    counts, throughput, goodput, TTFT and decode tails, SLO verdicts by
+    phase, the admission watermark and the kernel's launches."""
+    from tpushare_torch import consts
+    snap = eng.telemetry.snapshot()
+    viol = report["slo_violations"]
+    return dict(
+        offered=report["offered"], skipped=report["skipped_dependents"],
+        **{f"n_{k}": n for k, n in sorted(report["statuses"].items())},
+        tokens=report["tokens_out"], wall_s=report["wall_s"],
+        tokens_per_s=report["tokens_out"] / report["wall_s"],
+        window_tokens_per_s=report["tokens_per_s"],
+        goodput_tokens_per_s=report["goodput_tokens_per_s"],
+        ttft_p50_ms=snap[consts.TELEMETRY_TTFT_P50_MS],
+        ttft_p99_ms=snap[consts.TELEMETRY_TTFT_P99_MS],
+        decode_p50_ms=snap[consts.TELEMETRY_DECODE_P50_MS],
+        decode_p99_ms=snap[consts.TELEMETRY_DECODE_P99_MS],
+        slo_good=report["slo_good"],
+        **{f"slo_violations_{p}": n for p, n in viol.items()},
+        watermark=snap[consts.TELEMETRY_ADMISSION_WATERMARK],
+        compiles=snap[consts.TELEMETRY_COMPILES],
+        **{f"{name}_launches": launches[name]})
+
+
+def check_accounted(label, report, events, eng):
+    """Every offered request reached exactly one terminal status, and
+    the engine's counters say the same."""
+    from tpushare_torch.workloads import overload
+    terminal = sum(report["statuses"].values())
+    s = eng.stats
+    counted = (s["completed"] + s["shed"] + s["deadline_exceeded"]
+               + s["oom_quarantined"])
+    if not (report["offered"] == terminal == counted > 0
+            and report["offered"] + report["skipped_dependents"]
+            == len(events)
+            and set(report["statuses"]) <= set(overload.TERMINAL_STATUSES)
+            and not eng.queue and not eng.running):
+        raise RuntimeError(f"{label}: accounting broken: {report} stats {s}")
+
+
+def replay_phase(torch, build, infer, label, extra, scenario, rate, name):
+    """``traffic.replay`` of one seeded scenario at time_scale 1.0 through
+    ``infer``'s engine (admission on, the reference's default SLO), with
+    the counts zeroed just before and read just after: every decode step
+    reads each layer through ``name``, nothing falls back."""
+    from tpushare_torch.workloads import traffic
+    from tpushare_torch.workloads.ops import registry
+    setup = infer.serve_engine(infer.parse_args(SERVE_ARGS + extra))
+    eng, cfg = setup["engine"], setup["cfg"]
+    events = traffic.generate(scenario, seed=0, duration_s=TRAFFIC_S,
+                              **({"rate_rps": rate} if rate else {}))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    registry.reset_fallbacks()
+    report = traffic.replay(eng, events, seed=0, time_scale=1.0,
+                            vocab=cfg.vocab, max_wall_s=240.0)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    fallbacks = registry.fallback_counts()
+    check_accounted(label, report, events, eng)
+    steps = eng.stats["lane_steps"] // setup["n_lanes"]
+    others = {k: n for k, n in launches.items() if k != name and n}
+    if launches[name] != cfg.n_layers * steps or others or fallbacks:
+        raise RuntimeError(f"{label}: launches {launches} != {cfg.n_layers} "
+                           f"layers x {steps} decode steps of {name}, "
+                           f"fallbacks {fallbacks}")
+    fields = control_fields(report, eng, launches, name)
+    return eng, launches, fields, steps
+
+
+def serve_traffic_path(torch, build, infer):
+    """``bursty`` traffic through ``serve --paged`` (8 lanes, 32 bf16
+    pages, K5)."""
+    eng, launches, fields, steps = replay_phase(
+        torch, build, infer, "serve-traffic", ["--paged"], "bursty",
+        TRAFFIC_RPS, "paged_decode")
+    if eng.attn_impl != "paged" or eng.n_lanes != 8 or \
+            eng.alloc.n_pages != 32:
+        raise RuntimeError(f"serve-traffic engine {eng.attn_impl} "
+                           f"{eng.n_lanes} lanes {eng.alloc.n_pages} pages")
+    if eng.alloc.pages_in_use() != 0 or eng.alloc.leaked() != 0:
+        raise RuntimeError("serve-traffic leaked pages")
+    phase("serve-traffic", scenario="bursty", rate_rps=TRAFFIC_RPS,
+          duration_s=TRAFFIC_S, **fields, decode_steps=steps,
+          peak_running=eng.stats["peak_running"])
+    return launches, eng
+
+
+def serve_traffic_ragged_path(torch, build, infer):
+    """``agentic`` traffic (dependency chains, no prefixes) through
+    ``serve --ragged`` (4 slots, K4)."""
+    eng, launches, fields, steps = replay_phase(
+        torch, build, infer, "serve-traffic-ragged", ["--ragged"],
+        "agentic", None, "ragged_decode")
+    if eng.attn_impl != "ragged" or eng.n_slots != 4:
+        raise RuntimeError(f"serve-traffic-ragged engine {eng.attn_impl}")
+    phase("serve-traffic-ragged", scenario="agentic", rate_rps=2.0,
+          duration_s=TRAFFIC_S, **fields, decode_steps=steps)
+    return launches
+
+
+# the reference's paged storm engine (tests/test_paged_serving.py: 3
+# lanes, 25 pages of 8 rows, buckets 8 / 32, chunk 4) at flagship widths
+STORM_KW = dict(n_lanes=3, max_seq=64, n_pages=25, page_size=8,
+                prompt_buckets=(8, 32), chunk=4)
+
+
+class RealOOM:
+    """A fault plan whose ``dispatch`` route, once, asks the card for
+    more memory than it has free: a genuine CUDA out-of-memory. (The
+    request is the card's whole memory and a GiB more: a request of
+    just past ``mem_get_info()``'s free bytes can be served from the
+    caching allocator's reserve, which ``mem_get_info`` counts as
+    used.)"""
+
+    def __init__(self, torch) -> None:
+        self.torch, self.armed, self.caught = torch, True, None
+
+    def fire(self, route: str) -> None:
+        if route != "dispatch" or not self.armed:
+            return
+        self.armed = False
+        free, total = self.torch.cuda.mem_get_info()
+        self.asked = (total + (1 << 30), free)
+        try:
+            self.torch.empty(total + (1 << 30), dtype=self.torch.uint8,
+                             device="cuda")
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            self.caught = e
+            raise
+        raise RuntimeError("an allocation past the free memory succeeded")
+
+
+def storm(torch, params, cfg, kv_codec, seed):
+    """The reference's acceptance storm on one codec: dispatch OOM x 3,
+    one 0.6 s hang at the sync under a 0.1 s watchdog, a queue bound of
+    4 against 16 requests, AIMD admission with no cut cooldown; then two
+    more requests on the same engine."""
+    import threading
+    import numpy as np
+    from tpushare_torch.tpu.fake import WorkloadFault, WorkloadFaultPlan
+    from tpushare_torch.workloads import overload
+    from tpushare_torch.workloads.serving import PagedServingEngine, Request
+    plan = WorkloadFaultPlan()
+    plan.add("dispatch", WorkloadFault(times=3, kind="oom"))
+    plan.add("sync", WorkloadFault(times=1, kind="hang", delay_s=0.6))
+    ctl = overload.AdmissionController(STORM_KW["n_lanes"],
+                                       md_cooldown_s=0.0, ai_step=0.5)
+    eng = PagedServingEngine(params, cfg, **STORM_KW, kv_codec=kv_codec,
+                             queue_limit=4, faults=plan, admission=ctl,
+                             sync_timeout_s=0.1)
+    rng = np.random.default_rng(seed)
+
+    def mk(n, max_new):
+        return Request(prompt=rng.integers(0, cfg.vocab, n).tolist(),
+                       max_new=max_new)
+    reqs = [mk(4 + (i % 5), 6 + (i % 3)) for i in range(16)]
+    unhealthy, done = [], threading.Event()
+
+    def poll():
+        while not done.is_set():
+            if not eng.healthz()["ok"]:
+                unhealthy.append(time.perf_counter())
+            time.sleep(0.005)
+    poller = threading.Thread(target=poll)
+    poller.start()
+    t0 = time.perf_counter()
+    try:
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+    finally:
+        done.set()
+        poller.join()
+    storm_s = time.perf_counter() - t0
+    by = {s: sum(r.status == s for r in reqs)
+          for s in overload.TERMINAL_STATUSES}
+    s = eng.stats
+    healthy_after = eng.healthz()["ok"]
+    floor = ctl.floor_reached
+    if not (all(r.done for r in reqs) and sum(by.values()) == 16
+            and s["completed"] == by["completed"]
+            and s["shed"] == by["shed"] == 12
+            and s["oom_quarantined"] == by["oom_quarantined"]
+            and s["deadline_exceeded"] == by["deadline_exceeded"] == 0
+            and s["oom_recoveries"] == 3 and unhealthy and healthy_after
+            and floor == 1):
+        raise RuntimeError(f"storm {kv_codec}: {by} {s} unhealthy "
+                           f"{len(unhealthy)} healthy after {healthy_after} "
+                           f"floor {floor}")
+    bad = [r for r in reqs if r.status == "completed"
+           and len(r.output) != r.max_new]
+    extras = [mk(5, 6), mk(6, 6)]
+    for r in extras:
+        eng.submit(r)
+    eng.run()
+    if bad or [r.status for r in extras] != ["completed"] * 2 or \
+            ctl.watermark() != STORM_KW["n_lanes"] or \
+            eng.alloc.pages_in_use() or \
+            eng.alloc.leaked():
+        raise RuntimeError(f"storm {kv_codec}: after the storm extras "
+                           f"{[r.status for r in extras]} watermark "
+                           f"{ctl.watermark()} floor {floor} pages "
+                           f"{eng.alloc.pages_in_use()}")
+    snap = eng.telemetry.snapshot()
+    return eng, dict(storm_s=storm_s, completed=by["completed"],
+                     shed=s["shed"], oom_quarantined=by["oom_quarantined"],
+                     oom_recoveries=s["oom_recoveries"],
+                     unhealthy_polls=len(unhealthy), floor=floor,
+                     watermark_after=ctl.watermark(),
+                     trips=eng.watchdog_trips,
+                     degraded_after=snap["degraded"])
+
+
+def serve_overload_path(torch, build, params, cfg):
+    """The storm over a bf16 pool (K5) and an int8 pool (K5-int8), then
+    one genuine CUDA out-of-memory at a dispatch of the bf16 engine: the
+    port's OOM test matches it, the engine quarantines one victim and
+    the next request completes."""
+    from tpushare_torch.workloads import overload
+    from tpushare_torch.workloads.ops import registry
+    from tpushare_torch.workloads.serving import Request
+    torch.cuda.synchronize()
+    build.reset_launches()
+    registry.reset_fallbacks()
+    eng, bf16 = storm(torch, params, cfg, "bf16", 120)
+    eng8, int8 = storm(torch, params, cfg, "int8", 121)
+    real = RealOOM(torch)
+    eng.faults = real
+    before = eng.stats["oom_recoveries"]
+    victims = [Request(prompt=[1, 2, 3, 4, 5], max_new=6),
+               Request(prompt=[6, 7, 8, 9], max_new=6)]
+    for r in victims:
+        eng.submit(r)
+    eng.run()
+    nxt = Request(prompt=[3, 1, 4, 1, 5], max_new=6)
+    eng.submit(nxt)
+    eng.run()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    fallbacks = registry.fallback_counts()
+    if not (real.caught is not None
+            and isinstance(real.caught, torch.cuda.OutOfMemoryError)
+            and overload.is_resource_exhausted(real.caught)
+            and eng.stats["oom_recoveries"] == before + 1
+            and sorted(r.status for r in victims)
+            == ["completed", "oom_quarantined"]
+            and nxt.status == "completed" and len(nxt.output) == 6):
+        raise RuntimeError(f"real OOM: caught {real.caught!r}, victims "
+                           f"{[r.status for r in victims]}, next "
+                           f"{nxt.status}")
+    steps = eng.stats["lane_steps"] // eng.n_lanes
+    steps8 = eng8.stats["lane_steps"] // eng8.n_lanes
+    others = {k: n for k, n in launches.items()
+              if k not in ("paged_decode", "paged_decode_int8") and n}
+    if launches["paged_decode"] != cfg.n_layers * steps or \
+            launches["paged_decode_int8"] != cfg.n_layers * steps8 or \
+            others or fallbacks or eng.attn_impl != "paged":
+        raise RuntimeError(f"serve-overload launches {launches} != "
+                           f"{cfg.n_layers} x ({steps}, {steps8}) decode "
+                           f"steps, fallbacks {fallbacks}")
+    phase("serve-overload", **{f"bf16_{k}": v for k, v in bf16.items()},
+          **{f"int8_{k}": v for k, v in int8.items()},
+          real_oom=type(real.caught).__name__,
+          real_oom_asked_gib=real.asked[0] / 2 ** 30,
+          real_oom_free_gib=real.asked[1] / 2 ** 30,
+          real_oom_victims="+".join(sorted(r.status for r in victims)),
+          next_request=nxt.status, decode_steps=steps,
+          int8_decode_steps=steps8,
+          paged_launches=launches["paged_decode"],
+          paged_int8_launches=launches["paged_decode_int8"])
+    return launches
+
+
 SLOT_F32 = dict(vocab=512, d_model=512, n_heads=4, n_kv_heads=2,
                 n_layers=2, d_ff=1024, max_seq=512)
 PAGED_F32 = dict(vocab=512, d_model=256, n_heads=4, n_kv_heads=2,
@@ -2070,6 +2370,14 @@ def main() -> int:
                                                         ragged_res)
     del ragged_res
     paths["serve-ring"] = serve_ring_path(torch, build, infer)
+    paths["serve-traffic"], traffic_eng = serve_traffic_path(torch, build,
+                                                             infer)
+    paths["serve-traffic-ragged"] = serve_traffic_ragged_path(torch, build,
+                                                              infer)
+    paths["serve-overload"] = serve_overload_path(
+        torch, build, traffic_eng.params, traffic_eng.cfg)
+    del traffic_eng
+    torch.cuda.empty_cache()
     small_f32_identity(torch, build)
     slot_f32_identity(torch, build)
     int8_f32_identity(torch, build)
@@ -2123,17 +2431,20 @@ def main() -> int:
         kernel_line("paged_decode",
                     "tpushare_torch/workloads/kernels/paged_decode.cu",
                     "tpushare/workloads/ops/registry.py:617", paged_rows[0],
-                    "paged-vs-plain, serve, f32-identity"),
+                    "paged-vs-plain, serve, serve-traffic, serve-overload, "
+                    "f32-identity"),
         kernel_line("ragged_decode",
                     "tpushare_torch/workloads/kernels/ragged_decode.cu",
                     "tpushare/workloads/ops/ragged_decode.py:70",
                     next(r for r in ragged_rows if r["case"] == "long"),
-                    "ragged-vs-plain, serve-ragged, slot-f32-identity"),
+                    "ragged-vs-plain, serve-ragged, serve-traffic-ragged, "
+                    "slot-f32-identity"),
         kernel_line("paged_decode_int8",
                     "tpushare_torch/workloads/kernels/paged_decode.cu",
                     "tpushare/workloads/ops/registry.py:617",
                     paged_int8_rows[0],
-                    "paged-int8-vs-plain, serve-int8, int8-f32-identity"),
+                    "paged-int8-vs-plain, serve-int8, serve-overload, "
+                    "int8-f32-identity"),
         kernel_line("ragged_decode_int8",
                     "tpushare_torch/workloads/kernels/ragged_decode.cu",
                     "tpushare/workloads/ops/ragged_decode.py:70",

@@ -41,6 +41,17 @@ PARAMS = bridge.params_from_numpy(jax.tree.map(np.asarray, JPARAMS),
                                   device="cpu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Tier-1 runs test files in parallel worker processes: one intra-op
+    thread keeps these tiny models' many small ops from oversubscribing
+    the cores (each op otherwise waits on every pool thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _clear_telemetry_provider():
     yield

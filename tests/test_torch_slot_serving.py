@@ -53,6 +53,17 @@ PARAMS = bridge.params_from_numpy(jax.tree.map(np.asarray, JPARAMS),
 ENGINE_KW = dict(n_slots=3, max_seq=256, prompt_buckets=(16, 32), chunk=4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Tier-1 runs test files in parallel worker processes: one intra-op
+    thread keeps these tiny models' many small ops from oversubscribing
+    the cores (each op otherwise waits on every pool thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _clear_telemetry_provider():
     yield
@@ -252,8 +263,13 @@ def test_sampling_truncated_to_top_1_is_greedy():
 def test_engine_refuses_what_it_cannot_serve():
     with pytest.raises(NotImplementedError, match="A.6"):
         ServingEngine(PARAMS, CFG, draft=(PARAMS, CFG, 2), **ENGINE_KW)
-    with pytest.raises(NotImplementedError, match="A.2"):
-        ServingEngine(PARAMS, CFG, queue_limit=4, **ENGINE_KW)
+    # the overload knobs (A.2) are ported: the engine takes queue_limit=
+    # and still refuses a draft beside it
+    assert ServingEngine(PARAMS, CFG, queue_limit=4,
+                         **ENGINE_KW).queue_limit == 4
+    with pytest.raises(NotImplementedError, match="A.6"):
+        ServingEngine(PARAMS, CFG, queue_limit=4, draft=(PARAMS, CFG, 2),
+                      **ENGINE_KW)
     with pytest.raises(ValueError, match="ring_rows requires"):
         ServingEngine(PARAMS, CFG, ring_rows=64, **ENGINE_KW)
     wcfg = dataclasses.replace(CFG, attn_window=40)

@@ -33,3 +33,97 @@ STATUS_DEADLINE_EXCEEDED = "deadline_exceeded"
 STATUS_OOM_QUARANTINED = "oom_quarantined"
 TERMINAL_STATUSES = (STATUS_COMPLETED, STATUS_SHED,
                      STATUS_DEADLINE_EXCEEDED, STATUS_OOM_QUARANTINED)
+
+# Queue reject policies (the engines' ``reject_policy``): a full queue
+# sheds the arriving request, or the longest-waiting one.
+REJECT_NEW = "reject_new"
+SHED_OLDEST = "shed_oldest"
+REJECT_POLICIES = (REJECT_NEW, SHED_OLDEST)
+
+# The Allocate env contract the admission controller reads: the chip
+# index chosen by the extender, the pod's unit-scaled HBM request, and
+# where the node daemon's usage endpoint answers (the full URL wins;
+# else the port on the downward-API host IP).
+ENV_RESOURCE_INDEX = "ALIYUN_COM_TPU_HBM_IDX"
+ENV_RESOURCE_BY_POD = "ALIYUN_COM_TPU_HBM_POD"
+ENV_USAGE_URL = "TPUSHARE_USAGE_URL"
+ENV_USAGE_PORT = "TPUSHARE_USAGE_PORT"
+ENV_HOST_IP = "HOST_IP"
+
+# Memory accounting units of the env contract's unit-scaled figures.
+MIB = "MiB"
+GIB = "GiB"
+
+# Chip pressure at which the admission watermark is cut.
+PRESSURE_ENGAGE = 0.90
+
+# The SLO contract a completed request is judged against: TTFT (submit
+# -> first token, queue wait included) and the per-token decode bound
+# ((retire - first token) / decode tokens).
+SLO_TTFT_S = 2.0
+SLO_DECODE_PER_TOKEN_S = 0.1
+# Head-based sampling of request traces: every N-th request is kept;
+# SLO violators and non-completed requests always are.
+SLO_TRACE_SAMPLE_EVERY_N = 16
+# Phase attribution: exactly one is charged per violating request, so
+# the per-phase counters sum to the violation total.
+SLO_PHASE_QUEUED = "queued"
+SLO_PHASE_ADMISSION = "admission"
+SLO_PHASE_PREFILL = "prefill"
+SLO_PHASE_DECODE = "decode"
+SLO_PHASES = (SLO_PHASE_QUEUED, SLO_PHASE_ADMISSION, SLO_PHASE_PREFILL,
+              SLO_PHASE_DECODE)
+
+# The serving engine's telemetry snapshot schema (the reference's names,
+# so a usage report reads the same from either package). The compile
+# pair counts the port's kernel builds (``kernels/build.py``: libraries
+# compiled by nvcc and their seconds) under the reference's key names.
+TELEMETRY_TTFT_P50_MS = "ttft_p50_ms"
+TELEMETRY_TTFT_P99_MS = "ttft_p99_ms"
+TELEMETRY_DECODE_P50_MS = "decode_p50_ms"
+TELEMETRY_DECODE_P99_MS = "decode_p99_ms"
+TELEMETRY_TOKENS_PER_S = "tokens_per_s"
+TELEMETRY_QUEUE_DEPTH = "queue_depth"
+TELEMETRY_ADMITTED = "admitted_total"
+TELEMETRY_RETIRED = "retired_total"
+TELEMETRY_PREFILL_BUCKETS = "prefill_buckets"
+TELEMETRY_COMPILES = "jax_compiles_total"
+TELEMETRY_COMPILE_SECONDS = "jax_compile_seconds_total"
+TELEMETRY_SHED = "shed_total"
+TELEMETRY_DEADLINE_EXCEEDED = "deadline_exceeded_total"
+TELEMETRY_OOM_RECOVERIES = "oom_recoveries_total"
+TELEMETRY_ADMISSION_WATERMARK = "admission_watermark"
+TELEMETRY_DEGRADED = "degraded"
+# present only once a drain was requested
+TELEMETRY_DRAINING = "draining"
+TELEMETRY_DRAINED = "drained"
+# present only on the paged engine's snapshots
+TELEMETRY_PAGES_TOTAL = "kv_pages_total"
+TELEMETRY_PAGES_IN_USE = "kv_pages_in_use"
+TELEMETRY_PAGE_OCCUPANCY_PCT = "kv_page_occupancy_pct"
+TELEMETRY_PAGE_FRAG_PCT = "kv_page_frag_pct"
+TELEMETRY_PAGES_SHARED = "kv_pages_shared"
+TELEMETRY_PAGES_PINNED = "kv_pages_pinned"
+TELEMETRY_PREFIX_HITS = "prefix_hits_total"
+TELEMETRY_COW_COPIES = "cow_copies_total"
+TELEMETRY_KV_CODEC = "kv_codec"
+TELEMETRY_KV_BYTES_PER_TOKEN = "kv_bytes_per_token"
+TELEMETRY_KV_POOL_SHARD_MIB = "kv_pool_shard_mib"
+# present only on a sharded engine / a drafted engine / a fleet member
+TELEMETRY_MESH_TP = "mesh_tp"
+TELEMETRY_MESH_PP = "mesh_pp"
+TELEMETRY_SPEC_ROUNDS = "spec_rounds_total"
+TELEMETRY_SPEC_DRAFTED = "spec_drafted_total"
+TELEMETRY_SPEC_ACCEPTED = "spec_accepted_total"
+TELEMETRY_SPEC_EMITTED = "spec_emitted_total"
+TELEMETRY_SPEC_ACCEPT_RATE = "spec_accept_rate"
+TELEMETRY_FLEET_ENGINE_ID = "fleet_engine_id"
+# SLO plane: always present once an engine publishes
+TELEMETRY_GOODPUT_TOKENS_PER_S = "goodput_tokens_per_s"
+TELEMETRY_SLO_GOOD = "slo_good_total"
+TELEMETRY_SLO_VIOLATIONS_QUEUED = "slo_violations_queued_total"
+TELEMETRY_SLO_VIOLATIONS_ADMISSION = "slo_violations_admission_total"
+TELEMETRY_SLO_VIOLATIONS_PREFILL = "slo_violations_prefill_total"
+TELEMETRY_SLO_VIOLATIONS_DECODE = "slo_violations_decode_total"
+# kernel-registry fallbacks ("impl:reason" -> count), present when any
+TELEMETRY_KERNEL_FALLBACKS = "kernel_fallbacks"

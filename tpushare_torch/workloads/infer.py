@@ -16,6 +16,17 @@ modes on the card and prints the reference payload's throughput lines:
   the pool as the int8 codec, sized to the same HBM, and reads it
   through the kernel's int8 rung.
 
+``serve`` runs the AIMD admission controller by default
+(``overload.AdmissionController.from_env``: the pod's HBM cap, the node
+daemon's chip pressure when the env wires it), sized by the engine's
+lanes — the paged engine's 2 x ``--slots``, where the reference sizes
+its non-fleet paged controller by ``--slots`` — with the weights as its
+base charge; ``--no-admission`` turns it off. ``--queue-limit`` bounds
+the submit queue and ``--deadline-s`` stamps every request's deadline;
+SIGTERM drains the engine (stop admitting, finish in flight, shed the
+queue with exact accounting). The serve result carries the engine's
+telemetry snapshot.
+
 ``--device cpu`` runs the plain-PyTorch path (tests); the default is the
 card, and a host without CUDA raises. Invalid flag combinations print a
 message and exit 2, as the reference payload does.
@@ -24,8 +35,11 @@ message and exit 2, as the reference payload does.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
+import signal
 import sys
+import threading
 import time
 
 import numpy as np
@@ -101,6 +115,15 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "path)")
+    p.add_argument("--queue-limit", type=int, default=None,
+                   help="serve: bound the submit queue (overflow is shed "
+                        "with exact accounting)")
+    p.add_argument("--deadline-s", type=float, default=None,
+                   help="serve: per-request wall deadline; expired "
+                        "requests shed pre-admission or retire mid-decode")
+    p.add_argument("--no-admission", action="store_true",
+                   help="serve: disable the AIMD admission controller "
+                        "(HBM-cap gate + chip-pressure watermark)")
     return p.parse_args(argv)
 
 
@@ -150,16 +173,16 @@ def serve_config(args: argparse.Namespace, cfg, limit: int):
     return cfg, plen, max_seq
 
 
-def run(args: argparse.Namespace) -> dict:
-    """Run one payload mode; returns its measurements (and, for serve,
-    the engine and requests) for callers that check the outcome."""
-    from tpushare_torch.workloads.models.transformer import (forward,
-                                                             init_params)
+def _setup(args: argparse.Namespace):
+    """Device, HBM limit, config and seeded weights from the flags
+    (plus the serve mode's prompt length and max_seq)."""
+    from tpushare_torch.workloads.models.transformer import init_params
     device = resolve_device(args.device)
     limit = args.hbm_limit_mib
     if limit is None:
         limit = int(os.environ.get(consts.ENV_HBM_LIMIT_MIB, "2000"))
     cfg = pick_config(limit)
+    plen = max_seq = None
     if args.mode == "serve":
         cfg, plen, max_seq = serve_config(args, cfg, limit)
     gen = torch.Generator(device=device)
@@ -167,9 +190,22 @@ def run(args: argparse.Namespace) -> dict:
     params = init_params(gen, cfg, device)
     print(f"payload starting: device={device} hbm_limit={limit}MiB "
           f"d_model={cfg.d_model} layers={cfg.n_layers}", flush=True)
+    return device, limit, cfg, params, gen, plen, max_seq
 
+
+def run(args: argparse.Namespace) -> dict:
+    """Run one payload mode; returns its measurements (and, for serve,
+    the engine, the requests and its telemetry snapshot) for callers
+    that check the outcome."""
+    from tpushare_torch.workloads.models.transformer import forward
     if args.mode == "serve":
-        return _serve(args, cfg, params, device, plen, max_seq)
+        setup = serve_engine(args)
+        eng = setup["engine"]
+        with _drain_on_sigterm(eng):
+            return serve_traffic(eng, args, setup["cfg"], setup["device"],
+                                 setup["plen"], setup["max_seq"],
+                                 setup["n_lanes"])
+    device, limit, cfg, params, gen, _, _ = _setup(args)
     if args.mode == "decode":
         from tpushare_torch.workloads.decode import generate
         prompt = torch.randint(0, cfg.vocab,
@@ -205,11 +241,66 @@ def run(args: argparse.Namespace) -> dict:
             "params": params, "cfg": cfg}
 
 
-def _serve(args, cfg, params, device, plen: int, max_seq: int) -> dict:
+def admission_for(args: argparse.Namespace, params: dict, n_lanes: int,
+                  limit: int):
+    """The serve mode's admission controller (None under
+    ``--no-admission``): from the env contract, sized by the engine's
+    lanes, capped at the resolved HBM limit outside the contract, with
+    the weights' bytes as the base the pod already pays."""
+    from tpushare_torch.workloads.overload import AdmissionController
+    if args.no_admission:
+        return None
+    adm = AdmissionController.from_env(n_lanes)
+    if adm.cap_mib is None:
+        adm.cap_mib = float(limit)
+    adm.base_mib = sum(_tensor_bytes(params)) / (1024 * 1024)
+    return adm
+
+
+def _tensor_bytes(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree.numel() * tree.element_size()
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensor_bytes(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensor_bytes(v)
+
+
+@contextlib.contextmanager
+def _drain_on_sigterm(engine):
+    """SIGTERM -> ``engine.request_drain()`` while serving (a pod
+    eviction stops admitting, finishes in flight and sheds the queue
+    with exact accounting); the previous handler is restored after.
+    Signal handlers live on the main thread only: elsewhere this is a
+    no-op."""
+    from tpushare_torch.workloads import overload
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+    prev = signal.getsignal(signal.SIGTERM)
+    sigq = overload.install_signal_queue(signals=(signal.SIGTERM,))
+    overload.watch_signal_queue(engine, sigq, signals=(signal.SIGTERM,))
+    try:
+        yield
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+
+
+def serve_engine(args: argparse.Namespace) -> dict:
+    """Build the serve mode's engine from the flags: the slot engine, or
+    the paged one (``--paged`` / ``--kv-codec int8``) with its pool sized
+    to the slot engine's KV HBM, admission on unless ``--no-admission``.
+    Returns the engine with its config, device, prompt length, max_seq
+    and lane count."""
     from tpushare_torch.workloads import paging
     from tpushare_torch.workloads.serving import (PagedServingEngine,
                                                   ServingEngine)
+    device, limit, cfg, params, _, plen, max_seq = _setup(args)
     bucket = -(-plen // 32) * 32
+    overload_kw = dict(queue_limit=args.queue_limit,
+                       default_deadline_s=args.deadline_s)
     if args.paged:
         # equal-HBM sizing against the slot engine's reservation, as in
         # the reference: the slots' KV budget buys the pool's pages under
@@ -226,7 +317,10 @@ def _serve(args, cfg, params, device, plen: int, max_seq: int) -> dict:
                                  max_seq=max_seq, n_pages=n_pages,
                                  page_size=page_size, prompt_buckets=(bucket,),
                                  chunk=16, seed=args.seed, top_k=args.top_k,
-                                 kv_codec=args.kv_codec)
+                                 kv_codec=args.kv_codec,
+                                 admission=admission_for(args, params,
+                                                         n_lanes, limit),
+                                 **overload_kw)
         bpt = paging.kv_bytes_per_token(cfg.n_layers, cfg.kv_heads,
                                         cfg.head_dim, args.kv_codec)
         print(f"paged KV pool: {n_pages} pages x {page_size} rows (codec "
@@ -237,14 +331,22 @@ def _serve(args, cfg, params, device, plen: int, max_seq: int) -> dict:
         eng = ServingEngine(params, cfg, n_slots=n_lanes, max_seq=max_seq,
                             prompt_buckets=(bucket,), chunk=16,
                             seed=args.seed, top_k=args.top_k,
-                            ring_rows=args.ring_rows)
+                            ring_rows=args.ring_rows,
+                            admission=admission_for(args, params, n_lanes,
+                                                    limit),
+                            **overload_kw)
         print(f"slot engine: {n_lanes} slots x {eng.cache_rows} rows "
               f"(read {eng.attn_impl})", flush=True)
         if args.ring_rows:
             print(f"ring KV cache: {eng.cache_rows} rows/slot "
                   f"(window {args.window}, logical max_seq {max_seq})",
                   flush=True)
-    return serve_traffic(eng, args, cfg, device, plen, max_seq, n_lanes)
+    if eng.admission is not None:
+        print(f"admission: watermark {eng.admission.watermark()} of "
+              f"{n_lanes} lanes, cap {eng.admission.cap_mib:.0f} MiB "
+              f"(weights {eng.admission.base_mib:.0f} MiB)", flush=True)
+    return {"engine": eng, "cfg": cfg, "device": device, "plen": plen,
+            "max_seq": max_seq, "n_lanes": n_lanes}
 
 
 def serve_traffic(eng, args, cfg, device, plen: int, max_seq: int,
@@ -253,7 +355,7 @@ def serve_traffic(eng, args, cfg, device, plen: int, max_seq: int,
     ``args`` (``--requests`` prompts of ``plen`` tokens, up to
     ``--steps`` new tokens each, from ``--seed``) after one warm-up
     request, print the throughput lines and return the measurements, the
-    engine and the requests."""
+    engine, the requests and the engine's telemetry snapshot."""
     from tpushare_torch.workloads.serving import Request, lane_efficiency
     rng = np.random.default_rng(args.seed)
     reqs = [Request(
@@ -284,15 +386,18 @@ def serve_traffic(eng, args, cfg, device, plen: int, max_seq: int,
         print(f"time to first token: p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms, "
               f"max {ttft[-1] * 1e3:.1f} ms", flush=True)
     s = eng.stats
-    if s["shed"] or s["oom_quarantined"]:
+    if eng.draining or s["shed"] or s["deadline_exceeded"] \
+            or s["oom_quarantined"]:
         print(f"overload accounting: completed={s['completed']} "
-              f"shed={s['shed']} oom_quarantined={s['oom_quarantined']}",
-              flush=True)
+              f"shed={s['shed']} deadline_exceeded={s['deadline_exceeded']} "
+              f"oom_quarantined={s['oom_quarantined']} "
+              f"oom_recoveries={s['oom_recoveries']}", flush=True)
     # decode steps of the wave: each reads the cache once per layer
     return {"mode": "serve", "tokens_per_s": total / dt, "seconds": dt,
             "tokens": total, "ttft_s": ttft, "engine": eng,
             "requests": reqs, "warmup_decode_steps": warm_steps,
-            "decode_steps": s["lane_steps"] // n_lanes}
+            "decode_steps": s["lane_steps"] // n_lanes,
+            "telemetry": eng.telemetry.snapshot()}
 
 
 def main(argv: list[str] | None = None) -> int:

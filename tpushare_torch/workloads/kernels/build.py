@@ -108,8 +108,12 @@ KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_decode",
            "paged_decode_int8", "ragged_decode", "ragged_decode_int8",
            "splash_fwd", "splash_bwd_dq", "splash_bwd_dkv")
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+# libraries this process compiled and the wall seconds nvcc took —
+# the serving telemetry's compile pair (it has no jax.monitoring)
+BUILDS = {"count": 0, "seconds": 0.0}
 
 _lock = threading.Lock()
+_lock_builds = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -120,6 +124,12 @@ class KernelBuildError(RuntimeError):
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def build_totals() -> tuple[int, float]:
+    """(libraries compiled, seconds) so far in this process."""
+    with _lock_builds:
+        return BUILDS["count"], BUILDS["seconds"]
 
 
 def nvcc_path() -> str:
@@ -173,6 +183,9 @@ def build(names=None) -> dict[str, float]:
                             f"{log}")
             continue
         os.replace(tmp, out)
+    with _lock_builds:
+        BUILDS["count"] += len(todo) - len(failures)
+        BUILDS["seconds"] += time.perf_counter() - t0
     if failures:
         raise KernelBuildError("kernel build failed: " + "\n".join(failures))
     return times

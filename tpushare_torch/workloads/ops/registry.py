@@ -130,6 +130,14 @@ def fallback_counts() -> dict[tuple[str, str], int]:
         return dict(_fallbacks)
 
 
+def fallback_counts_flat() -> dict[str, int]:
+    """``{"impl:reason": count}`` — the JSON-safe shape the serving
+    telemetry attaches under ``consts.TELEMETRY_KERNEL_FALLBACKS``."""
+    with _fb_lock:
+        return {f"{impl}:{reason}": n
+                for (impl, reason), n in _fallbacks.items()}
+
+
 def reset_fallbacks() -> None:
     with _fb_lock:
         _fallbacks.clear()
