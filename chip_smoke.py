@@ -45,6 +45,19 @@ then drives the main paths through their entry points at full width
   tokens/s, goodput, TTFT and decode p50 / p99, SLO verdicts by phase;
   ``serve-traffic-ragged``: ``agentic`` traffic (dependency chains)
   through ``serve --ragged`` (4 slots, K4);
+- ``serve-traffic-chat``: ``chat`` traffic (seed 0, 20 s, rate_rps 4.0:
+  26 sessions of 2-4 dependent turns) replayed in real time through the
+  ``serve --paged`` engine with the ``sys0`` / ``sys1`` system prompts
+  registered as shared-prefix pages (80 rows: two full pages shared, a
+  16-row tail copied privately at each admission): K1 once a layer per
+  registration, K5 every decode step over aliased tables, every
+  admission a prefix hit, the pool empty after both prefixes drop;
+- ``serve-spec``: ``serve --paged --draft-k 4 --draft-dmodel 0`` (the
+  target drafts for itself) at the serve traffic — batched speculative
+  rounds read both models through the plain gather, so K5 launches once
+  a layer per non-spec decode step only; ``serve-spec-cost``, after the
+  training phases, profiles a round's host wall and device busy time
+  against a one-step chunk's on that engine (``torch.profiler``);
 - ``serve-overload``: the reference's acceptance storm (dispatch OOM x
   3, a 0.6 s hang at the sync under a 0.1 s watchdog, a queue bound of
   4 against 16 requests, AIMD admission) on the flagship over a bf16
@@ -53,7 +66,14 @@ then drives the main paths through their entry points at full width
   CUDA out-of-memory at a dispatch, survived;
 - ``f32-identity``, ``slot-f32-identity``, ``int8-f32-identity``: small
   f32 configs whose kernel and plain reads give the same greedy tokens
-  (bf16/f32 pools and caches, then int8 ones);
+  (bf16/f32 pools and caches, then int8 ones); ``prefix-f32-identity``:
+  prefix subscribers on both pool codecs (K5, K5-int8) give the tokens
+  of the prefix inlined in the prompt (and, on the bf16 pool, of the
+  slot engine's copied prefix), the pinned pages bitwise unchanged;
+  ``spec-f32-identity``: speculative output equals plain greedy output
+  with a perfect and a garbage draft through ``spec_generate``, the
+  slot engine, the paged engine on both codecs with prefix subscribers,
+  and ``beam_search`` at width 1 equals ``generate``;
 - ``train``: 6 steps of ``train.make_train_step`` at the reference's
   training preset (0.55B: d_model 1536, 16 heads of 96, 12 layers;
   batch 8 x seq 1024) — per step and layer one flash forward with LSE,
@@ -1648,11 +1668,14 @@ def check_accounted(label, report, events, eng):
         raise RuntimeError(f"{label}: accounting broken: {report} stats {s}")
 
 
-def replay_phase(torch, build, infer, label, extra, scenario, rate, name):
+def replay_phase(torch, build, infer, label, extra, scenario, rate, name,
+                 prefix_len=16):
     """``traffic.replay`` of one seeded scenario at time_scale 1.0 through
     ``infer``'s engine (admission on, the reference's default SLO), with
     the counts zeroed just before and read just after: every decode step
-    reads each layer through ``name``, nothing falls back."""
+    reads each layer through ``name``; each prefix the replay registers
+    (``prefix_len`` rows) prefills once through the flash forward, one
+    launch a layer; no other kernel runs, nothing falls back."""
     from tpushare_torch.workloads import traffic
     from tpushare_torch.workloads.ops import registry
     setup = infer.serve_engine(infer.parse_args(SERVE_ARGS + extra))
@@ -1663,17 +1686,20 @@ def replay_phase(torch, build, infer, label, extra, scenario, rate, name):
     build.reset_launches()
     registry.reset_fallbacks()
     report = traffic.replay(eng, events, seed=0, time_scale=1.0,
-                            vocab=cfg.vocab, max_wall_s=240.0)
+                            vocab=cfg.vocab, max_wall_s=240.0,
+                            prefix_len=prefix_len)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
     fallbacks = registry.fallback_counts()
     check_accounted(label, report, events, eng)
     steps = eng.stats["lane_steps"] // setup["n_lanes"]
-    others = {k: n for k, n in launches.items() if k != name and n}
-    if launches[name] != cfg.n_layers * steps or others or fallbacks:
+    want = {name: cfg.n_layers * steps,
+            "flash_fwd": cfg.n_layers * len(eng.prefixes)}
+    if any(n != want.get(k, 0) for k, n in launches.items()) or fallbacks:
         raise RuntimeError(f"{label}: launches {launches} != {cfg.n_layers} "
-                           f"layers x {steps} decode steps of {name}, "
-                           f"fallbacks {fallbacks}")
+                           f"layers x {steps} decode steps of {name} and "
+                           f"one flash prefill a layer per registered "
+                           f"prefix, fallbacks {fallbacks}")
     fields = control_fields(report, eng, launches, name)
     return eng, launches, fields, steps
 
@@ -1711,6 +1737,54 @@ def serve_traffic_ragged_path(torch, build, infer):
 
 # the reference's paged storm engine (tests/test_paged_serving.py: 3
 # lanes, 25 pages of 8 rows, buckets 8 / 32, chunk 4) at flagship widths
+# chat (traffic.generate, seed 0, 20 s, rate_rps 4.0): 26 sessions of 2-4
+# dependent turns (83 requests, prompts 8-109) behind the sys0 / sys1
+# prefixes; 80 rows each: two full 32-row pages shared by every
+# subscriber, a 16-row tail each admission makes private (max_seq 256)
+CHAT_PREFIX_LEN = 80
+
+
+def serve_traffic_chat_path(torch, build, infer):
+    """``chat`` traffic through ``serve --paged`` (8 lanes, 32 bf16 pages
+    of 32 rows, K5) with both system prompts registered as shared-prefix
+    pages: every admission a prefix hit with its tail page copied
+    privately, K1 once a layer per registration, K5 on every decode step
+    over tables whose prefix entries alias across lanes; after both
+    prefixes drop, the pool is empty."""
+    from tpushare_torch import consts
+    eng, launches, fields, steps = replay_phase(
+        torch, build, infer, "serve-traffic-chat", ["--paged"], "chat",
+        TRAFFIC_RPS, "paged_decode", prefix_len=CHAT_PREFIX_LEN)
+    snap = eng.telemetry.snapshot()
+    hits, cow = eng.stats["prefix_hits"], eng.stats["cow_copies"]
+    peak_shared = eng.stats["peak_shared_pages"]
+    if eng.attn_impl != "paged" or eng.n_lanes != 8 or \
+            eng.alloc.n_pages != 32 or sorted(eng.prefixes) != ["sys0",
+                                                                "sys1"]:
+        raise RuntimeError(f"serve-traffic-chat engine {eng.attn_impl} "
+                           f"{eng.n_lanes} lanes {eng.alloc.n_pages} pages "
+                           f"prefixes {sorted(eng.prefixes)}")
+    if not (hits == snap[consts.TELEMETRY_ADMITTED] > 0 and cow >= hits
+            and launches["flash_fwd"] == 2 * eng.cfg.n_layers
+            and peak_shared > 0):
+        raise RuntimeError(f"serve-traffic-chat: prefix_hits {hits} "
+                           f"admitted {snap[consts.TELEMETRY_ADMITTED]} "
+                           f"cow_copies {cow} flash {launches['flash_fwd']} "
+                           f"peak shared {peak_shared}")
+    pinned = eng.alloc.pages_in_use()
+    for name in ("sys0", "sys1"):
+        eng.drop_prefix(name)
+    if eng.alloc.pages_in_use() != 0 or eng.alloc.leaked() != 0:
+        raise RuntimeError("serve-traffic-chat: pages left after the drop")
+    phase("serve-traffic-chat", scenario="chat", rate_rps=TRAFFIC_RPS,
+          duration_s=TRAFFIC_S, prefix_len=CHAT_PREFIX_LEN, **fields,
+          decode_steps=steps, peak_running=eng.stats["peak_running"],
+          peak_shared_pages=peak_shared, pinned_pages=pinned,
+          prefix_hits=hits, cow_copies=cow,
+          flash_launches=launches["flash_fwd"])
+    return launches
+
+
 STORM_KW = dict(n_lanes=3, max_seq=64, n_pages=25, page_size=8,
                 prompt_buckets=(8, 32), chunk=4)
 
@@ -1903,13 +1977,18 @@ def f32_setup(torch, kw, seed, n, max_prompt, new_range):
     return cfg, params, specs, rng
 
 
-def transcripts(eng, specs):
+def served(eng, specs, prefix=None):
+    """``specs`` through ``eng`` together; the finished requests."""
     from tpushare_torch.workloads.serving import Request
-    reqs = [Request(prompt=p, max_new=n) for p, n in specs]
+    reqs = [Request(prompt=p, max_new=n, prefix=prefix) for p, n in specs]
     for r in reqs:
         eng.submit(r)
     eng.run()
-    return [r.output for r in reqs]
+    return reqs
+
+
+def transcripts(eng, specs, prefix=None):
+    return [r.output for r in served(eng, specs, prefix)]
 
 
 def slot_identity(torch, build, kv_int8: bool):
@@ -2010,6 +2089,348 @@ def int8_f32_identity(torch, build):
           ragged_int8_launches=slaunched["kernel"]["ragged_decode_int8"],
           pipelined_int8_launches=slaunched["kernel-pipelined"][
               "ragged_decode_int8"], identical=True)
+
+
+def planes_at(torch, state, page_ids):
+    """Copies of every plane of a pool's K and V at ``page_ids``."""
+    from tpushare_torch.workloads.decode import kv_planes
+    ids = torch.tensor(page_ids, device="cuda")
+    return [p[:, ids].clone() for leaf in (state["k"], state["v"])
+            for p in kv_planes(leaf)]
+
+
+PREFIX_F32_KW = dict(n_lanes=3, max_seq=128, n_pages=40, page_size=16,
+                     prompt_buckets=(16, 64), chunk=4, attn_impl="paged")
+# int8 pool, a subscriber against its prompt with the prefix inlined: the
+# subscriber's suffix attends over the prefix rows as the pool stores
+# them (quantized), the inlined prompt over its dense prefill scratch —
+# the reference's own semantics, whose int8 subscribers part from the
+# inlined prompt too (tests/test_torch_prefix.py holds both packages to
+# this rule). So the transcripts agree up to a near-tie: at most one
+# request parts, never at its first token, and every chosen-token logprob
+# up to the parting step is within this of the inlined run's. The phase's
+# control serves the same suffixes behind another registered prefix and
+# must fail the same check (on the CPU at these widths a codec step moved
+# the logprobs by 0.008-0.017 and the other prefix by 0.47-0.72, parting
+# every request at its first token).
+INT8_PREFIX_LOGP_TOL = 5e-2
+
+
+def agree_up_to_codec(got, want):
+    """(requests whose transcripts part, the earliest first parting step
+    or None, the largest |logprob| difference up to and including each
+    first parting step)."""
+    parted, first, worst = 0, None, 0.0
+    for a, b in zip(got, want):
+        n = next((i for i, (x, y) in enumerate(zip(a.output, b.output))
+                  if x != y), None)
+        upto = len(a.output) if n is None else n + 1
+        if n is None and len(a.output) != len(b.output):
+            return len(got), 0, math.inf
+        if n is not None:
+            parted += 1
+            first = n if first is None else min(first, n)
+        worst = max(worst, max(abs(x - y) for x, y in
+                               zip(a.logprobs[:upto], b.logprobs[:upto])))
+    return parted, first, worst
+
+
+def codec_agrees(parted, first, worst) -> bool:
+    """``agree_up_to_codec``'s reading within the int8 rule above."""
+    return parted <= 1 and first != 0 and worst <= INT8_PREFIX_LOGP_TOL
+
+
+def prefix_f32_identity(torch, build):
+    """A 2-layer f32 config through the paged engine on both codecs, K5
+    and K5-int8 on the card, with a 21-row prefix (its tail page copied
+    privately at each admission). The registration's pinned pages are
+    bitwise unchanged after serving; subscribers read through the kernel
+    give the tokens of the same subscribers read through the gather twin.
+    On the bf16 pool they give the tokens of the same requests with the
+    prefix inlined in the prompt and of the slot engine's copied prefix;
+    on the int8 pool they agree with the inlined prompts up to the codec
+    (``codec_agrees``), and the same suffixes behind another registered
+    prefix do not."""
+    from tpushare_torch.workloads.serving import (PagedServingEngine,
+                                                  ServingEngine)
+    cfg, params, specs, rng = f32_setup(torch, PAGED_F32, 9, 5, 40, (4, 30))
+    prefix = rng.integers(0, cfg.vocab, 21).tolist()
+    fields = {}
+    for codec in ("bf16", "int8"):
+        name = "paged_decode_int8" if codec == "int8" else "paged_decode"
+        before = dict(build.LAUNCHES)
+        eng = PagedServingEngine(params, cfg, kv_codec=codec,
+                                 **PREFIX_F32_KW)
+        eng.register_prefix("sys", prefix)
+        pinned = planes_at(torch, eng.state, eng.prefixes["sys"][1])
+        subs = served(eng, specs, prefix="sys")
+        launched = build.LAUNCHES[name] - before[name]
+        flash = build.LAUNCHES["flash_fwd"] - before["flash_fwd"]
+        twin = PagedServingEngine(params, cfg, kv_codec=codec,
+                                  **{**PREFIX_F32_KW, "attn_impl": "xla"})
+        twin.register_prefix("sys", prefix)
+        twin_outs = transcripts(twin, specs, prefix="sys")
+        inline = served(PagedServingEngine(params, cfg, kv_codec=codec,
+                                           **PREFIX_F32_KW),
+                        [(prefix + p, n) for p, n in specs])
+        outs = [r.output for r in subs]
+        parted, first, worst = agree_up_to_codec(subs, inline)
+        agrees = (outs == [r.output for r in inline] if codec == "bf16"
+                  else codec_agrees(parted, first, worst))
+        same_pages = all(torch.equal(a, b) for a, b in zip(
+            pinned, planes_at(torch, eng.state, eng.prefixes["sys"][1])))
+        if outs != twin_outs or not agrees or not same_pages or \
+                not launched or flash != cfg.n_layers or \
+                eng.stats["prefix_hits"] != len(specs) or \
+                eng.stats["cow_copies"] != len(specs):
+            raise RuntimeError(f"prefix f32 ({codec} pool): kernel == twin "
+                               f"{outs == twin_outs}, against the inlined "
+                               f"prompts {parted} parted (first at "
+                               f"{first}), |dlogp| {worst}, pinned pages "
+                               f"unchanged {same_pages}, {name} "
+                               f"{launched}, flash {flash}, stats "
+                               f"{eng.stats}")
+        if codec == "int8":
+            # the control: the same suffixes behind another prefix
+            eng.register_prefix("other",
+                                rng.integers(0, cfg.vocab, 21).tolist())
+            control = agree_up_to_codec(served(eng, specs, prefix="other"),
+                                        inline)
+            eng.drop_prefix("other")
+            if codec_agrees(*control):
+                raise RuntimeError(f"prefix f32 (int8 pool): another "
+                                   f"prefix passes the codec check "
+                                   f"{control}")
+            fields.update(int8_control_parted=control[0],
+                          int8_control_first_part=control[1],
+                          int8_control_max_dlogp=control[2])
+        if codec == "bf16":
+            slot = ServingEngine(params, cfg, n_slots=3, max_seq=128,
+                                 prompt_buckets=(16, 64), chunk=4)
+            slot.register_prefix("sys", prefix)
+            if transcripts(slot, specs, prefix="sys") != outs:
+                raise RuntimeError("prefix f32: paged subscribers != the "
+                                   "slot engine's copied prefix")
+        eng.drop_prefix("sys")
+        if eng.alloc.pages_in_use() or eng.alloc.leaked():
+            raise RuntimeError(f"prefix f32 ({codec}): pages left")
+        fields[f"{codec}_tokens"] = sum(map(len, outs))
+        fields[f"{codec}_{name}_launches"] = launched
+        fields[f"{codec}_inlined_parted"] = parted
+        fields[f"{codec}_inlined_first_part"] = first
+        fields[f"{codec}_inlined_max_dlogp"] = worst
+    phase("prefix-f32-identity", requests=len(specs), prefix_len=len(prefix),
+          **fields, kernel_equals_twin=True, pinned_unchanged=True)
+
+
+SPEC_DRAFT_F32 = dict(vocab=512, d_model=64, n_heads=2, n_layers=1,
+                      d_ff=128, max_seq=256)
+
+
+def one_by_one(eng, specs):
+    """Each request alone through ``eng`` (single occupancy)."""
+    from tpushare_torch.workloads.serving import Request
+    outs = []
+    for p, n in specs:
+        r = Request(prompt=p, max_new=n)
+        eng.submit(r)
+        eng.run()
+        outs.append(r.output)
+    return outs
+
+
+def spec_f32_identity(torch, build):
+    """A 2-layer f32 config: speculative output equals plain greedy
+    output token for token, with a perfect draft (the target) and a
+    garbage one (a random 1-layer model), through ``spec_generate``
+    (against ``generate``), the slot engine at single occupancy, and the
+    paged engine on both codecs with prefix subscribers (against the
+    same engine without a draft; K5 on the card for the non-spec steps
+    only, which a sampling subscriber forces); and ``beam_search`` at
+    beam 1 against ``generate``."""
+    from tpushare_torch.workloads.beam import beam_search
+    from tpushare_torch.workloads.decode import generate
+    from tpushare_torch.workloads.models.transformer import (
+        TransformerConfig, init_params)
+    from tpushare_torch.workloads.serving import (PagedServingEngine,
+                                                  Request, ServingEngine)
+    from tpushare_torch.workloads.spec import spec_generate
+    cfg, params, specs, rng = f32_setup(torch, PAGED_F32, 10, 4, 40, (8, 30))
+    dcfg = TransformerConfig(**SPEC_DRAFT_F32, dtype=torch.float32)
+    dparams = init_params(torch.Generator(device="cuda").manual_seed(11),
+                          dcfg, "cuda")
+    drafts = {"perfect": (params, cfg), "garbage": (dparams, dcfg)}
+    prefix = rng.integers(0, cfg.vocab, 21).tolist()
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 33))).cuda()
+    # a sampling subscriber queued behind the greedy ones: while it runs
+    # every step is a K5 chunk (rounds are greedy only), over tables that
+    # the rounds' rejections truncated; its tokens are not compared
+    sampler = rng.integers(0, cfg.vocab, 20).tolist()
+    want = generate(params, prompt, cfg, 40)
+    beam, _ = beam_search(params, prompt, cfg, 40, beam_width=1)
+    if not torch.equal(beam, want):
+        raise RuntimeError("f32 beam_search at width 1 != generate")
+    slot_kw = dict(n_slots=2, max_seq=128, prompt_buckets=(16, 64), chunk=4)
+    plain_slot = one_by_one(ServingEngine(params, cfg, **slot_kw), specs)
+
+    def subscribers(eng):
+        """``specs``, then the sampler, behind the prefix; the greedy
+        transcripts."""
+        eng.register_prefix("sys", prefix)
+        *greedy, last = [Request(prompt=p, max_new=n, prefix="sys")
+                         for p, n in specs] + [Request(
+                             prompt=sampler, max_new=24, prefix="sys",
+                             temperature=1.0)]
+        for r in (*greedy, last):
+            eng.submit(r)
+        eng.run()
+        if last.status != "completed" or len(last.output) != 24:
+            raise RuntimeError(f"f32 paged spec: the sampler {last.status}")
+        return [r.output for r in greedy]
+
+    plain_paged = {codec: subscribers(PagedServingEngine(
+        params, cfg, kv_codec=codec, **PREFIX_F32_KW))
+        for codec in ("bf16", "int8")}
+    fields = {}
+    for label, (dp, dc) in drafts.items():
+        got, st = spec_generate(params, dp, prompt, cfg, dc, 40, k=4)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"f32 spec_generate ({label} draft) != "
+                               "generate")
+        fields[f"generate_{label}_accept"] = st["accepted"] / st["drafted"]
+        eng = ServingEngine(params, cfg, draft=(dp, dc, 4), **slot_kw)
+        if one_by_one(eng, specs) != plain_slot or \
+                not eng.stats["spec_rounds"]:
+            raise RuntimeError(f"f32 slot engine spec ({label} draft) != "
+                               f"plain, rounds {eng.stats['spec_rounds']}")
+        fields[f"slot_{label}_rounds"] = eng.stats["spec_rounds"]
+        for codec in ("bf16", "int8"):
+            name = "paged_decode_int8" if codec == "int8" else "paged_decode"
+            before = build.LAUNCHES[name]
+            eng = PagedServingEngine(params, cfg, kv_codec=codec,
+                                     draft=(dp, dc, 4), **PREFIX_F32_KW)
+            outs = subscribers(eng)
+            steps = eng.stats["lane_steps"] // eng.n_lanes
+            launched = build.LAUNCHES[name] - before
+            s = eng.stats
+            if outs != plain_paged[codec] or not s["spec_rounds"] or \
+                    not launched or launched != cfg.n_layers * steps:
+                raise RuntimeError(
+                    f"f32 paged spec ({label} draft, {codec} pool): equal "
+                    f"{outs == plain_paged[codec]}, rounds "
+                    f"{s['spec_rounds']}, {name} {launched} != "
+                    f"{cfg.n_layers} x {steps} non-spec steps")
+            fields[f"paged_{codec}_{label}_rounds"] = s["spec_rounds"]
+            fields[f"paged_{codec}_{label}_{name}_launches"] = launched
+            fields[f"paged_{codec}_{label}_accept"] = (
+                s["spec_accepted"] / s["spec_drafted"])
+    phase("spec-f32-identity", requests=len(specs), **fields,
+          beam1_equals_generate=True, identical=True)
+
+
+def serve_spec_path(torch, build, infer, serve_fields):
+    """``serve --paged --draft-k 4 --draft-dmodel 0`` (the target drafts
+    for itself) at the serve traffic: every request completes, spec
+    rounds run, and since a round reads both models through the plain
+    gather, K5 launches once a layer per non-spec decode step only."""
+    res, launches, steps, fields = paged_serve(
+        torch, build, infer, ["--draft-k", "4", "--draft-dmodel", "0"])
+    eng = res["engine"]
+    s = eng.stats
+    if eng.draft is None or eng.draft[2] != 4 or not s["spec_rounds"]:
+        raise RuntimeError(f"serve-spec: no spec rounds ({s})")
+    if launches["paged_decode"] != eng.cfg.n_layers * steps or \
+            launches["paged_decode_int8"]:
+        raise RuntimeError(f"serve-spec launches {launches} != "
+                           f"{eng.cfg.n_layers} layers x {steps} non-spec "
+                           "decode steps")
+    skipped = "+".join(f"{k}:{n}" for k, n in
+                       sorted(s["spec_rounds_skipped"].items())) or "none"
+    phase("serve-spec", **fields, draft_k=4, self_draft=True,
+          serve_tokens_per_s=serve_fields["tokens_per_s"],
+          tokens_per_s_ratio=fields["tokens_per_s"]
+          / serve_fields["tokens_per_s"],
+          spec_rounds=s["spec_rounds"],
+          accept_rate=s["spec_accepted"] / max(1, s["spec_drafted"]),
+          spec_emitted=s["spec_emitted"], spec_rounds_skipped=skipped)
+    return launches
+
+
+# serve-spec-cost: lanes filled at once (prompt 128, 64 new tokens each;
+# the pool holds them all with the rounds' k+1-row tails), one step to
+# admit them, then steps timed under the profiler
+COST_LANES, COST_STEPS = 4, 3
+
+
+def profile_steps(torch, infer, extra):
+    """Host wall and device busy time (``torch.profiler``: the sum of
+    device-side kernel and copy times) of ``COST_STEPS`` engine steps of
+    ``serve --paged`` with ``extra`` flags, ``COST_LANES`` greedy
+    requests running; then the requests run to completion. Returns the
+    per-step figures, the tokens kept per step and the lane rounds
+    (``stats["spec_rounds"]``, one a lane a round) of the timed steps."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from tpushare_torch.workloads.serving import Request
+    eng = infer.serve_engine(infer.parse_args(
+        SERVE_ARGS + ["--paged"] + extra))["engine"]
+    rng = np.random.default_rng(5)
+    reqs = [Request(prompt=rng.integers(0, eng.cfg.vocab, 128).tolist(),
+                    max_new=64) for _ in range(COST_LANES)]
+    for r in reqs:
+        eng.submit(r)
+    eng.step()
+    if len(eng.running) != COST_LANES or eng.queue:
+        raise RuntimeError(f"serve-spec-cost {extra}: {len(eng.running)} "
+                           f"of {COST_LANES} lanes admitted")
+    torch.cuda.synchronize()
+    kept, rounds = sum(len(r.output) for r in reqs), eng.stats["spec_rounds"]
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(COST_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    out = {"wall_ms": wall * 1e3 / COST_STEPS,
+           "device_busy_ms": busy / COST_STEPS,
+           "tokens": (sum(len(r.output) for r in reqs) - kept) / COST_STEPS,
+           "rounds": eng.stats["spec_rounds"] - rounds}
+    eng.run()
+    if any(r.status != "completed" or len(r.output) != r.max_new
+           for r in reqs):
+        raise RuntimeError(f"serve-spec-cost {extra}: requests "
+                           f"{[r.status for r in reqs]}")
+    return out
+
+
+def serve_spec_cost(torch, infer):
+    """What a batched spec round costs against a decode chunk: engine
+    steps of the ``serve-spec`` engine (every timed step a round) and of
+    the ``serve`` engine (every timed step a 16-step K5 chunk) over the
+    same lanes, each engine built here and freed after it. Host wall
+    (the profiler's own overhead included), device busy time and tokens
+    kept, per step and per token."""
+    spec = profile_steps(torch, infer,
+                         ["--draft-k", "4", "--draft-dmodel", "0"])
+    torch.cuda.empty_cache()
+    chunk = profile_steps(torch, infer, [])
+    torch.cuda.empty_cache()
+    if spec["rounds"] != COST_STEPS * COST_LANES or chunk["rounds"]:
+        raise RuntimeError(f"serve-spec-cost: {spec['rounds']} lane rounds "
+                           f"in {COST_STEPS} spec steps of {COST_LANES} "
+                           f"lanes, {chunk['rounds']} in the chunk steps")
+    phase("serve-spec-cost", draft_k=4, lanes=COST_LANES,
+          **{f"round_{k}": v for k, v in spec.items() if k != "rounds"},
+          **{f"chunk_{k}": v for k, v in chunk.items() if k != "rounds"},
+          round_wall_ms_per_token=spec["wall_ms"] / spec["tokens"],
+          chunk_wall_ms_per_token=chunk["wall_ms"] / chunk["tokens"],
+          round_busy_ms_per_token=spec["device_busy_ms"] / spec["tokens"],
+          chunk_busy_ms_per_token=chunk["device_busy_ms"]
+          / chunk["tokens"])
 
 
 # ---------------------------------------------------------------------------
@@ -2364,6 +2785,7 @@ def main() -> int:
     paths["decode-longctx"] = decode_longctx_path(torch, build, infer)
     paths["serve"], serve_fields = serve_path(torch, build, infer)
     paths["serve-int8"] = serve_int8_path(torch, build, infer, serve_fields)
+    paths["serve-spec"] = serve_spec_path(torch, build, infer, serve_fields)
     paths["serve-slot"] = serve_slot_path(torch, build, infer)
     paths["serve-ragged"], ragged_res = serve_ragged_path(torch, build, infer)
     paths["serve-ragged-int8"] = serve_ragged_int8_path(torch, build, infer,
@@ -2374,6 +2796,8 @@ def main() -> int:
                                                              infer)
     paths["serve-traffic-ragged"] = serve_traffic_ragged_path(torch, build,
                                                               infer)
+    paths["serve-traffic-chat"] = serve_traffic_chat_path(torch, build,
+                                                          infer)
     paths["serve-overload"] = serve_overload_path(
         torch, build, traffic_eng.params, traffic_eng.cfg)
     del traffic_eng
@@ -2381,12 +2805,16 @@ def main() -> int:
     small_f32_identity(torch, build)
     slot_f32_identity(torch, build)
     int8_f32_identity(torch, build)
+    prefix_f32_identity(torch, build)
+    spec_f32_identity(torch, build)
     paths["train"] = train_path(torch, build, smi)
     paths["train-remat"] = train_remat_path(torch, build)
     train_f32_parity(torch, build)
     paths["train-longctx"] = train_longctx_path(torch, build, infer, smi)
     train_longctx_f32_parity(torch, build)
     paths["train-payload"] = train_payload_path(torch, build)
+    # last: a serve-traffic run right after the profiler read lower
+    serve_spec_cost(torch, infer)
 
     def by_path(name):
         return {p: n[name] for p, n in paths.items() if n[name]}
@@ -2415,6 +2843,7 @@ def main() -> int:
         kernel_line("flash_fwd", "tpushare_torch/workloads/kernels/flash_fwd.cu",
                     "tpushare/workloads/ops/attention.py:94", flash_rows[0],
                     "flash-vs-plain, forward-logits, decode, f32-identity, "
+                    "prefix-f32-identity, spec-f32-identity, "
                     "train-f32-parity"),
         kernel_line("flash_bwd_dq",
                     "tpushare_torch/workloads/kernels/flash_bwd.cu",
@@ -2431,8 +2860,9 @@ def main() -> int:
         kernel_line("paged_decode",
                     "tpushare_torch/workloads/kernels/paged_decode.cu",
                     "tpushare/workloads/ops/registry.py:617", paged_rows[0],
-                    "paged-vs-plain, serve, serve-traffic, serve-overload, "
-                    "f32-identity"),
+                    "paged-vs-plain, serve, serve-spec, serve-traffic, "
+                    "serve-traffic-chat, serve-overload, f32-identity, "
+                    "prefix-f32-identity, spec-f32-identity"),
         kernel_line("ragged_decode",
                     "tpushare_torch/workloads/kernels/ragged_decode.cu",
                     "tpushare/workloads/ops/ragged_decode.py:70",
@@ -2444,7 +2874,8 @@ def main() -> int:
                     "tpushare/workloads/ops/registry.py:617",
                     paged_int8_rows[0],
                     "paged-int8-vs-plain, serve-int8, serve-overload, "
-                    "int8-f32-identity"),
+                    "int8-f32-identity, prefix-f32-identity, "
+                    "spec-f32-identity"),
         kernel_line("ragged_decode_int8",
                     "tpushare_torch/workloads/kernels/ragged_decode.cu",
                     "tpushare/workloads/ops/ragged_decode.py:70",

@@ -6,10 +6,12 @@ admit decisions, OOM cuts, progress, a pressure signal polled inline);
 degrades, recovers, re-raises and never returns before its call ends;
 ``DrainTimeout``, the OOM test, the signal bridge and the unit math."""
 
+import gc
 import queue
 import signal
 import threading
 import time
+import weakref
 
 import pytest
 
@@ -272,6 +274,51 @@ def test_watch_signal_queue_drains_on_the_first_matching_signal():
     t.join(timeout=5)
     assert not t.is_alive()
     assert eng.drains == 1 and seen == [signal.SIGTERM]
+
+
+def test_watch_signal_queue_ends_on_none_without_a_drain():
+    eng, q = Drainable(), queue.Queue()
+    t = overload.watch_signal_queue(eng, q)
+    q.put(None)
+    t.join(timeout=5)
+    assert not t.is_alive() and eng.drains == 0
+
+
+def test_serve_drain_watcher_ends_with_the_serve_run():
+    """``infer``'s SIGTERM drain is scoped to the serve run: after it the
+    handler is restored and the watcher thread has ended, so the engine
+    is not kept alive by it."""
+    from tpushare_torch.workloads import infer
+
+    def watchers():
+        return sum(t.name == "drain-on-signal" and t.is_alive()
+                   for t in threading.enumerate())
+
+    before, prev = watchers(), signal.getsignal(signal.SIGTERM)
+    eng = Drainable()
+    gone = weakref.ref(eng)
+    with infer._drain_on_sigterm(eng):
+        assert watchers() == before + 1
+        assert signal.getsignal(signal.SIGTERM) != prev
+    assert watchers() == before
+    assert signal.getsignal(signal.SIGTERM) == prev
+    del eng
+    gc.collect()
+    assert gone() is None
+
+
+def test_sync_watchdog_worker_does_not_pin_its_owner():
+    """The worker holds its queues only: a watchdog dropped by its owner
+    is freed with what its callbacks close over (an engine), and that
+    ends the worker."""
+    owner = Drainable()
+    wd = overload.SyncWatchdog(5.0, on_degrade=owner.request_drain)
+    assert wd.call(lambda: 7) == 7
+    worker, gone = wd._worker, weakref.ref(owner)
+    del wd, owner
+    gc.collect()
+    worker.join(timeout=5)
+    assert gone() is None and not worker.is_alive()
 
 
 def test_install_signal_queue_delivers_sigterm():

@@ -261,15 +261,19 @@ def test_sampling_truncated_to_top_1_is_greedy():
 
 
 def test_engine_refuses_what_it_cannot_serve():
-    with pytest.raises(NotImplementedError, match="A.6"):
-        ServingEngine(PARAMS, CFG, draft=(PARAMS, CFG, 2), **ENGINE_KW)
-    # the overload knobs (A.2) are ported: the engine takes queue_limit=
-    # and still refuses a draft beside it
+    # int8 weights (A.7) and meshes (A.10) are not ported: refused by
+    # name; the overload knobs (A.2) and a draft (A.6) are ported
+    with pytest.raises(NotImplementedError, match="A.7"):
+        ServingEngine(PARAMS, CFG, mm=lambda x, w: x @ w, **ENGINE_KW)
+    with pytest.raises(NotImplementedError, match="A.10"):
+        ServingEngine(PARAMS, CFG, mesh=object(), **ENGINE_KW)
     assert ServingEngine(PARAMS, CFG, queue_limit=4,
                          **ENGINE_KW).queue_limit == 4
-    with pytest.raises(NotImplementedError, match="A.6"):
-        ServingEngine(PARAMS, CFG, queue_limit=4, draft=(PARAMS, CFG, 2),
-                      **ENGINE_KW)
+    assert ServingEngine(PARAMS, CFG, queue_limit=4, draft=(PARAMS, CFG, 2),
+                         **ENGINE_KW).draft[2] == 2
+    with pytest.raises(NotImplementedError, match="A.7"):
+        ServingEngine(PARAMS, CFG, mm=lambda x, w: x @ w,
+                      draft=(PARAMS, CFG, 2), **ENGINE_KW)
     with pytest.raises(ValueError, match="ring_rows requires"):
         ServingEngine(PARAMS, CFG, ring_rows=64, **ENGINE_KW)
     wcfg = dataclasses.replace(CFG, attn_window=40)
@@ -287,8 +291,12 @@ def test_engine_refuses_what_it_cannot_serve():
     from tpushare_torch.workloads.serving import PagedServingEngine
     paged = PagedServingEngine(PARAMS, CFG, n_lanes=2, max_seq=64, n_pages=9,
                                page_size=16, prompt_buckets=(16,))
-    with pytest.raises(NotImplementedError, match="A.3"):
+    # shared-prefix pages (A.3) are ported: an unknown name is refused at
+    # submit, a registered one served
+    with pytest.raises(ValueError, match="unknown prefix 'sys'"):
         paged.submit(Request(prompt=[1, 2], max_new=2, prefix="sys"))
+    paged.register_prefix("sys", [3, 4, 5])
+    paged.submit(Request(prompt=[1, 2], max_new=2, prefix="sys"))
 
 
 SERVE = ["--device", "cpu", "--mode", "serve", "--requests", "3",

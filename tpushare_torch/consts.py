@@ -23,8 +23,22 @@ ERR_KV_CODEC_MISMATCH_FMT = (
     "PagedServingEngine(kv_codec=...); cfg.kv_int8 is the slot engine's "
     "cache layout")
 
-# A request named a prefix no engine registered.
+# A request named a prefix no engine registered; a prefix registration
+# on a MoE config (both engines prefill prefixes with the dense model).
 ERR_PREFIX_UNKNOWN_FMT = "unknown prefix {name!r}: register_prefix first"
+ERR_PREFIX_MOE = ("prefix caching uses the dense prefill; MoE requests "
+                  "are served via chunked admission without a registered "
+                  "prefix")
+
+# The draft-config contract of both engines' ``draft=(params_d, cfg_d,
+# k)`` (serving._EngineCore._validate_draft), word for word the
+# reference's.
+ERR_SPEC_MM = "speculative lanes need the plain weight path (mm=None)"
+ERR_SPEC_PIPELINE = ("speculative lanes do not compose with pipeline=True "
+                     "(the pipelined loop bypasses spec rounds)")
+ERR_SPEC_MOE = "speculative lanes are dense-only"
+ERR_SPEC_K_FMT = "draft k={k} must be >= 2"
+ERR_SPEC_VOCAB = "draft and target must share a vocab"
 
 # Terminal request statuses: every submitted request ends in exactly one.
 STATUS_COMPLETED = "completed"

@@ -1,8 +1,10 @@
 """KV-cache autoregressive decoding — the port of
 ``tpushare/workloads/decode.py``: dense bf16/fp32 caches, the ring cache
-of sliding-window models, the ragged slot read, the block-paged pool,
-and the int8 KV codec for both (``cfg.kv_int8`` slot caches,
-``kv_codec="int8"`` pools).
+of sliding-window models, the ragged slot read, the block-paged pool
+with its shared-prefix page helpers (gather into a prefill scratch,
+copy-on-write page copies), the multi-token paged step and draft scan
+of speculative rounds, and the int8 KV codec for both (``cfg.kv_int8``
+slot caches, ``kv_codec="int8"`` pools).
 
 A cache or pool leaf is either a dense tensor or an int8 codec leaf
 ``{"q": int8 (..., hd), "s": fp32 (...)}`` (``kv_quantize``); every
@@ -119,6 +121,23 @@ def init_cache(cfg: TransformerConfig, batch: int, max_seq: int | None = None,
 def cache_max_seq(cache: dict) -> int:
     """Row capacity of a cache, dense or codec."""
     return kv_data(cache["k"]).shape[2]
+
+
+def slot_view(leaf, slot: int):
+    """One slot's (L, 1, S, ...) view of a (L, n_slots, S, ...) cache
+    leaf, dense or codec — the one slot-cache layout helper of the
+    engine's admission, prefix install and the speculative slot round.
+    A view: writes through it land in the engine's cache."""
+    return kv_view(leaf, (slice(None), slice(slot, slot + 1)))
+
+
+def slot_unview(leaf, sub, slot: int):
+    """Write a :func:`slot_view`-shaped ``sub`` into ``leaf`` at ``slot``,
+    in place from row 0 (both planes of a codec leaf, never requantized;
+    ``sub`` may hold fewer rows, as a prefix does)."""
+    for dst, src in zip(kv_planes(leaf), kv_planes(sub)):
+        dst[:, slot:slot + 1, :src.shape[2]] = src
+    return leaf
 
 
 def cache_fill(kc, new: torch.Tensor):
@@ -606,6 +625,45 @@ def scatter_scratch_pages(pool, scratch: torch.Tensor,
     return kv_store(pool, (slice(None), page_ids), chunk)
 
 
+def gather_pool_pages(scratch, pool, page_ids: torch.Tensor):
+    """The pool -> scratch prefix-gather rule for one side (K or V), in
+    place: ``pool[:, page_ids]`` lands (dequantized for an int8 pool) at
+    the head of a contiguous dense scratch — the inverse of
+    :func:`scatter_scratch_pages`."""
+    n = page_ids.shape[0]
+    ps = pool_page_size(pool)
+    # (L, n, ps, Hkv, hd); a dense page round-trips fp32 exactly
+    g = kv_dequantize(kv_view(pool, (slice(None), page_ids)))
+    rows = g.reshape(g.shape[0], n * ps, *g.shape[3:])
+    scratch[:, 0, :n * ps] = rows.to(scratch.dtype)
+    return scratch
+
+
+def load_pool_pages(sk, sv, kp, vp, page_ids: torch.Tensor):
+    """Gather pool pages into the head of a contiguous prefill scratch,
+    in place: ``pool[:, page_ids]`` lands at scratch rows ``[0, n *
+    page_size)`` — how a shared-prefix subscriber's admission scratch
+    acquires the registered prefix's K/V without recomputing it. sk/sv
+    are ``(L, 1, R, Hkv, hd)`` dense scratches, kp/vp the stacked pools,
+    dense or codec (gathered pages dequantize into the scratch: the
+    suffix chunks attend over the prefix as the decode read serves it).
+    Rows past the prefix inside its tail page carry the registration
+    scratch's zeros, masked and then overwritten by the suffix chunks."""
+    return (gather_pool_pages(sk, kp, page_ids),
+            gather_pool_pages(sv, vp, page_ids))
+
+
+def copy_pool_page(kp, vp, src: int, dst: int):
+    """Copy one page's K/V across every layer, in place: ``pool[:, dst]
+    = pool[:, src]`` — the device half of copy-on-write. A codec page
+    copies its ``q`` and ``s`` planes byte for byte, never requantized.
+    The engine queues this before the block-table row that points at
+    ``dst``, on the same stream, so no reader sees a half-copied page."""
+    for plane in kv_planes(kp) + kv_planes(vp):
+        plane[:, dst] = plane[:, src]
+    return kp, vp
+
+
 def make_paged_attn_core(kp, vp, tables: torch.Tensor, lengths: torch.Tensor,
                          cfg: TransformerConfig, impl: str = "xla",
                          gather_pages_w: int | None = None):
@@ -635,3 +693,87 @@ def make_paged_attn_core(kp, vp, tables: torch.Tensor, lengths: torch.Tensor,
         return o, (kp, vp)
 
     return attn_core
+
+
+def make_paged_chunk_core(kp, vp, tables: torch.Tensor, lengths: torch.Tensor,
+                          cfg: TransformerConfig,
+                          gather_pages_w: int | None = None):
+    """Per-layer attention closure for a multi-token paged step — the
+    block-table twin of the Q > 1 case of :func:`make_cached_attn_core`,
+    serving the speculative verify (a lane's k+1 candidates in one
+    dispatch) and the draft mirror's teacher-forced ingest. Each lane's
+    Q tokens land at ``lengths[b] .. lengths[b] + Q - 1`` (block-table
+    scatter, in place, quantized for an int8 pool by the same
+    ``kv_store`` as every other pool write), and each query attends over
+    the lane's pages up to its own position: the gathered fp32 view and
+    the dense causal range test, op for op the reference's.
+
+    The read is the plain gather, as in the reference (whose Pallas
+    paged kernel is a Q = 1 walker): no kernel, no registry decision.
+    The caller guarantees every active lane's table covers ``lengths +
+    Q`` rows; inactive lanes' zeroed tables send their writes to the
+    trash page."""
+    from tpushare_torch.workloads.ops.paged_attention import _gather_dequant
+    ps = pool_page_size(kp)
+    hd = cfg.head_dim
+    G = cfg.n_heads // cfg.kv_heads
+    rtables = tables if gather_pages_w is None \
+        else tables[:, :gather_pages_w]
+
+    def positions(Q):
+        return lengths[:, None] + torch.arange(Q, device=lengths.device)
+
+    def write(cache, new):
+        pos = positions(new.shape[1])                          # (B, Q)
+        page_ids = torch.gather(tables, 1, (pos // ps).long())
+        return kv_store(cache, (page_ids, pos % ps), new)
+
+    def attn_core(q, k, v):
+        B, Q = q.shape[:2]
+        write(kp, k)
+        write(vp, v)
+        kmat = _gather_dequant(kp, rtables)        # (B, R, Hkv, hd) fp32
+        vmat = _gather_dequant(vp, rtables)
+        R = kmat.shape[1]
+        qpos = positions(Q)[:, :, None]                        # (B, Q, 1)
+        mask = torch.arange(R, device=q.device)[None, None, :] <= qpos
+        qg = q.float().reshape(B, Q, cfg.kv_heads, G, hd)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kmat) * (hd ** -0.5)
+        s = torch.where(mask[:, None, None, :, :], s, -1e30)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, vmat)
+        return o.reshape(B, Q, cfg.n_heads, hd).to(q.dtype), (kp, vp)
+
+    return attn_core
+
+
+def spec_draft_scan(dparams: dict, dstate: dict, tokens: torch.Tensor,
+                    active: torch.Tensor, dcfg: TransformerConfig, rope_d,
+                    k: int, gather_pages_w: int | None = None):
+    """The draft phase of a batched paged speculative round: ``k``
+    greedy single-token steps of the draft model over its block-table
+    mirror, always through the plain gather read (the paged kernel is
+    the target's decode walker). Writes the draft pool in place; the
+    draft lengths are left for the round to set. Returns (drafts (B, k),
+    the draft K pool, the draft V pool); inactive lanes' tokens and
+    lengths stay frozen and their writes ride the zeroed tables into the
+    trash page."""
+    tok, dlen = tokens, dstate["lengths"]
+    drafts = []
+    for _ in range(k):
+        cos = rope_d[0][dlen][:, None]
+        sin = rope_d[1][dlen][:, None]
+        x = embed_lookup(dparams["embed"], tok)[:, None]
+        for i in range(dcfg.n_layers):
+            core = make_paged_attn_core(kv_view(dstate["k"], i),
+                                        kv_view(dstate["v"], i),
+                                        dstate["tables"], dlen, dcfg,
+                                        impl="xla",
+                                        gather_pages_w=gather_pages_w)
+            x, _ = layer_block(x, layer_params(dparams, i), dcfg, cos, sin,
+                               core)
+        nxt = torch.argmax(lm_head(dparams, x[:, 0]), dim=-1)
+        tok = torch.where(active, nxt, tok)
+        drafts.append(tok)
+        dlen = torch.where(active, dlen + 1, dlen)
+    return torch.stack(drafts, dim=1), dstate["k"], dstate["v"]

@@ -14,7 +14,12 @@ modes on the card and prints the reference payload's throughput lines:
 - ``serve --paged``: the block-paged engine, decode reads through the
   paged-decode kernel; ``--kv-codec int8`` (implies ``--paged``) stores
   the pool as the int8 codec, sized to the same HBM, and reads it
-  through the kernel's int8 rung.
+  through the kernel's int8 rung;
+- ``serve --draft-k K``: speculative decoding on either engine (the slot
+  engine at single occupancy, the paged engine batched over its lanes),
+  with a random-init draft of ``--draft-dmodel`` x ``--draft-layers``
+  from its own generator seeded by ``--seed`` (``--draft-dmodel 0``: the
+  target drafts for itself).
 
 ``serve`` runs the AIMD admission controller by default
 (``overload.AdmissionController.from_env``: the pod's HBM cap, the node
@@ -104,6 +109,18 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         "halves bytes/page so the same pool HBM holds "
                         "~2x pages -> deeper admitted concurrency "
                         "(implies --paged)")
+    p.add_argument("--draft-k", type=int, default=None,
+                   help="serve: arm speculative decoding with this many "
+                        "draft tokens per round (>= 2), on either engine: "
+                        "the slot engine at single occupancy, the paged "
+                        "engine batched over its lanes. Greedy spec is "
+                        "exact for any draft; the draft sets the speed")
+    p.add_argument("--draft-dmodel", type=int, default=None,
+                   help="serve --draft-k: d_model of the random-init "
+                        "draft model (default a quarter of the target's); "
+                        "0 = self-draft (the target drafts for itself)")
+    p.add_argument("--draft-layers", type=int, default=1,
+                   help="serve --draft-k: draft model depth")
     p.add_argument("--temperature", type=float, default=0.0,
                    help="decode sampling temperature (0 = greedy)")
     p.add_argument("--top-k", type=int, default=0,
@@ -272,20 +289,52 @@ def _tensor_bytes(tree):
 def _drain_on_sigterm(engine):
     """SIGTERM -> ``engine.request_drain()`` while serving (a pod
     eviction stops admitting, finishes in flight and sheds the queue
-    with exact accounting); the previous handler is restored after.
-    Signal handlers live on the main thread only: elsewhere this is a
-    no-op."""
+    with exact accounting); the previous handler is restored after and
+    the watcher ends, so it no longer holds the engine. Signal handlers
+    live on the main thread only: elsewhere this is a no-op."""
     from tpushare_torch.workloads import overload
     if threading.current_thread() is not threading.main_thread():
         yield
         return
     prev = signal.getsignal(signal.SIGTERM)
     sigq = overload.install_signal_queue(signals=(signal.SIGTERM,))
-    overload.watch_signal_queue(engine, sigq, signals=(signal.SIGTERM,))
+    watcher = overload.watch_signal_queue(engine, sigq,
+                                          signals=(signal.SIGTERM,))
     try:
         yield
     finally:
         signal.signal(signal.SIGTERM, prev)
+        sigq.put(None)
+        watcher.join()
+
+
+def draft_for(args: argparse.Namespace, cfg, params: dict, device):
+    """The ``--draft-k`` draft, with the reference payload's rules:
+    ``--draft-dmodel 0`` is the target itself; otherwise a random-init
+    model of that d_model (default a quarter of the target's, at least
+    64, rounded to heads of 64) and ``--draft-layers`` layers, its
+    weights from its own generator seeded by ``--seed``. None without
+    ``--draft-k``."""
+    if args.draft_k is None:
+        return None
+    from tpushare_torch.workloads.models.transformer import (
+        TransformerConfig, init_params)
+    if args.draft_dmodel == 0:
+        dcfg, dparams = cfg, params
+    else:
+        dm = args.draft_dmodel or max(64, cfg.d_model // 4)
+        heads = max(1, dm // 64)
+        dm = heads * 64
+        dcfg = TransformerConfig(vocab=cfg.vocab, d_model=dm, n_heads=heads,
+                                 n_layers=args.draft_layers, d_ff=4 * dm,
+                                 max_seq=cfg.max_seq, dtype=cfg.dtype)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(args.seed)
+        dparams = init_params(gen, dcfg, device)
+    print(f"speculative serving: draft k={args.draft_k}, "
+          f"d_model={dcfg.d_model} x {dcfg.n_layers} layer(s)"
+          + (" (self-draft)" if args.draft_dmodel == 0 else ""), flush=True)
+    return dparams, dcfg, args.draft_k
 
 
 def serve_engine(args: argparse.Namespace) -> dict:
@@ -300,7 +349,8 @@ def serve_engine(args: argparse.Namespace) -> dict:
     device, limit, cfg, params, _, plen, max_seq = _setup(args)
     bucket = -(-plen // 32) * 32
     overload_kw = dict(queue_limit=args.queue_limit,
-                       default_deadline_s=args.deadline_s)
+                       default_deadline_s=args.deadline_s,
+                       draft=draft_for(args, cfg, params, device))
     if args.paged:
         # equal-HBM sizing against the slot engine's reservation, as in
         # the reference: the slots' KV budget buys the pool's pages under
@@ -386,6 +436,11 @@ def serve_traffic(eng, args, cfg, device, plen: int, max_seq: int,
         print(f"time to first token: p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms, "
               f"max {ttft[-1] * 1e3:.1f} ms", flush=True)
     s = eng.stats
+    if args.draft_k is not None:
+        print(f"spec: rounds={s['spec_rounds']} "
+              f"accept={s['spec_accepted'] / max(1, s['spec_drafted']):.2f} "
+              f"emitted={s['spec_emitted']} "
+              f"skipped={s['spec_rounds_skipped']}", flush=True)
     if eng.draining or s["shed"] or s["deadline_exceeded"] \
             or s["oom_quarantined"]:
         print(f"overload accounting: completed={s['completed']} "

@@ -32,6 +32,7 @@ import signal
 import threading
 import time
 import urllib.request
+import weakref
 from typing import Any, Callable, Mapping, Sequence
 
 import torch
@@ -424,20 +425,28 @@ class SyncWatchdog:
     def _ensure_worker(self) -> None:
         if self._worker is not None and self._worker.is_alive():
             return
+        # the worker holds the queues only, never the watchdog or a
+        # finished call: an engine dropped by its caller is freed, and
+        # its collection ends the worker
+        work, done = self._work, self._done
 
         def loop() -> None:
             while True:
-                fn = self._work.get()
+                fn = work.get()
+                if fn is None:
+                    return
                 box: dict[str, Any] = {}
                 try:
                     box["result"] = fn()
                 except BaseException as e:  # noqa: BLE001 — re-raised
                     box["error"] = e        # by the caller
-                self._done.put(box)
+                done.put(box)
+                del fn, box
 
         self._worker = threading.Thread(target=loop, name="sync-watchdog",
                                         daemon=True)
         self._worker.start()
+        weakref.finalize(self, work.put, None)
 
     def call(self, fn: Callable[[], object]) -> object:
         self._ensure_worker()
@@ -488,14 +497,17 @@ def watch_signal_queue(engine: Any, sigq: Any,
                        ) -> threading.Thread:
     """The first matching signal on ``sigq`` calls
     ``engine.request_drain()`` (stop admitting; in-flight requests
-    finish; queued work is accounted shed). Returns the watcher thread
-    (a daemon: it never holds the payload open)."""
+    finish; queued work is accounted shed). A ``None`` on ``sigq`` ends
+    the watcher without a drain, releasing ``engine``. Returns the
+    watcher thread (a daemon: it never holds the payload open)."""
     accept = signals if signals is not None else (signal.SIGTERM,
                                                   signal.SIGINT)
 
     def loop() -> None:
         while True:
             signum = sigq.get()
+            if signum is None:
+                return
             if signum in accept:
                 engine.request_drain()
                 if on_signal is not None:

@@ -10,7 +10,9 @@ harvest), drain and ``healthz``, the AIMD admission controller, the
 telemetry snapshot (``workloads/telemetry.py``: TTFT, decode latency,
 tokens/s, SLO goodput and violations by phase) and request traces
 (``tracing.RequestTrace``), stats and lane efficiency, the prefix
-registry lookup;
+registry lookup and its registration preamble, and the draft contract
+of speculative decoding (``_validate_draft``, ``_spec_skip``,
+``_spec_account``);
 
 - the slot engine: its device programs (``init_slots``,
   ``ingest_chunk``, ``admit``, ``_install_prefix``, ``_slot_step``,
@@ -18,28 +20,34 @@ registry lookup;
   caches (L, n_slots, rows, Hkv, hd), dense or int8 (``cfg.kv_int8``),
   the ring cache of windowed models (``ring_rows``), the ragged read
   (``cfg.ragged_decode``: the CUDA ragged-decode kernel on the card, its
-  int8 rung for int8 caches), prefix caching by copy, ``sample_n`` and
-  the pipelined loop;
+  int8 rung for int8 caches), prefix caching by copy, ``sample_n``, the
+  pipelined loop, and speculative rounds at single occupancy
+  (``draft=``, ``spec.spec_slot_round``);
 - the paged engine: its device programs (``init_page_state``,
   ``_paged_step``, ``paged_decode_chunk``, ``_paged_prefill_chunk``,
-  ``_install_pages``, ``_paged_admit_commit``) and ``PagedServingEngine``
-  with a bf16 or int8 pool (``kv_codec``) on one device, ``attn_impl``
-  auto/paged/xla, and page-forecast admission — pool exhaustion defers a
-  request, a forecast that could never fit sheds it.
+  ``_install_pages``, ``_paged_admit_commit``, ``_draft_ingest_chunk``,
+  ``_spec_paged_round``) and ``PagedServingEngine`` with a bf16 or int8
+  pool (``kv_codec``) on one device, ``attn_impl`` auto/paged/xla,
+  page-forecast admission — pool exhaustion defers a request, a forecast
+  that could never fit sheds it —, shared-prefix pages with
+  copy-on-write (``register_prefix``, ``drop_prefix``, ``_cow_guard``)
+  and batched speculative rounds over a draft pool whose block tables
+  mirror the target's.
 
-Left for later slices (ROADMAP.md): shared prefix pages with
-copy-on-write (A.3), speculative decoding (A.6), int8 weights (A.7),
-MoE (A.9), meshes (A.10), fleet handoff, ``take_queue`` and
-``cancel_request`` (A.11). The engines raise where the reference would
-accept those, naming the item.
+Left for later slices (ROADMAP.md): int8 weights (A.7), MoE (A.9),
+meshes (A.10), fleet handoff, ``take_queue`` and ``cancel_request``
+(A.11). The engines raise where the reference would accept those,
+naming the item.
 
 The reference's jitted programs become eager functions that update the
 pool and the lane state IN PLACE; the host loop keeps the reference's
-one device sync per decode chunk (the harvest) and one per admission
-wave. Because a chunk writes in place, a real out-of-memory inside it
-(not only at its sync) leaves every running lane's device state ahead
-of its host mirror: the engines quarantine the chunk's whole snapshot
-then, as the reference does for an OOM at the harvest.
+one device sync per decode chunk or speculative round (the harvest) and
+one per admission wave. Because a chunk writes in place, a real
+out-of-memory inside it (not only at its sync) leaves every running
+lane's device state ahead of its host mirror: the engines quarantine
+the chunk's whole snapshot then, as the reference does for an OOM at
+the harvest. A copy-on-write page copy is queued before the table row
+that points at the copy, on the same stream.
 """
 
 from __future__ import annotations
@@ -53,13 +61,14 @@ from tpushare_torch import consts, tracing
 from tpushare_torch.workloads import overload, paging
 from tpushare_torch.workloads.decode import (
     BucketOverflowError, cache_max_seq, check_paged_config,
-    check_ragged_config, chunk_step, init_cache, init_page_pool, kv_data,
-    kv_planes, kv_view, make_cached_attn_core, make_paged_attn_core,
-    make_ragged_attn_core, pool_page_size, prefill, prefill_chunk_layout,
-    scatter_scratch_pages, truncate_top_k, truncate_top_p)
+    check_ragged_config, chunk_step, copy_pool_page, init_cache,
+    init_page_pool, kv_view, load_pool_pages, make_cached_attn_core,
+    make_paged_attn_core, make_paged_chunk_core, make_ragged_attn_core,
+    pool_page_size, prefill, prefill_chunk_layout, scatter_scratch_pages,
+    slot_unview, slot_view, spec_draft_scan, truncate_top_k, truncate_top_p)
 from tpushare_torch.workloads.models.transformer import (
     TransformerConfig, embed_lookup, layer_block, layer_params, lm_head,
-    rope_tables)
+    rope_freqs, rope_tables)
 from tpushare_torch.workloads.ops.paged_attention import resolve_paged_impl
 from tpushare_torch.workloads.overload import DrainTimeout  # re-export
 from tpushare_torch.workloads.telemetry import EngineTelemetry
@@ -70,8 +79,7 @@ __all__ = ["init_slots", "admit", "ingest_chunk", "slot_decode_chunk",
            "DrainTimeout"]
 
 # ROADMAP items of what the engines do not carry yet, for the refusals
-_UNPORTED = {"draft": "A.6 (speculative decoding)",
-             "mm": "A.7 (int8 weights)",
+_UNPORTED = {"mm": "A.7 (int8 weights)",
              "mesh": "A.10 (multi-GPU)"}
 
 
@@ -87,10 +95,12 @@ def lane_efficiency(stats: dict) -> float | None:
     """Decode-lane tokens per dispatched lane-step (None with zero
     lane-steps). Each request's first token is sampled by admission,
     not by a decode lane, so one token per retired request is
-    subtracted."""
+    subtracted, and so are the tokens speculative rounds kept
+    (``spec_emitted``): they cost no decode lane."""
     if not stats["lane_steps"]:
         return None
-    decode_lane_tokens = stats["tokens_emitted"] - stats["requests_done"]
+    decode_lane_tokens = (stats["tokens_emitted"] - stats["requests_done"]
+                          - stats["spec_emitted"])
     return max(0, decode_lane_tokens) / stats["lane_steps"]
 
 
@@ -194,8 +204,7 @@ def ingest_chunk(params: dict, tokens: torch.Tensor, slots: dict, slot: int,
     place) — the chunked-prefill admission primitive. Sets the slot's
     length to ``new_len``, marks it active and stores the token sampled
     at in-chunk position ``rel_last`` (only the final chunk's matters)."""
-    view = (slice(None), slice(slot, slot + 1))
-    sub = {"k": kv_view(slots["k"], view), "v": kv_view(slots["v"], view),
+    sub = {"k": slot_view(slots["k"], slot), "v": slot_view(slots["v"], slot),
            "length": start}
     logits, _ = chunk_step(params, tokens, sub, cfg, logit_pos=rel_last)
     dev = logits.device
@@ -219,10 +228,8 @@ def _install_prefix(slots: dict, slot: int, pk, pv) -> dict:
     int8 prefix copies its ``q`` and ``s`` planes together and is never
     requantized. Lengths, active and tokens are set by the suffix ingest
     that must follow."""
-    P = kv_data(pk).shape[2]
-    for dst, src in zip(kv_planes(slots["k"]) + kv_planes(slots["v"]),
-                        kv_planes(pk) + kv_planes(pv)):
-        dst[:, slot, :P] = src[:, 0]
+    slot_unview(slots["k"], pk, slot)
+    slot_unview(slots["v"], pv, slot)
     return slots
 
 
@@ -418,6 +425,91 @@ def _paged_admit_commit(state: dict, lane: int, table_row: torch.Tensor,
     return state
 
 
+def _draft_ingest_chunk(dparams: dict, dstate: dict, lane: int,
+                        tokens: torch.Tensor, start: int, new_len: int,
+                        dcfg: TransformerConfig,
+                        gather_pages_w: int | None = None) -> dict:
+    """Teacher-forced ingest of one bucket-padded (1, Q) chunk into
+    ``lane``'s draft pages at ``start`` — how the draft mirror acquires
+    the prompt at admission and the batch-phase gap before a spec round
+    (the tokens are decided; only their draft K/V is wanted, so no
+    logits are computed). Writes go through
+    :func:`decode.make_paged_chunk_core`, in place; pad rows land in the
+    lane's own pages past its length, masked until overwritten. A stale
+    mirror costs acceptance, never correctness."""
+    tbl = dstate["tables"][lane:lane + 1]                      # (1, P)
+    dev = tokens.device
+    Q = tokens.shape[1]
+    # direct per-position phases (chunk_step's rope=None branch)
+    angles = ((start + torch.arange(Q, device=dev)).float()[:, None]
+              * rope_freqs(dcfg, dev)[None, :])
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    starts = torch.tensor([start], dtype=torch.int32, device=dev)
+    x = embed_lookup(dparams["embed"], tokens)
+    for i in range(dcfg.n_layers):
+        core = make_paged_chunk_core(kv_view(dstate["k"], i),
+                                     kv_view(dstate["v"], i), tbl, starts,
+                                     dcfg, gather_pages_w=gather_pages_w)
+        x, _ = layer_block(x, layer_params(dparams, i), dcfg, cos, sin, core)
+    dstate["lengths"][lane] = new_len
+    return dstate
+
+
+def _spec_paged_round(params: dict, dparams: dict, state: dict,
+                      dstate: dict, cfg: TransformerConfig,
+                      dcfg: TransformerConfig, k: int, rope_len: int,
+                      gather_pages_w: int | None = None):
+    """One batched draft-k / verify-1 round over the paged pools: every
+    active lane drafts ``k`` greedy tokens against its draft block-table
+    mirror (:func:`decode.spec_draft_scan`), then the target scores all
+    lanes' (k+1)-token candidates in one multi-token paged pass
+    (:func:`decode.make_paged_chunk_core`), and each lane accepts its
+    longest matching prefix, capped at k-1, plus the target's own next
+    token. Both reads are the plain gather, as in the reference: the
+    round launches no paged kernel.
+
+    The caller pre-grew every active lane's tables (target k+1 rows,
+    draft k) behind the copy-on-write fence; rows past the accepted
+    length are garbage the length mask hides until truncation releases
+    their pages. Writes both pools and both lane states in place.
+    Returns (g (B, k+1) target greedy tokens, logp (B, k+1), a (B,)
+    accepted counts, state, dstate)."""
+    lengths, active = state["lengths"], state["active"]
+    dev = lengths.device
+    rope_t = rope_tables(cfg, rope_len, dev)
+    rope_d = rope_tables(dcfg, rope_len, dev)
+    drafts, _, _ = spec_draft_scan(dparams, dstate, state["tokens"], active,
+                                   dcfg, rope_d, k,
+                                   gather_pages_w=gather_pages_w)
+    Q = k + 1
+    chunk = torch.cat([state["tokens"][:, None], drafts], dim=1)
+    pos = lengths[:, None] + torch.arange(Q, device=dev)[None, :]
+    cos, sin = rope_t[0][pos], rope_t[1][pos]                  # (B, Q, half)
+    x = embed_lookup(params["embed"], chunk)
+    for i in range(cfg.n_layers):
+        core = make_paged_chunk_core(kv_view(state["k"], i),
+                                     kv_view(state["v"], i), state["tables"],
+                                     lengths, cfg,
+                                     gather_pages_w=gather_pages_w)
+        x, _ = layer_block(x, layer_params(params, i), cfg, cos, sin, core)
+    logits = lm_head(params, x)                                # (B, Q, V)
+    g = torch.argmax(logits, dim=-1)
+    logp = torch.log_softmax(logits.float(), dim=-1).gather(
+        -1, g[..., None])[..., 0]
+    ok = (drafts == g[:, :k]).to(torch.int32)
+    acc = torch.cumprod(ok, dim=1).sum(dim=1)                  # (B,) 0..k
+    a = torch.where(active, torch.clamp(acc, max=k - 1),
+                    torch.zeros_like(acc))
+    new_len = torch.where(active, lengths + a + 1, lengths).to(torch.int32)
+    nxt = g.gather(1, a[:, None])[:, 0]
+    nlp = logp.gather(1, a[:, None])[:, 0]
+    state["lengths"] = new_len
+    state["tokens"] = torch.where(active, nxt, state["tokens"])
+    state["logps"] = torch.where(active, nlp, state["logps"])
+    dstate["lengths"] = torch.where(active, new_len, dstate["lengths"])
+    return g, logp, a, state, dstate
+
+
 # ---------------------------------------------------------------------------
 # host-side engine core
 # ---------------------------------------------------------------------------
@@ -470,8 +562,17 @@ class _EngineCore:
         # the lane-retire total lane_efficiency subtracts from
         self.stats = {"requests_done": 0, "tokens_emitted": 0,
                       "lane_steps": 0, "chunks": 0, "prefill_chunks": 0,
+                      "spec_rounds": 0, "spec_drafted": 0,
+                      "spec_accepted": 0, "spec_emitted": 0,
+                      "spec_rounds_skipped": {},
                       "completed": 0, "shed": 0, "deadline_exceeded": 0,
                       "oom_quarantined": 0, "oom_recoveries": 0}
+        # speculative decoding, shared by both engines: the (params_d,
+        # cfg_d, k) draft and the per-lane draft-cache length mirror (the
+        # batched chunk path advances only the target cache, so a lane's
+        # draft catches up on the tokens decoded since before a round)
+        self.draft: tuple | None = None
+        self._dlengths: dict[int, int] = {}
         if reject_policy not in overload.REJECT_POLICIES:
             raise ValueError(f"reject_policy {reject_policy!r} not in "
                              f"{overload.REJECT_POLICIES}")
@@ -564,6 +665,78 @@ class _EngineCore:
             raise ValueError(
                 consts.ERR_PREFIX_UNKNOWN_FMT.format(name=req.prefix))
         return self.prefixes[req.prefix][0]
+
+    def _validate_prefix_registration(self, name: str,
+                                      tokens: list) -> int:
+        """The register_prefix preamble of both engines (one set of
+        guards): dense only, no re-registration — queued requests were
+        checked against the old length —, length inside [1, max_seq).
+        Returns the prefix length."""
+        plen = len(tokens)
+        if hasattr(self.cfg, "n_experts"):
+            raise NotImplementedError(consts.ERR_PREFIX_MOE)
+        if name in self.prefixes:
+            raise ValueError(f"prefix {name!r} already registered")
+        if plen < 1 or plen >= self.max_seq:
+            raise ValueError(f"prefix length {plen} outside [1, max_seq)")
+        return plen
+
+    def _validate_draft(self, draft: tuple | None) -> None:
+        """The draft-config contract both engines run at construction
+        (``consts.ERR_SPEC_*``); engine-specific floors (the slot ring's
+        windowed-draft bound, the pool's ``check_paged_config``) follow in
+        each constructor."""
+        if draft is None:
+            return
+        _dparams, dcfg, dk = draft
+        if getattr(self, "mm", None) is not None:
+            raise ValueError(consts.ERR_SPEC_MM)
+        if hasattr(self.cfg, "n_experts") or hasattr(dcfg, "n_experts"):
+            raise ValueError(consts.ERR_SPEC_MOE)
+        if dk < 2:
+            raise ValueError(consts.ERR_SPEC_K_FMT.format(k=dk))
+        if dcfg.vocab != self.cfg.vocab:
+            raise ValueError(consts.ERR_SPEC_VOCAB)
+
+    def _spec_skip(self, reason: str) -> None:
+        """Count one skipped speculative round by reason: a quiet spec
+        path must be explainable, never silent."""
+        skipped = self.stats["spec_rounds_skipped"]
+        skipped[reason] = skipped.get(reason, 0) + 1
+
+    def _spec_account(self, lane: int, g, logp, a: int, k: int) -> int:
+        """Greedy accept/reject accounting for one lane's draft-k /
+        verify-1 round: count the round, credit the accepted prefix plus
+        the target's own next token to the lane's request (stopping at
+        eos / max_new, which retires it), publish the spec counters, and
+        apply the deadline check at the round boundary (a spec round
+        never passes through ``_harvest``). The caller has advanced the
+        lengths; returns the tokens kept."""
+        req = self.running[lane]
+        self.stats["spec_rounds"] += 1
+        self.stats["spec_drafted"] += k
+        self.stats["spec_accepted"] += a
+        if req._trace is not None:
+            req._trace.bump("spec_rounds")
+        kept = 0
+        for t, lp in zip(g[:a + 1], logp[:a + 1]):
+            req.output.append(int(t))
+            req.logprobs.append(float(lp))
+            kept += 1
+            # the tokens kept (a round cut by eos / max_new keeps fewer
+            # than a+1), so lane_efficiency's subtraction matches
+            self.stats["spec_emitted"] += 1
+            if ((req.eos is not None and int(t) == req.eos)
+                    or len(req.output) >= req.max_new):
+                self._retire(lane)
+                break
+        self.telemetry.set_spec_stats(
+            self.stats["spec_rounds"], self.stats["spec_drafted"],
+            self.stats["spec_accepted"], self.stats["spec_emitted"])
+        if (self.running.get(lane) is req and req._deadline is not None
+                and time.monotonic() >= req._deadline):
+            self._retire(lane, status=overload.STATUS_DEADLINE_EXCEEDED)
+        return kept
 
     def _quarantine_admit_oom(self, lane: int, req: Request) -> None:
         """An out-of-memory fired during this request's admission:
@@ -687,7 +860,8 @@ class _EngineCore:
     def reset_stats(self) -> None:
         """Zero the counters and the telemetry (between a warm-up drain
         and a measured run)."""
-        self.stats = {k: 0 for k in self.stats}
+        self.stats = {k: ({} if isinstance(v, dict) else 0)
+                      for k, v in self.stats.items()}
         self.telemetry.reset()
 
     def lane_efficiency(self) -> float | None:
@@ -735,22 +909,21 @@ class _EngineCore:
                     or len(req.output) >= req.max_new):
                 self._retire(lane)
 
-    def _host_read(self, toks: torch.Tensor,
-                   lps: torch.Tensor) -> tuple[list, list]:
+    def _host_read(self, *tensors: torch.Tensor) -> tuple[list, ...]:
         """The harvest's blocking device read (the engine's one sync per
-        decode chunk), under the watchdog when one is armed. The read
-        may run on the watchdog's thread, whose current device and
-        stream are its own: it reads on the engine's device and the
-        stream the chunk was queued on."""
+        decode chunk or paged speculative round), under the watchdog when
+        one is armed. The read may run on the watchdog's thread, whose
+        current device and stream are its own: it reads on the engine's
+        device and the stream the chunk was queued on."""
         stream = (torch.cuda.current_stream(self.device)
                   if self.device.type == "cuda" else None)
 
         def read():
             self._fire_fault("sync")
             if stream is None:
-                return toks.tolist(), lps.tolist()
+                return tuple(t.tolist() for t in tensors)
             with torch.cuda.device(self.device), torch.cuda.stream(stream):
-                return toks.tolist(), lps.tolist()
+                return tuple(t.tolist() for t in tensors)
 
         if self._watchdog is not None:
             # past the bound the engine reads degraded while the wait
@@ -966,8 +1139,19 @@ class ServingEngine(_EngineCore):
     K/V forecast in MiB), ``faults`` (``tpu.fake.WorkloadFaultPlan``)
     and ``sync_timeout_s`` (the harvest watchdog).
 
-    The reference's ``draft``, ``mm`` and ``mesh`` raise
-    ``NotImplementedError`` naming their ROADMAP item.
+    ``draft=(params_d, cfg_d, k)``: at single occupancy with a greedy,
+    prefix-free request the engine decodes through speculative rounds
+    (``spec.spec_slot_round``: draft k tokens, verify them in one target
+    chunk) over a draft slot cache mirrored at admission; above one
+    running request, for a sampling request or without k+1 rows of
+    headroom it runs the normal chunk. Not with ``pipeline=True``; under
+    a ring cache the draft must be windowed with the same floor. The
+    rounds read the target through ``chunk_step``'s einsum, also under
+    ``cfg.ragged_decode``: exact in f32, bf16 near-ties may break
+    differently across the two reads.
+
+    The reference's ``mm`` and ``mesh`` raise ``NotImplementedError``
+    naming their ROADMAP item.
     """
 
     def __init__(self, params: dict, cfg: TransformerConfig, n_slots: int,
@@ -980,7 +1164,7 @@ class ServingEngine(_EngineCore):
                  default_deadline_s: float | None = None,
                  admission: overload.AdmissionController | None = None,
                  faults=None, sync_timeout_s: float | None = None):
-        _refuse_unported(draft=draft, mm=mm, mesh=mesh)
+        _refuse_unported(mm=mm, mesh=mesh)
         self._init_core(params, cfg, n_slots, max_seq, prompt_buckets,
                         chunk, seed, top_k, queue_limit, reject_policy,
                         default_deadline_s, admission, faults,
@@ -1007,19 +1191,45 @@ class ServingEngine(_EngineCore):
         self.attn_impl = "ragged" if cfg.ragged_decode else "xla"
         self.slots = init_slots(cfg, n_slots, self.cache_rows, self.device)
         self.pipeline = pipeline
+        self._validate_draft(draft)
+        self.draft = draft
+        self.dslots = None
+        if draft is not None:
+            _dparams, dcfg, dk = draft
+            if pipeline:
+                # the pipelined loop dispatches chunks and never consults
+                # the spec path: the draft prefill would buy nothing
+                raise ValueError(consts.ERR_SPEC_PIPELINE)
+            if self.cache_rows < max_seq:
+                if self.cache_rows < cfg.attn_window + dk + 1:
+                    # a verify chunk of k+1 must never wrap its own band
+                    raise ValueError(
+                        f"ring cache rows {self.cache_rows} < attn_window"
+                        f" + k + 1 ({cfg.attn_window + dk + 1})")
+                # the draft cache shares the ring rows, so the draft must
+                # be windowed with the same exactness floor
+                dfloor = ((dcfg.attn_window or 0)
+                          + max(max(self.buckets), dk + 1))
+                if dcfg.attn_window is None or self.cache_rows < dfloor:
+                    raise ValueError(
+                        f"ring cache needs a windowed draft with rows >= "
+                        f"window + max(bucket, k+1) (rows "
+                        f"{self.cache_rows}, draft window "
+                        f"{dcfg.attn_window})")
+            self.dslots = init_slots(dcfg, n_slots, self.cache_rows,
+                                     self.device)
+            # zero counters from construction: "spec armed but quiet" is
+            # distinguishable from no spec at all
+            self.telemetry.set_spec_stats(0, 0, 0, 0)
         # per-slot forecast charge (MiB) backing the admission HBM gate
         self._charged_mib: dict[int, float] = {}
 
     def register_prefix(self, name: str, tokens: list) -> None:
         """Prefill ``tokens`` once and keep the K/V; requests naming this
         prefix get it copied into their slot instead of recomputed. Every
-        subscriber still holds its own copy of the prefix rows."""
-        plen = len(tokens)
-        if name in self.prefixes:
-            # queued requests were checked against the old length
-            raise ValueError(f"prefix {name!r} already registered")
-        if plen < 1 or plen >= self.max_seq:
-            raise ValueError(f"prefix length {plen} outside [1, max_seq)")
+        subscriber still holds its own copy of the prefix rows
+        (``PagedServingEngine`` shares the pages instead)."""
+        plen = self._validate_prefix_registration(name, tokens)
         if plen >= self.cache_rows:
             raise ValueError(f"prefix length {plen} exceeds the ring "
                              f"cache rows {self.cache_rows}")
@@ -1103,6 +1313,16 @@ class ServingEngine(_EngineCore):
                     self.telemetry.prefill_chunk(padded_len)
                     if req._trace is not None:
                         req._trace.bump("prefill_chunks")
+                    if (self.dslots is not None and req.prefix is None
+                            and req.temperature == 0):
+                        # mirror the prompt into the draft cache so a spec
+                        # round verifies against the same history (prefix
+                        # and sampling requests never take a round)
+                        dparams, dcfg, _ = self.draft
+                        ingest_chunk(dparams, arr, self.dslots, slot,
+                                     off + start, off + start + piece,
+                                     piece - 1, dcfg)
+                        self._dlengths[slot] = off + start + piece
             except Exception as e:
                 if not overload.is_resource_exhausted(e):
                     raise
@@ -1176,9 +1396,10 @@ class ServingEngine(_EngineCore):
         return reqs
 
     def _scrub_lane(self, slot: int) -> None:
-        """Retire-time cleanup: drop the slot's generator and HBM charge,
-        deactivate the slot on the device."""
+        """Retire-time cleanup: drop the slot's generator, draft mirror
+        and HBM charge, deactivate the slot on the device."""
         self._generators.pop(slot, None)
+        self._dlengths.pop(slot, None)
         self._charged_mib.pop(slot, None)
         self.slots["active"][slot] = False
         self.slots["lengths"][slot] = 0
@@ -1209,17 +1430,85 @@ class ServingEngine(_EngineCore):
             self._lengths[slot] += n
         return toks, lps, snapshot, t0, n
 
+    def _spec_slot(self) -> int | None:
+        """The slot a speculative round may run on, or None: exactly one
+        greedy, prefix-free, mirrored request live, nothing queued, and
+        k+1 rows of headroom. Above one request the slot batch already
+        amortizes the weight read, so the chunk path wins."""
+        if self.draft is None or len(self.running) != 1 or self.queue:
+            return None
+        slot, req = next(iter(self.running.items()))
+        k = self.draft[2]
+        if (req.temperature != 0 or req.prefix is not None
+                or slot not in self._dlengths
+                or self._lengths[slot] + k + 1 > self.max_seq):
+            return None
+        return slot
+
+    def _spec_catchup(self, slot: int) -> None:
+        """Bring the draft cache up to the target length before a round:
+        the batched chunk path advances only the target cache, and
+        drafting over unwritten rows would collapse acceptance. Every
+        missing token is in ``req.output``; the gap re-ingests through
+        the admission's bucket-padded chunks."""
+        L, dL = self._lengths[slot], self._dlengths[slot]
+        if dL >= L:
+            return
+        req = self.running[slot]
+        plen = len(req.prompt)
+        # positions plen..L-1 hold output[0..L-plen-1]
+        gap = req.output[dL - plen:L - plen]
+        dparams, dcfg, _ = self.draft
+        for start, piece, padded_len in self._prefill_chunks(len(gap)):
+            arr = torch.zeros((1, padded_len), dtype=torch.int64,
+                              device=self.device)
+            arr[0, :piece] = torch.tensor(gap[start:start + piece],
+                                          dtype=torch.int64)
+            ingest_chunk(dparams, arr, self.dslots, slot, dL + start,
+                         dL + start + piece, piece - 1, dcfg)
+        self._dlengths[slot] = L
+
+    def _spec_round(self, slot: int) -> None:
+        """One draft-k / verify-1 round on ``slot``
+        (``spec.spec_slot_round``); credit the accepted prefix plus the
+        target's own next token."""
+        from tpushare_torch.workloads.spec import spec_slot_round
+        self._spec_catchup(slot)
+        dparams, dcfg, k = self.draft
+        t0 = time.monotonic()
+        g, logp, a, self.slots, self.dslots = spec_slot_round(
+            self.params, dparams, self.slots, self.dslots, slot, self.cfg,
+            dcfg, k, length=self._lengths[slot])
+        # one read per round: the accepted count decides what the host
+        # may emit before the next round
+        g, logp, a = g.tolist(), logp.tolist(), int(a)
+        self._lengths[slot] += a + 1
+        self._dlengths[slot] = self._lengths[slot]
+        kept = self._spec_account(slot, g, logp, a, k)
+        # a round emits a+1 tokens in one draft + verify span
+        self.telemetry.decode_chunk(a + 1, time.monotonic() - t0, kept)
+
     def step(self) -> None:
-        """Admit, decode one chunk, retire finished requests. An
-        out-of-memory at dispatch (before the chunk runs) costs one
-        heuristic victim; one at the harvest, or inside the chunk, the
-        chunk's whole snapshot."""
+        """Admit, decode one chunk (or one speculative round), retire
+        finished requests. An out-of-memory at dispatch (before the chunk
+        runs) costs one heuristic victim; one at the harvest, or inside
+        the chunk, the chunk's whole snapshot. A round runs at single
+        occupancy, so its one request is the victim either way."""
         self._admit_waiting()
         if not self.running:
             if self.queue:
                 # admission deferred everything with nothing in flight:
                 # yield so run()'s bound spans real time
                 time.sleep(0.01)
+            return
+        slot = self._spec_slot()
+        if slot is not None:
+            try:
+                self._spec_round(slot)
+            except Exception as e:
+                if not overload.is_resource_exhausted(e):
+                    raise
+                self._recover_dispatch_oom()
             return
         try:
             pending = self._dispatch()
@@ -1294,6 +1583,17 @@ class PagedServingEngine(_EngineCore):
     exhaustion mid-decode (only under ``decode_forecast_fraction`` < 1)
     quarantines the request whose eviction frees the most pages.
 
+    Shared-prefix pages: ``register_prefix`` prefills a system prompt
+    once into pinned pool pages; a request naming it gets the prefix's
+    full pages spliced into its block table by reference
+    (``PageAllocator.share``), so N subscribers hold one physical copy,
+    and admission charges them only their private pages
+    (``paging.forecast_subscriber_pages``). Writes are fenced by
+    copy-on-write at the page boundary: the prefix's partial tail page
+    is materialized privately with the suffix install, and a decode
+    write that would touch a still-shared page first copies it into a
+    private page and swaps the table entry (``_cow_guard``).
+
     ``kv_codec`` is the pool's storage format (``consts.KV_CODECS``):
     "bf16" stores the model dtype; "int8" stores each of K/V as ``{"q":
     int8 pages, "s": fp32 per-(row, head) scales}``, quantized at page
@@ -1302,11 +1602,30 @@ class PagedServingEngine(_EngineCore):
     HBM buys about twice the pages and admits deeper concurrency under
     the same admission math. ``cfg.kv_int8`` (the slot cache's knob) is
     refused: the admission scratch is dense and the pool owns the codec.
+    Pinned prefix pages are quantized once at registration; a CoW clone
+    copies ``q`` and ``s`` byte for byte; a subscriber's private
+    prefix-tail page goes through the dense admission scratch and is
+    quantized again, so its prefix rows may differ from the registration
+    by one quantization step (the reference's rule).
 
     ``attn_impl``: "paged" reads through the CUDA paged-decode kernel
     (its int8 rung for an int8 pool), "xla" through the gather twin,
     "auto" picks the kernel where the pool lives on a CUDA device
-    (counted fallback otherwise).
+    (counted fallback otherwise). Both read tables whose prefix entries
+    alias across lanes.
+
+    ``draft=(params_d, cfg_d, k)`` arms batched speculative rounds: the
+    draft model runs over its own page pool, whose per-lane block
+    tables mirror the target's (the prompt ingested at admission, prefix
+    registrations pinned in both pools, batch-phase gaps caught up
+    before a round). When every running lane is greedy, mirrored and has
+    k+1 rows of headroom, and no queued request could join now, one
+    round drafts k tokens for all lanes and verifies them in one
+    multi-token pass (``_spec_paged_round``, plain gather reads); a
+    rejected tail is a block-table truncation and a page release in
+    both allocators. The page forecast grows by the round's k+1-row
+    tail; rounds that cannot fire are counted by reason
+    (``stats["spec_rounds_skipped"]``).
 
     Overload defense as the slot engine's; the admission controller's
     gate here is pages (``AdmissionController.admit_ok_pages``: the
@@ -1318,6 +1637,7 @@ class PagedServingEngine(_EngineCore):
                  prompt_buckets: tuple[int, ...] = (32, 128),
                  chunk: int = 8, seed: int = 0, top_k: int = 0,
                  attn_impl: str = "auto", kv_codec: str = "bf16",
+                 draft: tuple | None = None,
                  decode_forecast_fraction: float = 1.0,
                  queue_limit: int | None = None,
                  reject_policy: str = overload.REJECT_NEW,
@@ -1356,61 +1676,207 @@ class PagedServingEngine(_EngineCore):
                                         self.device)}
         # forecast charges backing the admission gate
         self._charged_pages: dict[int, int] = {}
+        # shared-prefix registry: name -> (token length, pinned page ids),
+        # allocated under the pin owner until drop_prefix
+        self.prefixes: dict[str, tuple[int, list[int]]] = {}
         self.stats["page_evictions"] = 0
         self.stats["peak_running"] = 0
+        self.stats["peak_shared_pages"] = 0
+        self.stats["prefix_hits"] = 0
+        self.stats["cow_copies"] = 0
+        # speculative decoding: the draft model's own pool and allocator,
+        # per-lane block tables mirroring the target lanes
+        self._validate_draft(draft)
+        self.draft = draft
+        self._dalloc: paging.PageAllocator | None = None
+        self.dstate: dict | None = None
+        # the draft half of the prefix registry: name -> (token length,
+        # pinned draft page ids, the partial tail page's tokens a
+        # subscriber re-ingests privately — the splice shares full pages)
+        self._dprefixes: dict[str, tuple[int, list[int], list[int]]] = {}
+        if draft is not None:
+            _dparams, dcfg, _dk = draft
+            # the draft pool passes the same config gate as the target's
+            check_paged_config(dcfg, kv_codec=kv_codec)
+            self._dalloc = paging.PageAllocator(n_pages, page_size,
+                                                reserved=1)
+            page_state = init_page_state(dcfg, n_lanes,
+                                         self.max_pages_per_lane,
+                                         self.device)
+            self.dstate = {**init_page_pool(dcfg, n_pages, page_size,
+                                            kv_codec=kv_codec,
+                                            device=self.device),
+                           "tables": page_state["tables"],
+                           "lengths": page_state["lengths"]}
+            self.telemetry.set_spec_stats(0, 0, 0, 0)
+        self._publish_pages()
 
-    def _prefix_len(self, req: Request) -> int:
-        if req.prefix is not None:
-            raise NotImplementedError(
-                "shared-prefix pages are not ported to the paged engine "
-                "yet: ROADMAP A.3 (the slot engine's register_prefix "
-                "serves prefixes by copy)")
-        return 0
+    # ---- shared-prefix registry ---------------------------------------
+
+    @staticmethod
+    def _prefix_owner(name: str) -> tuple:
+        """The allocator owner pinning a registration's pages (never a
+        lane index, so no admission can collide with it)."""
+        return ("__prefix__", name)
+
+    def register_prefix(self, name: str, tokens: list) -> None:
+        """Prefill ``tokens`` once into pinned pool pages; every request
+        naming this prefix gets those page ids spliced into its block
+        table by reference instead of recomputing or copying the prefix.
+        On the card the prefill runs the flash forward (K1). Raises
+        ``PagePoolExhausted`` when the pool cannot hold it."""
+        plen = self._validate_prefix_registration(name, tokens)
+        owner = self._prefix_owner(name)
+        ids = self.alloc.ensure(owner, plen)
+        try:
+            rows = paging.page_rounded_rows(plen, self.alloc.page_size)
+            cache = init_cache(self.cfg, 1, rows, device=self.device)
+            # the install quantizes a dense scratch into the pool codec; a
+            # {q, s} scratch means cfg grew kv_int8 after construction
+            if isinstance(cache["k"], dict):
+                raise ValueError(consts.ERR_KV_CODEC_MISMATCH_FMT.format(
+                    pool=self.kv_codec, cache="int8 (cfg.kv_int8)"))
+            _, cache = prefill(self.params,
+                               torch.tensor([tokens], device=self.device),
+                               self.cfg, cache)
+            _install_pages(self.state["k"], self.state["v"], cache["k"],
+                           cache["v"], self._ids(ids))
+        except Exception:
+            self.alloc.release(owner)
+            raise
+        if self.draft is not None:
+            try:
+                # all or nothing across the two pools: subscribers must
+                # never draft over an unwritten prefix
+                self._register_draft_prefix(name, tokens, plen)
+            except Exception:
+                self.alloc.release(owner)
+                raise
+        self.prefixes[name] = (plen, list(ids))
+        self._publish_pages()
+
+    def _register_draft_prefix(self, name: str, tokens: list,
+                               plen: int) -> None:
+        """Mirror a registration into the draft pool: prefill once with
+        the draft model, pin the pages under the draft pin owner, and
+        keep the partial tail page's tokens (subscribers re-ingest them
+        privately)."""
+        dparams, dcfg, _ = self.draft
+        owner = ("__dprefix__", name)
+        ids = self._dalloc.ensure(owner, plen)
+        ps = self._dalloc.page_size
+        try:
+            cache = init_cache(dcfg, 1, paging.page_rounded_rows(plen, ps),
+                               device=self.device)
+            _, cache = prefill(dparams,
+                               torch.tensor([tokens], device=self.device),
+                               dcfg, cache)
+            _install_pages(self.dstate["k"], self.dstate["v"], cache["k"],
+                           cache["v"], self._ids(ids))
+        except Exception:
+            self._dalloc.release(owner)
+            raise
+        self._dprefixes[name] = (plen, list(ids),
+                                 list(tokens[(plen // ps) * ps:]))
+
+    def drop_prefix(self, name: str) -> None:
+        """Unpin a registration: its pages recycle once the last live
+        subscriber releases them. Queued requests naming it are shed
+        terminally (they could never admit again); in-flight subscribers
+        keep the shared pages alive through their own references."""
+        if name not in self.prefixes:
+            raise ValueError(consts.ERR_PREFIX_UNKNOWN_FMT.format(name=name))
+        del self.prefixes[name]
+        keep: list[Request] = []
+        for q in self.queue:
+            if q.prefix == name:
+                self._shed_request(q)
+            else:
+                keep.append(q)
+        self.queue = keep
+        self.alloc.release(self._prefix_owner(name))
+        if self._dprefixes.pop(name, None) is not None:
+            self._dalloc.release(("__dprefix__", name))
+        self._publish_pages()
 
     # ---- page accounting ----------------------------------------------
 
+    def _ids(self, ids: list[int]) -> torch.Tensor:
+        return torch.tensor(ids, dtype=torch.int64, device=self.device)
+
     def _publish_pages(self) -> None:
-        a = self.alloc
+        snap = self.alloc.snapshot()
         pinned = sum(len(ids) for _, ids in self.prefixes.values())
-        self.telemetry.set_pages(a.usable_pages, a.pages_in_use(),
-                                 round(a.fragmentation_pct(), 1),
-                                 shared=a.shared_pages(), pinned=pinned)
+        self.stats["peak_shared_pages"] = max(
+            self.stats["peak_shared_pages"], snap["pages_shared"])
+        self.telemetry.set_pages(snap["pages_total"], snap["pages_in_use"],
+                                 snap["fragmentation_pct"],
+                                 shared=snap["pages_shared"], pinned=pinned)
+        self.telemetry.set_prefix_stats(self.stats["prefix_hits"],
+                                        self.stats["cow_copies"])
 
     def _forecast_pages(self, req: Request) -> int:
+        """Admission forecast in pages: the padded prompt's pages plus
+        the expected decode growth, against the lane's row bound. A
+        prefix subscriber is charged only its private pages
+        (``paging.forecast_subscriber_pages``). A drafted engine charges
+        every request the round's k+1-row scratch tail: a sampling lane
+        shares the pool the rounds transiently grow into."""
+        off = self._prefix_len(req)
+        tail = (self.draft[2] + 1) if self.draft is not None else 0
+        if off:
+            return paging.forecast_subscriber_pages(
+                off, self._padded_end(len(req.prompt)), req.max_new,
+                self.alloc.page_size, self.max_seq,
+                self.decode_forecast_fraction, tail)
         return paging.forecast_request_pages(
             self._padded_end(len(req.prompt)), req.max_new,
             self.alloc.page_size, self.max_seq,
-            self.decode_forecast_fraction)
+            self.decode_forecast_fraction, tail)
 
     def _eager_pages(self, req: Request) -> int:
         """Pages admission must take now (decode growth stays lazy)."""
-        return paging.pages_for_rows(self._padded_end(len(req.prompt)),
-                                     self.alloc.page_size)
+        return paging.eager_subscriber_pages(
+            self._prefix_len(req), self._padded_end(len(req.prompt)),
+            self.alloc.page_size)
 
     def _reserved_growth(self) -> int:
-        """Pages promised to running lanes but not yet allocated."""
-        return sum(max(0, charged - self.alloc.owned_pages(lane))
+        """Pages promised to running lanes but not yet allocated, private
+        pages on both sides (shared prefix entries are neither charged
+        nor owed)."""
+        return sum(max(0, charged - self.alloc.private_pages(lane))
                    for lane, charged in self._charged_pages.items()
                    if lane in self.running)
 
-    def _table_row(self, lane: int) -> torch.Tensor:
-        t = self.alloc.table(lane)
+    def _table_row(self, alloc: paging.PageAllocator,
+                   lane: int) -> torch.Tensor:
+        t = alloc.table(lane)
         return torch.tensor(t + [0] * (self.max_pages_per_lane - len(t)),
                             dtype=torch.int32, device=self.device)
 
     def _sync_table(self, lane: int) -> None:
-        self.state["tables"][lane] = self._table_row(lane)
+        self.state["tables"][lane] = self._table_row(self.alloc, lane)
+
+    def _sync_draft_table(self, lane: int) -> None:
+        self.dstate["tables"][lane] = self._table_row(self._dalloc, lane)
 
     def _scrub_lane(self, lane: int) -> None:
-        """Recycle the lane's pages, zero its table row (future dead-lane
-        writes land in the trash page), deactivate."""
+        """Recycle every page the lane holds — its draft mirror's too —,
+        zero its table rows (future dead-lane writes land in the trash
+        page), deactivate."""
         self._charged_pages.pop(lane, None)
         self._generators.pop(lane, None)
+        self._dlengths.pop(lane, None)
         if self.alloc.owned_pages(lane):
             self.alloc.release(lane)
         self.state["active"][lane] = False
         self.state["lengths"][lane] = 0
         self.state["tables"][lane] = 0
+        if self._dalloc is not None:
+            if self._dalloc.owned_pages(lane):
+                self._dalloc.release(lane)
+            self.dstate["lengths"][lane] = 0
+            self.dstate["tables"][lane] = 0
         self._publish_pages()
 
     # ---- admission ----------------------------------------------------
@@ -1448,7 +1914,9 @@ class PagedServingEngine(_EngineCore):
             return self._eager_pages(req) <= self.alloc.free_pages()
         return False
 
-    def _run_prefill_chunks(self, sk, sv, prompt: list):
+    def _run_prefill_chunks(self, sk, sv, prompt: list, off: int):
+        """Chunked prefill of ``prompt`` into the admission scratch at row
+        ``off``; returns (the final chunk's logits, sk, sv)."""
         logits = None
         for start, piece, padded_len in self._prefill_chunks(len(prompt)):
             arr = torch.zeros((1, padded_len), dtype=torch.int64,
@@ -1456,7 +1924,7 @@ class PagedServingEngine(_EngineCore):
             arr[0, :piece] = torch.tensor(prompt[start:start + piece],
                                           dtype=torch.int64)
             logits, sk, sv = _paged_prefill_chunk(
-                self.params, arr, sk, sv, start, piece - 1, self.cfg)
+                self.params, arr, sk, sv, off + start, piece - 1, self.cfg)
             self.stats["prefill_chunks"] += 1
             self.telemetry.prefill_chunk(padded_len)
         return logits, sk, sv
@@ -1477,33 +1945,56 @@ class PagedServingEngine(_EngineCore):
             self._trace_mark(req, "admit")
             plen = len(req.prompt)
             padded = self._padded_end(plen)
+            off = self._prefix_len(req)
             ps = self.alloc.page_size
             try:
                 self._fire_fault("admit")
-                self.alloc.ensure(lane, padded)
+                n_shared = 0
+                if off:
+                    # the full prefix pages join this lane's table by
+                    # reference; the partial tail page, where the
+                    # suffix's first write lands, is not spliced: it
+                    # materializes privately with the suffix install
+                    # (copy-on-write at the page boundary)
+                    _, p_ids = self.prefixes[req.prefix]
+                    n_shared = off // ps
+                    if n_shared:
+                        self.alloc.share(lane, p_ids[:n_shared])
+                self.alloc.ensure(lane, off + padded)
                 gen = self._sampling_generator(lane, req)
                 # page-rounded scratch: the transient prefill band costs
-                # O(prompt), not O(max_seq)
+                # O(prefix + prompt), not O(max_seq)
                 scratch = init_cache(self.cfg, 1,
-                                     paging.page_rounded_rows(padded, ps),
+                                     paging.page_rounded_rows(off + padded,
+                                                              ps),
                                      device=self.device)
+                sk, sv = scratch["k"], scratch["v"]
+                if off:
+                    # the prefix's K/V by device gather, no recompute: the
+                    # suffix chunks attend over these rows as the slot
+                    # engine's copied prefix
+                    sk, sv = load_pool_pages(sk, sv, self.state["k"],
+                                             self.state["v"],
+                                             self._ids(p_ids))
                 self.telemetry.prefill_start(id(req))
                 self._trace_mark(req, "prefill")
                 if req._trace is not None:
                     req._trace.bump("prefill_chunks",
                                     len(self._prefill_chunks(plen)))
                 logits, sk, sv = self._run_prefill_chunks(
-                    scratch["k"], scratch["v"], req.prompt)
+                    sk, sv, req.prompt, off)
                 table = self.alloc.table(lane)
                 _install_pages(self.state["k"], self.state["v"], sk, sv,
-                               torch.tensor(table, dtype=torch.int64,
-                                            device=self.device))
-                _paged_admit_commit(self.state, lane, self._table_row(lane),
-                                    plen, logits, req.temperature,
+                               self._ids(table[n_shared:]),
+                               skip_pages=n_shared)
+                _paged_admit_commit(self.state, lane,
+                                    self._table_row(self.alloc, lane),
+                                    off + plen, logits, req.temperature,
                                     req.top_p, gen, top_k=self.top_k,
                                     use_top_p=self._use_top_p)
             except paging.PagePoolExhausted:
-                # raced below the gate's estimate: put the head back and
+                # raced below the gate's estimate: put the head back (a
+                # spliced prefix reference unwinds with the release) and
                 # let the next step's retirements free room
                 if self.alloc.owned_pages(lane):
                     self.alloc.release(lane)
@@ -1520,9 +2011,16 @@ class PagedServingEngine(_EngineCore):
                 free.append(lane)
                 continue
             self.running[lane] = req
-            self._lengths[lane] = plen
-            self.alloc.note_rows(lane, plen)
+            self._lengths[lane] = off + plen
+            self.alloc.note_rows(lane, off + plen)
             self._charged_pages[lane] = self._forecast_pages(req)
+            self._mirror_admit(lane, req, off, plen)
+            if off:
+                self.stats["prefix_hits"] += 1
+                if off % ps:
+                    # the prefix tail page was materialized privately
+                    # with the suffix install: the page-boundary CoW
+                    self.stats["cow_copies"] += 1
             self.telemetry.admitted(id(req))
             wave.append((lane, req))
         self.stats["peak_running"] = max(self.stats["peak_running"],
@@ -1532,19 +2030,240 @@ class PagedServingEngine(_EngineCore):
             self._credit_first_tokens(wave, self.state["tokens"],
                                       self.state["logps"])
 
+    # ---- speculative decoding: the draft block-table mirror -----------
+
+    def _draft_ingest(self, lane: int, toks: list, base: int) -> None:
+        """Teacher-forced ingest of ``toks`` into the lane's draft pages
+        at ``base``, through the admission's bucket-padded chunk layout.
+        The caller has ensured the pages."""
+        dparams, dcfg, _ = self.draft
+        w = self._rung_for_rows(base + self._padded_end(len(toks)))
+        for start, piece, padded_len in self._prefill_chunks(len(toks)):
+            arr = torch.zeros((1, padded_len), dtype=torch.int64,
+                              device=self.device)
+            arr[0, :piece] = torch.tensor(toks[start:start + piece],
+                                          dtype=torch.int64)
+            _draft_ingest_chunk(dparams, self.dstate, lane, arr,
+                                base + start, base + start + piece, dcfg,
+                                gather_pages_w=w)
+
+    def _mirror_admit(self, lane: int, req: Request, off: int,
+                      plen: int) -> None:
+        """Mirror this admission into the draft tables: splice the
+        prefix's full draft pages by reference, then ingest the tail-page
+        tokens and the prompt into private draft pages — after which the
+        lane may speculate. Best effort: on draft-pool exhaustion, a pad
+        layout past the lane bound or an out-of-memory the lane simply
+        never becomes spec-eligible (a missing mirror costs speed, never
+        exactness). Sampling requests skip it: they take no round."""
+        if self.draft is None or req.temperature != 0:
+            return
+        ps = self._dalloc.page_size
+        n_shared = 0
+        tail: list[int] = []
+        if off:
+            reg = self._dprefixes.get(req.prefix)
+            if reg is None:
+                return
+            _dplen, d_ids, tail = reg
+            n_shared = off // ps
+        base = n_shared * ps
+        toks = list(tail) + list(req.prompt)
+        if base + self._padded_end(len(toks)) > self.max_seq:
+            # the ingest's pad tail would run past the lane bound
+            return
+        try:
+            if n_shared:
+                self._dalloc.share(lane, d_ids[:n_shared])
+            self._dalloc.ensure(lane, base + self._padded_end(len(toks)))
+        except paging.PagePoolExhausted:
+            if self._dalloc.owned_pages(lane):
+                self._dalloc.release(lane)
+            return
+        try:
+            self._sync_draft_table(lane)
+            self._draft_ingest(lane, toks, base)
+        except Exception as e:
+            if not overload.is_resource_exhausted(e):
+                raise
+            # unwind the mirror, keep the committed target admission
+            if self._dalloc.owned_pages(lane):
+                self._dalloc.release(lane)
+            return
+        self._dalloc.note_rows(lane, off + plen)
+        self._dlengths[lane] = off + plen
+
+    def _spec_catchup_paged(self, lane: int) -> bool:
+        """Bring the lane's draft mirror up to the target length before a
+        round (the batch-phase chunks advance only the target pool);
+        every missing token is in ``req.output``. False when the mirror
+        cannot catch up now (draft pages, pad layout): the round is
+        skipped, never wrong."""
+        L, dL = self._lengths[lane], self._dlengths[lane]
+        if dL >= L:
+            return True
+        req = self.running[lane]
+        base = self._prefix_len(req) + len(req.prompt)
+        gap = req.output[dL - base:L - base]
+        if dL + self._padded_end(len(gap)) > self.max_seq:
+            return False
+        try:
+            self._dalloc.ensure(lane, dL + self._padded_end(len(gap)))
+        except paging.PagePoolExhausted:
+            return False
+        self._sync_draft_table(lane)
+        self._draft_ingest(lane, gap, dL)
+        self._dalloc.note_rows(lane, L)
+        self._dlengths[lane] = L
+        return True
+
+    def _spec_ready(self) -> bool:
+        """May this step run a batched round? Every running lane greedy,
+        mirrored and inside the k+1-row headroom, and no queued joiner
+        admissible now (continuous batching bounds a joiner's wait at one
+        step; a round is up to k+1). Each refusal is counted by reason."""
+        if self.draft is None or not self.running:
+            return False
+        k = self.draft[2]
+        for lane, req in self.running.items():
+            if req.temperature != 0:
+                self._spec_skip("sampling")
+                return False
+            if lane not in self._dlengths:
+                self._spec_skip("no_mirror")
+                return False
+            if self._lengths[lane] + k + 1 > self.max_seq:
+                self._spec_skip("headroom")
+                return False
+        if self._could_admit_now():
+            self._spec_skip("joiner_waiting")
+            return False
+        return True
+
+    def _spec_round_paged(self) -> bool:
+        """One batched draft-k / verify-1 round over every running lane:
+        pre-grow each lane's tables behind the CoW fence (target k+1
+        rows, draft k), run the round, credit each lane's accepted prefix
+        through the shared accounting, then truncate the rejected tails —
+        a block-table truncation and a page release in both allocators.
+        Returns False (the step falls through to the chunk path, whose
+        victim eviction handles real exhaustion) when the growth cannot
+        be satisfied."""
+        dparams, dcfg, k = self.draft
+        self._fire_fault("dispatch")
+        lanes = sorted(self.running)
+        t0 = time.monotonic()
+        try:
+            for lane in lanes:
+                if not self._spec_catchup_paged(lane):
+                    self._spec_skip("draft_pages")
+                    return False
+                if self.alloc.ensure(lane, self._lengths[lane] + k + 1):
+                    self._sync_table(lane)
+                # no draft or verify write may land in a still-shared page
+                self._cow_guard(lane, k + 1)
+                if self._dalloc.ensure(lane, self._lengths[lane] + k):
+                    self._sync_draft_table(lane)
+        except paging.PagePoolExhausted:
+            self._spec_skip("pool_exhausted")
+            return False
+        w = self._rung_for_rows(max(self._lengths[s] for s in lanes) + k + 1)
+        snapshot = dict(self.running)
+        out = self._run_chunk(lambda: _spec_paged_round(
+            self.params, dparams, self.state, self.dstate, self.cfg, dcfg,
+            k, self.max_seq, gather_pages_w=w), snapshot)
+        if out is None:
+            return True
+        g, logp, a, self.state, self.dstate = out
+        try:
+            # the accept counts decide what the host may emit before the
+            # next round can be built
+            g, logp, a = self._host_read(g, logp, a)
+        except Exception as e:
+            if not overload.is_resource_exhausted(e):
+                raise
+            # the round already advanced the pools past what the host
+            # will see: quarantine its whole snapshot
+            self._recover_harvest_oom(snapshot)
+            return True
+        kept, a_max = 0, 0
+        for lane in lanes:
+            al = a[lane]
+            a_max = max(a_max, al)
+            new_len = self._lengths[lane] + al + 1
+            self._lengths[lane] = new_len
+            self._dlengths[lane] = new_len
+            kept += self._spec_account(lane, g[lane], logp[lane], al, k)
+            if lane in self.running:
+                # rejection: the scratch tail past the accepted prefix is
+                # a table truncation and a page release
+                if self.alloc.truncate(lane, new_len):
+                    self._sync_table(lane)
+                if self._dalloc.truncate(lane, new_len):
+                    self._sync_draft_table(lane)
+        self.stats["chunks"] += 1
+        # one span covers the batched round: its serial depth is the
+        # longest accepted chain, its credit every kept token
+        self.telemetry.decode_chunk(a_max + 1, time.monotonic() - t0, kept)
+        if self.admission is not None:
+            self.admission.on_progress()
+            self.telemetry.set_watermark(self.admission.watermark())
+        self._publish_pages()
+        return True
+
     # ---- decode -------------------------------------------------------
+
+    def _cow_guard(self, lane: int, n: int) -> None:
+        """Copy-on-write before a write: if a page the lane's next ``n``
+        writes would touch is still shared, copy it into a private page
+        (``decode.copy_pool_page``) and swap the table entry. Reserve,
+        device copy, then commit: an out-of-memory in the copy aborts the
+        reservation and leaves the table and refcounts untouched, and the
+        device table learns of a swap only after its copy was queued, on
+        the same stream, so no reader sees a half-copied page. In the
+        shipped admission layout the suffix install already privatized
+        the prefix tail, so this enforces the invariant rather than
+        running hot; ``PagePoolExhausted`` propagates to the caller's
+        victim eviction."""
+        shared = self.alloc.shared_pages_of(lane)
+        if not shared:
+            return
+        ps = self.alloc.page_size
+        lo = self._lengths[lane] // ps
+        hi = (min(self._lengths[lane] + n, self.max_seq) - 1) // ps
+        table = self.alloc.table(lane)
+        swapped = False
+        try:
+            for idx in range(lo, min(hi + 1, len(table))):
+                if table[idx] in shared:
+                    old, new = self.alloc.begin_private_copy(lane, idx)
+                    try:
+                        copy_pool_page(self.state["k"], self.state["v"],
+                                       old, new)
+                    except BaseException:
+                        self.alloc.abort_private_copy(new)
+                        raise
+                    self.alloc.commit_private_copy(lane, idx, old, new)
+                    self.stats["cow_copies"] += 1
+                    swapped = True
+        finally:
+            # an exhaustion mid-loop must not strand a committed swap:
+            # the device table learns every one before the retry
+            if swapped:
+                self._sync_table(lane)
 
     def _ensure_pages(self, n: int) -> bool:
         """Grow every running lane's table to cover its next ``n`` rows
-        before dispatch. On pool exhaustion quarantine the lane whose
-        eviction frees the most pages and retry; False when nothing is
-        left running."""
+        before dispatch and run the copy-on-write guard. On pool
+        exhaustion quarantine the lane whose eviction frees the most
+        pages and retry; False when nothing is left running."""
         while self.running:
             try:
                 for lane in sorted(self.running):
                     rows = min(self._lengths[lane] + n, self.max_seq)
                     if self.alloc.ensure(lane, rows):
                         self._sync_table(lane)
+                    self._cow_guard(lane, n)
                 return True
             except paging.PagePoolExhausted:
                 victim = max(self.running, key=self._victim_key)
@@ -1557,8 +2276,9 @@ class PagedServingEngine(_EngineCore):
         return False
 
     def _victim_key(self, lane: int):
-        """Pages a quarantine would recycle (private pages), length as
-        the tiebreak."""
+        """Pages a quarantine would recycle — private pages: a
+        subscriber's shared prefix pages stay pinned by the registration
+        —, length as the tiebreak."""
         return (self.alloc.private_pages(lane), self._lengths.get(lane, 0))
 
     def _could_admit_now(self) -> bool:
@@ -1591,7 +2311,8 @@ class PagedServingEngine(_EngineCore):
         return n
 
     def _rung_for_rows(self, rows: int) -> int:
-        """Power-of-two table read width covering ``rows``."""
+        """Power-of-two table read width covering ``rows`` (the decode
+        read, the spec round and the draft ingest)."""
         need = paging.pages_for_rows(min(rows, self.max_seq),
                                      self.alloc.page_size)
         w = self.max_pages_per_lane
@@ -1629,15 +2350,28 @@ class PagedServingEngine(_EngineCore):
         return toks, lps, snapshot, t0, n
 
     def step(self) -> None:
-        """Admit (every step), decode one chunk, harvest, retire, with
-        the slot engine's out-of-memory split; pool exhaustion is
-        handled in ``_ensure_pages`` (victim quarantine)."""
+        """Admit (every step), decode one chunk or one batched
+        speculative round, harvest, retire, with the slot engine's
+        out-of-memory split; pool exhaustion is handled in
+        ``_ensure_pages`` (victim quarantine), and a round that cannot
+        grow its tables falls through to the chunk path."""
         self._fire_fault("step")
         self._admit_waiting()
         if not self.running:
             if self.queue:
                 time.sleep(0.01)
             return
+        if self._spec_ready():
+            try:
+                if self._spec_round_paged():
+                    return
+            except Exception as e:
+                if not overload.is_resource_exhausted(e):
+                    raise
+                # raised at the round's dispatch, before its programs:
+                # a chunk dispatch's heuristic victim
+                self._recover_dispatch_oom()
+                return
         try:
             pending = self._dispatch(self._next_chunk())
         except Exception as e:
