@@ -88,6 +88,33 @@ then drives the main paths through their entry points at full width
 - ``train-payload``: ``train_payload.main`` for 6 steps with
   checkpoints, then a restart that resumes and trains to step 9 (the
   payload's own config, head_dim 16);
+- int8 weights (``infer --int8``, ``quant.qmm`` over
+  ``quant.quantize_params``' mirror): ``forward-w8`` (16 K1 a forward;
+  the weight bytes summed from the tensors equal
+  ``quantized_param_bytes``; logits within the logits rule of the f32
+  forward over the same weights, the 5-bit control failing it),
+  ``decode-w8`` (``qgenerate``), ``serve-w8`` (``serve --paged --int8``,
+  16 K5 a decode step), ``serve-ragged-w8`` (16 K4 a step),
+  ``w8-f32-identity`` (kernel == twin reads over int8 weights on both
+  engines and both pool codecs, ``qgenerate``'s flash prefill == plain)
+  and, with the profiler, ``serve-w8-cost`` (host wall and device busy
+  a decode step against the bf16 weights');
+- ``lora-train``: 3 LoRA steps (rank 16 on wq, wv) over the training
+  preset's bf16 base, then 3 QLoRA steps over its int8 mirror: 12/12/12
+  K1–K3 a step, step 0's loss the base model's, the base bitwise
+  unchanged, QLoRA's peak memory at least 0.4 GiB below LoRA's;
+- MoE at ``bench.py``'s MoE width (906M params, 8 experts, top-2):
+  ``moe-forward`` (B=4 x S=512, 8 K1 a forward), ``moe-serve`` (the
+  serve traffic through the paged engine, 8 K5 a decode step at
+  head_dim 64, and the slot engine's einsum read), ``moe-train`` (3
+  steps of ``train.make_moe_train_step``, 8/8/8 K1–K3 a step; its
+  heads, 16 x 64, are rows ``moe-train-lse`` of ``flash-vs-plain`` and
+  ``moe-hd64`` of ``flash-bwd-vs-plain``, each with its rounding
+  control), ``moe-f32-identity`` (2-layer f32 MoEs, kernel == twin
+  reads on both engines, ``moe_generate``'s flash prefill == plain) and
+  ``moe-train-f32-parity`` (one step of a 2-layer f32 MoE at head_dim
+  64 through the kernels against ``attn_impl="xla"``, at the f32 train
+  step's tolerances);
 
 with the launch counts zeroed just before each path runs and read just
 after, so the run shows each path went through its kernels. It prints
@@ -300,6 +327,8 @@ def flash_cases(torch):
         ("train-remat", 8, 2048, 16, 16, 96, "bfloat16", None, True),
         ("payload-hd16", 8, 64, 8, 8, 16, "bfloat16", None, True),
         ("hd96", 2, 512, 16, 16, 96, "bfloat16", None, False),
+        # moe-train's heads (16 x 64) at its batch, with LSE
+        ("moe-train-lse", 4, 512, 16, 16, 64, "bfloat16", None, True),
     ]
     rows = []
     for label, B, S, H, Hkv, hd, dtype, window, with_lse in cases:
@@ -380,7 +409,11 @@ BWD_CASES = [  # (label, B, S, H, Hkv, hd, dtype, causal, window)
     ("payload-hd16", 8, 64, 8, 8, 16, "bfloat16", True, None),
     # the flagship's heads (16 x 128), trained through flash below S=4096
     ("hd128", 2, 2 * TRAIN_S, 16, 16, 128, "bfloat16", True, None),
+    # moe-train's heads (16 x 64) at its batch
+    ("moe-hd64", 4, 512, 16, 16, 64, "bfloat16", True, None),
 ]
+# the rows whose 4-bit rounding control must fail the check
+BWD_CONTROL_CASES = ("main-path", "moe-hd64")
 
 
 def bwd_inputs(torch, gen, B, S, H, Hkv, hd, dtype):
@@ -442,15 +475,16 @@ def bwd_cases(torch):
                     f"{scale} vs the plain backward / autograd > {tol}")
             errs[name] = (rel, rel_auto, max_err(g, w))
         controls = {}
-        if label == "main-path":
+        if label in BWD_CONTROL_CASES:
             for b in (7, 6, 5, CONTROL_BITS_BWD):
                 controls[f"control_rel_err_b{b}"] = max(
                     max_err(round_to_bits(torch, g, b), w)
                     / w.float().abs().max().item()
                     for g, w in zip(got, want))
             if not controls[f"control_rel_err_b{CONTROL_BITS_BWD}"] > tol:
-                raise RuntimeError(f"the {CONTROL_BITS_BWD}-bit control "
-                                   "passes the backward check")
+                raise RuntimeError(f"flash bwd {label}: the "
+                                   f"{CONTROL_BITS_BWD}-bit control passes "
+                                   "the backward check")
         dq_ms = time_ms(dq_kernel)
         dkv_ms = time_ms(dkv_kernel)
         plain_ms = time_ms(plain, reps=5, warmup=1)
@@ -703,6 +737,8 @@ def splash_bwd_cases(torch):
 PAGED_CASES = [  # (label, B, H, Hkv, hd, ps, table width, max kv_len,
     #              short lanes' top kv_len or None, dtype)
     ("main-path", 8, 16, 16, 128, 32, 8, 256, None, "bfloat16"),
+    # moe-serve's read: bench.py's MoE width, 16 heads of 64
+    ("moe-hd64", 8, 16, 16, 64, 32, 8, 256, None, "bfloat16"),
     ("flagship-2k", 8, 16, 16, 128, 32, 64, 2048, None, "bfloat16"),
     ("flagship-2k", 8, 16, 16, 128, 32, 64, 2048, None, "float32"),
     ("gqa-2k", 8, 16, 4, 128, 32, 64, 2048, None, "bfloat16"),
@@ -1227,9 +1263,10 @@ def round_to_bits(torch, x, bits: int):
     return torch.ldexp(torch.round(m * 2 ** bits) / 2 ** bits, e).to(x.dtype)
 
 
-def forward_rounded(torch, params, tokens, cfg, bits: int):
-    """The flagship forward with each layer's kernel output rounded to
-    ``bits`` significant bits: the control of the logits check."""
+def forward_rounded(torch, params, tokens, cfg, bits: int, mm=None):
+    """The flagship forward (through ``mm``) with each layer's kernel
+    output rounded to ``bits`` significant bits: the control of the
+    logits checks."""
     from tpushare_torch.workloads.models.transformer import (
         attention, embed_lookup, layer_block, layer_params, lm_head,
         rope_tables)
@@ -1238,10 +1275,10 @@ def forward_rounded(torch, params, tokens, cfg, bits: int):
     def attn_core(q, k, v):
         return round_to_bits(torch, attention(q, k, v, cfg), bits), None
 
-    x = embed_lookup(params["embed"], tokens)
+    x = embed_lookup(params["embed"], tokens, cfg.dtype)
     for i in range(cfg.n_layers):
         x, _ = layer_block(x, layer_params(params, i), cfg, cos, sin,
-                           attn_core)
+                           attn_core, mm=mm)
     return lm_head(params, x)
 
 
@@ -1962,15 +1999,20 @@ PAGED_F32 = dict(vocab=512, d_model=256, n_heads=4, n_kv_heads=2,
                  n_layers=2, d_ff=512, max_seq=256)
 
 
-def f32_setup(torch, kw, seed, n, max_prompt, new_range):
-    """A small f32 config, its weights and ``n`` (prompt, max_new) specs
-    from ``seed``."""
+def f32_setup(torch, kw, seed, n, max_prompt, new_range, moe=False):
+    """A small f32 config (dense, or with ``moe`` a ``MoEConfig``), its
+    weights and ``n`` (prompt, max_new) specs from ``seed``."""
     import numpy as np
+    from tpushare_torch.workloads.models.moe import MoEConfig, init_moe_params
     from tpushare_torch.workloads.models.transformer import (
         TransformerConfig, init_params)
-    cfg = TransformerConfig(**kw, dtype=torch.float32)
-    params = init_params(torch.Generator(device="cuda").manual_seed(seed),
-                         cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if moe:
+        cfg = MoEConfig(**kw, dtype=torch.float32)
+        params = init_moe_params(gen, cfg, "cuda")
+    else:
+        cfg = TransformerConfig(**kw, dtype=torch.float32)
+        params = init_params(gen, cfg, "cuda")
     rng = np.random.default_rng(seed)
     specs = [(rng.integers(0, cfg.vocab, int(rng.integers(5, max_prompt)))
               .tolist(), int(rng.integers(*new_range))) for _ in range(n)]
@@ -1991,12 +2033,25 @@ def transcripts(eng, specs, prefix=None):
     return [r.output for r in served(eng, specs, prefix)]
 
 
-def slot_identity(torch, build, kv_int8: bool):
+def weight_path(params, w8: bool):
+    """(params, mm): as given, or the int8 mirror and ``quant.qmm``."""
+    if not w8:
+        return params, None
+    from tpushare_torch.workloads.quant import qmm, quantize_params
+    return quantize_params(params), qmm
+
+
+def slot_identity(torch, build, kv_int8: bool, w8: bool = False,
+                  setup=None):
     """The slot engine through the ragged kernel, through the einsum read
     and through the kernel engine's pipelined loop: token-identical
-    greedy transcripts. Returns (requests, tokens, launches by run)."""
+    greedy transcripts (over int8 weights with ``w8``; ``setup`` is
+    another config's ``f32_setup``). Returns (requests, tokens, launches
+    by run)."""
     from tpushare_torch.workloads.serving import ServingEngine
-    cfg, params, specs, _ = f32_setup(torch, SLOT_F32, 12, 6, 90, (8, 120))
+    cfg, params, specs, _ = setup or f32_setup(torch, SLOT_F32, 12, 6, 90,
+                                               (8, 120))
+    params, mm = weight_path(params, w8)
     name = "ragged_decode_int8" if kv_int8 else "ragged_decode"
     outs, launched = {}, {}
     for label, ragged, pipeline in (("kernel", True, False),
@@ -2005,7 +2060,8 @@ def slot_identity(torch, build, kv_int8: bool):
         before = dict(build.LAUNCHES)
         eng = ServingEngine(params, dataclasses.replace(
             cfg, ragged_decode=ragged, kv_int8=kv_int8), n_slots=3,
-            max_seq=512, prompt_buckets=(16, 64), chunk=4, pipeline=pipeline)
+            max_seq=512, prompt_buckets=(16, 64), chunk=4, pipeline=pipeline,
+            mm=mm)
         outs[label] = transcripts(eng, specs)
         launched[label] = {k: n - before[k] for k, n in build.LAUNCHES.items()
                            if n - before[k]}
@@ -2019,13 +2075,16 @@ def slot_identity(torch, build, kv_int8: bool):
     return len(specs), sum(map(len, outs["kernel"])), launched
 
 
-def paged_identity(torch, build, kv_codec: str):
+def paged_identity(torch, build, kv_codec: str, w8: bool = False,
+                   setup=None):
     """The paged engine through the kernel and through the gather twin:
-    token-identical greedy transcripts. Returns (params, cfg, rng,
-    requests, tokens, kernel launches)."""
+    token-identical greedy transcripts (over int8 weights with ``w8``;
+    ``setup`` is another config's ``f32_setup``). Returns (params, cfg,
+    rng, requests, tokens, kernel launches)."""
     from tpushare_torch.workloads.serving import PagedServingEngine
-    cfg, params, specs, rng = f32_setup(torch, PAGED_F32, 4, 6, 60,
-                                       (4, 40))
+    cfg, params, specs, rng = setup or f32_setup(torch, PAGED_F32, 4, 6, 60,
+                                                 (4, 40))
+    params, mm = weight_path(params, w8)
     name = "paged_decode_int8" if kv_codec == "int8" else "paged_decode"
     outs, launched = {}, {}
     for impl in ("paged", "xla"):
@@ -2033,7 +2092,7 @@ def paged_identity(torch, build, kv_codec: str):
         eng = PagedServingEngine(params, cfg, n_lanes=3, max_seq=128,
                                  n_pages=40, page_size=16,
                                  prompt_buckets=(16, 64), chunk=4,
-                                 attn_impl=impl, kv_codec=kv_codec)
+                                 attn_impl=impl, kv_codec=kv_codec, mm=mm)
         outs[impl] = transcripts(eng, specs)
         launched[impl] = build.LAUNCHES[name] - before
     if not launched["paged"] or launched["xla"]:
@@ -2419,6 +2478,8 @@ def serve_spec_cost(torch, infer):
     torch.cuda.empty_cache()
     chunk = profile_steps(torch, infer, [])
     torch.cuda.empty_cache()
+    w8 = profile_steps(torch, infer, ["--int8"])
+    torch.cuda.empty_cache()
     if spec["rounds"] != COST_STEPS * COST_LANES or chunk["rounds"]:
         raise RuntimeError(f"serve-spec-cost: {spec['rounds']} lane rounds "
                            f"in {COST_STEPS} spec steps of {COST_LANES} "
@@ -2431,6 +2492,21 @@ def serve_spec_cost(torch, infer):
           round_busy_ms_per_token=spec["device_busy_ms"] / spec["tokens"],
           chunk_busy_ms_per_token=chunk["device_busy_ms"]
           / chunk["tokens"])
+    # the same 16-step chunks over int8 weights: host wall and device
+    # busy per decode step against the bf16 weights' (an engine step is
+    # one chunk of 16 decode steps)
+    per = 16
+    phase("serve-w8-cost", lanes=COST_LANES,
+          wall_ms_per_decode_step=w8["wall_ms"] / per,
+          device_busy_ms_per_decode_step=w8["device_busy_ms"] / per,
+          bf16_wall_ms_per_decode_step=chunk["wall_ms"] / per,
+          bf16_device_busy_ms_per_decode_step=chunk["device_busy_ms"] / per,
+          busy_ratio=w8["device_busy_ms"] / chunk["device_busy_ms"],
+          wall_ratio=w8["wall_ms"] / chunk["wall_ms"],
+          w8_tokens_per_step=w8["tokens"], tokens_per_step=chunk["tokens"])
+    if w8["rounds"] or w8["tokens"] != chunk["tokens"]:
+        raise RuntimeError(f"serve-w8-cost: {w8['tokens']} tokens a step "
+                           f"against {chunk['tokens']}")
 
 
 # ---------------------------------------------------------------------------
@@ -2450,11 +2526,13 @@ def clone_state(torch, state):
 
 
 def train_setup(torch, cfg, seed, B, S):
+    from tpushare_torch.workloads.models.moe import init_moe_params
     from tpushare_torch.workloads.models.transformer import init_params
     from tpushare_torch.workloads.train import init_state, make_optimizer
     gen = torch.Generator(device="cuda").manual_seed(seed)
     opt = make_optimizer()
-    state = init_state(init_params(gen, cfg, "cuda"), opt)
+    init = init_moe_params if hasattr(cfg, "n_experts") else init_params
+    state = init_state(init(gen, cfg, "cuda"), opt)
     inputs = torch.randint(0, cfg.vocab, (B, S), generator=gen,
                            device="cuda")
     return opt, state, inputs, torch.roll(inputs, -1, dims=1)
@@ -2557,27 +2635,43 @@ def train_remat_path(torch, build):
     return launches
 
 
-def train_f32_parity(torch, build):
-    """A 2-layer GQA f32 config: one step through the kernels and one
-    through ``attn_impl="xla"`` from the same state agree."""
-    from tpushare_torch.workloads.models.transformer import TransformerConfig
+def train_f32_parity(torch, build, moe=False):
+    """A 2-layer GQA f32 config at head_dim 96 (``train``'s heads) or,
+    with ``moe``, a 2-layer GQA f32 MoE at head_dim 64 (``moe-train``'s
+    heads; max_seq = S and capacity factor 1, so capacity drops tokens
+    as in moe-train): one step through the kernels and one through
+    ``attn_impl="xla"`` from the same state agree."""
+    from tpushare_torch.workloads.models.moe import MoEConfig, moe_loss_fn
+    from tpushare_torch.workloads.models.transformer import (
+        TransformerConfig, loss_fn)
     from tpushare_torch.workloads.train import (loss_and_grads,
+                                                make_moe_train_step,
                                                 make_train_step,
                                                 tree_leaves)
-    cfg = TransformerConfig(vocab=512, d_model=384, n_heads=4, n_kv_heads=2,
-                            n_layers=2, d_ff=768, max_seq=256,
-                            dtype=torch.float32)
+    if moe:
+        name, loss_of, make_step = ("moe-train-f32-parity", moe_loss_fn,
+                                    make_moe_train_step)
+        cfg = MoEConfig(**{**MOE_F32, "max_seq": 256,
+                           "capacity_factor": 1.0}, dtype=torch.float32)
+    else:
+        name, loss_of, make_step = "train-f32-parity", loss_fn, \
+            make_train_step
+        cfg = TransformerConfig(vocab=512, d_model=384, n_heads=4,
+                                n_kv_heads=2, n_layers=2, d_ff=768,
+                                max_seq=256, dtype=torch.float32)
     plain_cfg = dataclasses.replace(cfg, attn_impl="xla")
     opt, state, inputs, targets = train_setup(torch, cfg, 8, 4, 256)
     before = dict(build.LAUNCHES)
-    _, k_grads = loss_and_grads(state["params"], inputs, targets, cfg)
-    _, p_grads = loss_and_grads(state["params"], inputs, targets, plain_cfg)
+    _, k_grads = loss_and_grads(state["params"], inputs, targets, cfg,
+                                loss_of)
+    _, p_grads = loss_and_grads(state["params"], inputs, targets, plain_cfg,
+                                loss_of)
     grad_err = max(max_err(a, b) / b.abs().max().item() for a, b in
                    zip(tree_leaves(k_grads), tree_leaves(p_grads)))
     del k_grads, p_grads
-    k_state, k_loss1 = make_train_step(cfg, opt, "cuda")(
+    k_state, k_loss1 = make_step(cfg, opt, "cuda")(
         clone_state(torch, state), inputs, targets)
-    p_state, p_loss1 = make_train_step(plain_cfg, opt, "cuda")(
+    p_state, p_loss1 = make_step(plain_cfg, opt, "cuda")(
         clone_state(torch, state), inputs, targets)
     kernel_launches = build.LAUNCHES["flash_bwd_dkv"] - before[
         "flash_bwd_dkv"]
@@ -2588,7 +2682,7 @@ def train_f32_parity(torch, build):
     off = sum(int(((a - b).abs() > F32_PARAM_TOL).sum()) for a, b in pairs)
     off_share = off / sum(a.numel() for a, _ in pairs)
     lr = opt.lr_at(0)
-    phase("train-f32-parity", hd=cfg.head_dim, heads=f"{cfg.n_heads}:"
+    phase(name, hd=cfg.head_dim, heads=f"{cfg.n_heads}:"
           f"{cfg.kv_heads}", loss=p_loss1.item(), loss_rel_err=loss_err,
           grad_rel_err=grad_err, param_max_abs_err=param_err,
           params_off_share=off_share, loss_tol=F32_LOSS_TOL,
@@ -2596,12 +2690,13 @@ def train_f32_parity(torch, build):
           param_share_tol=F32_PARAM_SHARE, param_max_tol=2 * lr,
           kernel_dkv_launches=kernel_launches)
     if kernel_launches != 2 * cfg.n_layers:
-        raise RuntimeError("the f32 kernel step did not run the backward "
-                           f"kernels ({kernel_launches} dK/dV launches)")
+        raise RuntimeError(f"{name}: the f32 kernel step did not run the "
+                           f"backward kernels ({kernel_launches} dK/dV "
+                           "launches)")
     if not (loss_err <= F32_LOSS_TOL and grad_err <= F32_GRAD_TOL
             and param_err <= 2 * lr and off_share <= F32_PARAM_SHARE):
-        raise RuntimeError("f32 train step: kernels and plain attention "
-                           "disagree beyond the stated tolerances")
+        raise RuntimeError(f"{name}: kernels and plain attention disagree "
+                           "beyond the stated tolerances")
 
 
 SPLASH_KERNELS = ("splash_fwd", "splash_bwd_dq", "splash_bwd_dkv")
@@ -2741,6 +2836,499 @@ def train_payload_path(torch, build):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# int8 weights, LoRA / QLoRA adapters and the MoE family
+# ---------------------------------------------------------------------------
+
+def tree_bytes(tree) -> int:
+    from tpushare_torch.workloads.infer import _tensor_bytes
+    return sum(_tensor_bytes(tree))
+
+
+def forward_w8_path(torch, build, infer, bf16_params):
+    """``infer --mode forward --int8`` at the flagship: 16 flash launches
+    per forward (warm-up and 10 timed), the weights on the card summed
+    from the tensors equal to ``quant.quantized_param_bytes``; then B=1,
+    S=512 logits through qmm against the port's f32 forward over
+    ``dequantize_params`` of the same ``{q, s}`` (exact arithmetic over
+    the same weights), at the smoke's logits rule (LOGIT_TOL x scale),
+    with the 5-bit rounding control failing it. The bf16 forward over
+    those weights is printed beside it (``bf16_dequantized_rel_err``),
+    not used as the reference: it carries the same bf16 noise as the
+    int8 path, and on an H100 sits about as far from the f32 forward as
+    the rule allows."""
+    from tpushare_torch.workloads.models.transformer import forward
+    from tpushare_torch.workloads.quant import (dequantize_params,
+                                                quantized_param_bytes)
+    build.reset_launches()
+    res = infer.run(infer.parse_args(
+        ["--mode", "forward", "--batch", "8", "--seq", "128", "--steps",
+         "10", "--hbm-limit-mib", "80000", "--seed", "0", "--int8"]))
+    launches = dict(build.LAUNCHES)
+    cfg, qparams, logits, mm = (res["cfg"], res["params"], res["logits"],
+                                res["mm"])
+    if mm is None or qparams["layers"]["wq"]["q"].dtype != torch.int8:
+        raise RuntimeError("forward --int8 did not run int8 weights")
+    if logits.shape != (8, 128, cfg.vocab) or \
+            not torch.isfinite(logits).all():
+        raise RuntimeError("forward-w8 logits not finite / wrong shape")
+    others = {k: n for k, n in launches.items() if k != "flash_fwd"}
+    if launches["flash_fwd"] != cfg.n_layers * 11 or any(others.values()):
+        raise RuntimeError(f"forward-w8 launches {launches} != 16 layers x "
+                           "11 forwards of flash alone")
+    w8_bytes, bf16_bytes = tree_bytes(qparams), tree_bytes(bf16_params)
+    if w8_bytes != quantized_param_bytes(cfg):
+        raise RuntimeError(f"int8 weights hold {w8_bytes} bytes, not "
+                           f"quantized_param_bytes {quantized_param_bytes(cfg)}")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (1, 512), generator=gen,
+                           device="cuda")
+    with torch.no_grad():
+        w8 = forward(qparams, tokens, cfg, mm=mm)
+        exact = forward(dequantize_params(qparams, torch.float32), tokens,
+                        dataclasses.replace(cfg, dtype=torch.float32))
+        bf16_err = max_err(forward(dequantize_params(qparams), tokens, cfg),
+                           exact)
+        control = forward_rounded(torch, qparams, tokens, cfg,
+                                  CONTROL_BITS, mm=mm)
+    scale = exact.abs().max().item()
+    err = max_err(w8, exact)
+    control = max_err(control, exact) / scale
+    agree = (w8.argmax(-1) == exact.argmax(-1)).float().mean().item()
+    del exact
+    phase("forward-w8", tokens_per_s=res["tokens_per_s"],
+          flash_launches=launches["flash_fwd"], weight_bytes=w8_bytes,
+          quantized_param_bytes=quantized_param_bytes(cfg),
+          bf16_weight_bytes=bf16_bytes,
+          weight_gib=w8_bytes / 2 ** 30, bf16_weight_gib=bf16_bytes / 2 ** 30,
+          max_abs_err=err, logit_scale=scale, rel_err=err / scale,
+          tol=LOGIT_TOL, argmax_agreement=agree,
+          bf16_dequantized_rel_err=bf16_err / scale,
+          **{f"control_rel_err_b{CONTROL_BITS}": control})
+    if not err <= LOGIT_TOL * scale:
+        raise RuntimeError(f"int8-weight logits differ from the f32 forward "
+                           f"over the same weights by {err} > {LOGIT_TOL} "
+                           f"x {scale}")
+    if not control > LOGIT_TOL:
+        raise RuntimeError(f"the {CONTROL_BITS}-bit control passes the "
+                           "forward-w8 logits check")
+    return launches
+
+
+def decode_w8_path(torch, build, infer):
+    """``infer --mode decode --int8``: ``qgenerate``, whose 32-token
+    prefill runs the flash kernel once a layer per generate (warm-up and
+    timed)."""
+    build.reset_launches()
+    res = infer.run(infer.parse_args(
+        ["--mode", "decode", "--batch", "8", "--seq", "128", "--steps",
+         "16", "--hbm-limit-mib", "80000", "--seed", "0", "--int8"]))
+    launches = dict(build.LAUNCHES)
+    n_layers = infer.pick_config(80000).n_layers
+    others = {k: n for k, n in launches.items() if k != "flash_fwd"}
+    if launches["flash_fwd"] != 2 * n_layers or any(others.values()):
+        raise RuntimeError(f"decode-w8 launches {launches} != 2 generates x "
+                           f"{n_layers} layers of flash alone")
+    phase("decode-w8", tokens_per_s=res["tokens_per_s"], prompt=32,
+          flash_launches=launches["flash_fwd"])
+    return launches
+
+
+def serve_w8_path(torch, build, infer, serve_fields):
+    """``serve --paged --int8`` at the serve traffic: every decode step
+    reads the bf16 pool once a layer through K5, admission runs qmm."""
+    res, launches, steps, fields = paged_serve(torch, build, infer,
+                                               ["--int8"])
+    eng = res["engine"]
+    if eng.mm is None or eng.params["out"]["q"].dtype != torch.int8:
+        raise RuntimeError("serve-w8 engine is not over int8 weights")
+    if launches["paged_decode"] != eng.cfg.n_layers * steps or \
+            launches["paged_decode_int8"]:
+        raise RuntimeError(f"serve-w8 launches {launches} != "
+                           f"{eng.cfg.n_layers} layers x {steps} decode "
+                           "steps on the bf16 rung")
+    phase("serve-w8", **fields,
+          bf16_weights_tokens_per_s=serve_fields["tokens_per_s"],
+          tokens_per_s_ratio=fields["tokens_per_s"]
+          / serve_fields["tokens_per_s"])
+    return launches
+
+
+def serve_ragged_w8_path(torch, build, infer, ragged_res):
+    """``serve --ragged --int8``: every decode step reads each layer
+    through K4, 16 launches a step, over int8 weights."""
+    res, launches, steps, fallbacks, fields = slot_serve(
+        torch, build, infer, ["--ragged", "--int8"])
+    eng = res["engine"]
+    others = {k: n for k, n in launches.items() if k != "ragged_decode"}
+    if eng.attn_impl != "ragged" or eng.mm is None:
+        raise RuntimeError("serve-ragged-w8 is not a ragged int8-weight "
+                           "engine")
+    if launches["ragged_decode"] != eng.cfg.n_layers * steps or any(
+            others.values()) or fallbacks:
+        raise RuntimeError(f"serve-ragged-w8 launches {launches} != "
+                           f"{eng.cfg.n_layers} layers x {steps} decode "
+                           f"steps (fallbacks {fallbacks})")
+    phase("serve-ragged-w8", **fields,
+          bf16_weights_tokens_per_s=ragged_res["tokens_per_s"],
+          fallbacks=len(fallbacks))
+    return launches
+
+
+def w8_f32_identity(torch, build):
+    """Int8 weights under the read identities, small f32 configs: the
+    paged engine on both pool codecs (K5, K5-int8 against the gather
+    twin), the slot engine (K4 against the einsum read and the pipelined
+    loop) and ``qgenerate`` (a flash prefill against the plain one), each
+    through qmm — greedy tokens equal."""
+    from tpushare_torch.workloads.quant import qgenerate
+    pk = {}
+    for codec in ("bf16", "int8"):
+        params, cfg, rng, n, tokens, pk[codec] = paged_identity(
+            torch, build, codec, w8=True)
+    sn, stokens, slaunched = slot_identity(torch, build, kv_int8=False,
+                                           w8=True)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 77))).cuda()
+    before = build.LAUNCHES["flash_fwd"]
+    g_kernel = qgenerate(params, prompt, cfg, 16)
+    prefill_launches = build.LAUNCHES["flash_fwd"] - before
+    g_plain = qgenerate(params, prompt,
+                        dataclasses.replace(cfg, attn_impl="xla"), 16)
+    if prefill_launches != cfg.n_layers or not torch.equal(g_kernel,
+                                                           g_plain):
+        raise RuntimeError(f"f32 qgenerate: flash prefill ({prefill_launches}"
+                           " launches) != plain prefill tokens")
+    phase("w8-f32-identity", paged_requests=n, paged_tokens=tokens,
+          paged_launches=pk["bf16"], paged_int8_launches=pk["int8"],
+          slot_requests=sn, slot_tokens=stokens,
+          ragged_launches=slaunched["kernel"]["ragged_decode"],
+          qgenerate_tokens=int(g_kernel.numel()),
+          prefill_flash_launches=prefill_launches, identical=True)
+
+
+# lora-train: the reference's 0.55B training preset, rank 16 on the
+# default targets, alpha 32 (scale 2)
+LORA_RANK, LORA_SCALE = 16, 2.0
+# QLoRA's peak must sit at least this far below LoRA's: the base is
+# 1.03 GiB in bf16 and 0.52 GiB in int8, and a qmm that kept bf16 copies
+# of the weights for the backward would hold the whole bf16 base again
+QLORA_SAVING_GIB = 0.4
+
+
+def lora_run(torch, build, cfg, base, mm, inputs, targets, n, seed):
+    """``n`` adapter steps over the frozen ``base`` (dense, or int8 with
+    ``mm=qmm``) with the counts and the peak zeroed first. Returns the
+    per-step times and losses, the launches, the fallbacks, the peak
+    bytes and the base model's own loss on the batch (no grad)."""
+    from tpushare_torch.workloads import lora
+    from tpushare_torch.workloads.models.transformer import loss_fn
+    from tpushare_torch.workloads.ops import registry
+    from tpushare_torch.workloads.train import (make_optimizer, tree_leaves,
+                                                tree_map)
+    with torch.no_grad():
+        base_loss = loss_fn(base, inputs, targets, cfg, mm=mm).item()
+    host = [t.cpu() for t in tree_leaves(base)]
+    opt = make_optimizer()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = lora.init_lora_state(lora.init_lora(gen, cfg, LORA_RANK), opt)
+    step = lora.make_lora_train_step(cfg, opt, scale=LORA_SCALE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    registry.reset_fallbacks()
+    _, times, losses = run_steps(
+        torch, lambda s, i, t: step(s, base, i, t), state, inputs, targets,
+        n)
+    launches = dict(build.LAUNCHES)
+    fallbacks = registry.fallback_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(torch.equal(a.cpu(), b) for a, b in
+               zip(tree_leaves(base), host)):
+        raise RuntimeError("lora-train: the frozen base changed")
+    if not any(ab["b"].any() for ab in state["adapters"].values()):
+        raise RuntimeError("lora-train: the adapters did not move")
+    if tree_map(lambda t: t.requires_grad, base) != tree_map(
+            lambda t: False, base):
+        raise RuntimeError("lora-train: the base requires a gradient")
+    return times, losses, launches, fallbacks, peak, base_loss
+
+
+def lora_train_path(torch, build, smi):
+    """3 LoRA steps over a bf16 base, then 3 QLoRA steps over its
+    ``quantize_params`` (the bf16 base freed first), at the reference's
+    training preset: 12/12/12 flash launches per step, step 0's loss the
+    base model's, the base bitwise unchanged, QLoRA's peak at least
+    QLORA_SAVING_GIB below LoRA's."""
+    from tpushare_torch.workloads.lora import lora_param_count
+    from tpushare_torch.workloads.models.transformer import (
+        TransformerConfig, init_params)
+    from tpushare_torch.workloads.quant import qmm, quantize_params
+    cfg = TransformerConfig(**TRAIN_PRESET)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    base = init_params(gen, cfg, "cuda")
+    inputs = torch.randint(0, cfg.vocab, (TRAIN_B, TRAIN_S), generator=gen,
+                           device="cuda")
+    targets = torch.roll(inputs, -1, dims=1)
+    n = 3
+    want = {k: n * cfg.n_layers for k in TRAIN_KERNELS}
+    runs, total = {}, {}
+    for label in ("lora", "qlora"):
+        mm = None
+        if label == "qlora":
+            base, mm = quantize_params(base), qmm
+            torch.cuda.empty_cache()
+        base_bytes = tree_bytes(base)
+        times, losses, launches, fallbacks, peak, base_loss = lora_run(
+            torch, build, cfg, base, mm, inputs, targets, n, 14)
+        got = {k: launches[k] for k in TRAIN_KERNELS}
+        if got != want or any(launches[k] for k in launches
+                              if k not in TRAIN_KERNELS) or fallbacks:
+            raise RuntimeError(f"{label} launches {launches} != {want} "
+                               f"(fallbacks {fallbacks})")
+        if not all(map(math.isfinite, losses)) or losses[0] != base_loss:
+            raise RuntimeError(f"{label}: step 0 loss {losses[0]} is not the "
+                               f"base model's {base_loss} ({losses})")
+        total = {k: total.get(k, 0) + c for k, c in launches.items()}
+        runs[label] = dict(step_ms=statistics.median(times[1:]) * 1e3,
+                           first_loss=losses[0], last_loss=losses[-1],
+                           peak_mem_gib=peak / 2 ** 30,
+                           base_gib=base_bytes / 2 ** 30)
+    saving = runs["lora"]["peak_mem_gib"] - runs["qlora"]["peak_mem_gib"]
+    phase("lora-train", rank=LORA_RANK, targets="wq+wv", batch=TRAIN_B,
+          seq=TRAIN_S, steps=n,
+          adapter_params=lora_param_count(cfg, LORA_RANK),
+          **{f"{label}_{k}": v for label, r in runs.items()
+             for k, v in r.items()},
+          qlora_peak_saving_gib=saving,
+          **{f"{k}_per_step": launches[k] / n for k in TRAIN_KERNELS},
+          card=repr(smi))
+    if not saving >= QLORA_SAVING_GIB:
+        raise RuntimeError(f"QLoRA's peak is only {saving:.3f} GiB below "
+                           f"LoRA's (< {QLORA_SAVING_GIB})")
+    return total
+
+
+# the MoE width of the reference's benchmark (bench.py's MoE payload):
+# 906,052,608 params, B=4 x S=512
+MOE_PRESET = dict(vocab=32768, d_model=1024, n_heads=16, n_layers=8,
+                  d_ff=4096, max_seq=512, n_experts=8, expert_top_k=2)
+MOE_B, MOE_S = 4, 512
+# the f32 identity: head_dim 64 on the paged engine (moe-serve's K5 and
+# K1 shapes), 128 on the slot engine (the ragged read's only width)
+MOE_F32 = dict(vocab=512, d_model=256, n_heads=4, n_kv_heads=2, n_layers=2,
+               d_ff=512, max_seq=512, n_experts=4, expert_top_k=2)
+MOE_F32_SLOT = {**MOE_F32, "n_heads": 2, "n_kv_heads": 1}
+
+
+def moe_setup(torch):
+    from tpushare_torch.workloads.models.moe import (MoEConfig,
+                                                     init_moe_params,
+                                                     moe_param_count)
+    cfg = MoEConfig(**MOE_PRESET)
+    params = init_moe_params(torch.Generator(device="cuda").manual_seed(5),
+                             cfg, "cuda")
+    if moe_param_count(cfg) != 906_052_608:
+        raise RuntimeError(f"MoE preset holds {moe_param_count(cfg)} params")
+    return cfg, params
+
+
+def moe_forward_path(torch, build, cfg, params):
+    """``moe_forward`` at B=4 x S=512, a warm-up and 5 timed: 8 flash
+    launches per forward and nothing else, finite logits, the aux in
+    range. B=1 logits against the plain-attention forward are reported,
+    in bf16 and over an f32 copy of the weights, not held to a limit: a
+    rounding in attention can flip a near-tied routing choice, and a
+    flipped token moves every later token's capacity slot in its
+    expert (the exact checks are K1's ``hd64`` and ``moe-train-lse``
+    rows, K2 / K3's ``moe-hd64`` row, moe-f32-identity and
+    moe-train-f32-parity)."""
+    from tpushare_torch.workloads.models.moe import moe_forward
+    from tpushare_torch.workloads.ops import registry
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab, (MOE_B, MOE_S), generator=gen,
+                           device="cuda")
+    n = 5
+    build.reset_launches()
+    registry.reset_fallbacks()
+    with torch.no_grad():
+        moe_forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            logits, aux = moe_forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / n
+        launches = dict(build.LAUNCHES)
+        fallbacks = registry.fallback_counts()
+        plain, _ = moe_forward(params, tokens[:1],
+                               dataclasses.replace(cfg, attn_impl="xla"))
+        kernel, _ = moe_forward(params, tokens[:1], cfg)
+        f32 = {k: v.float() for k, v in params["layers"].items()}
+        f32 = {"embed": params["embed"].float(), "layers": f32,
+               "norm_f": params["norm_f"].float(),
+               "out": params["out"].float()}
+        fcfg = dataclasses.replace(cfg, dtype=torch.float32)
+        f32_plain, _ = moe_forward(f32, tokens[:1],
+                                   dataclasses.replace(fcfg, attn_impl="xla"))
+        f32_kernel, _ = moe_forward(f32, tokens[:1], fcfg)
+        del f32
+    others = {k: c for k, c in launches.items() if k != "flash_fwd"}
+    if launches["flash_fwd"] != cfg.n_layers * (n + 1) or any(
+            others.values()) or fallbacks:
+        raise RuntimeError(f"moe-forward launches {launches} != "
+                           f"{cfg.n_layers} x {n + 1} forwards of flash alone "
+                           f"(fallbacks {fallbacks})")
+    if logits.shape != (MOE_B, MOE_S, cfg.vocab) or \
+            not torch.isfinite(logits).all() or \
+            not 0.9 < aux.item() < cfg.n_experts:
+        raise RuntimeError(f"moe-forward logits / aux {aux.item()} wrong")
+    scale = plain.abs().max().item()
+    phase("moe-forward", params_b=906_052_608 / 1e9, batch=MOE_B, seq=MOE_S,
+          ms=dt * 1e3, tokens_per_s=MOE_B * MOE_S / dt, aux=aux.item(),
+          capacity=cfg.expert_capacity,
+          flash_launches=launches["flash_fwd"],
+          plain_rel_err=max_err(kernel, plain) / scale,
+          plain_argmax_agreement=(kernel.argmax(-1) == plain.argmax(-1))
+          .float().mean().item(),
+          f32_plain_rel_err=max_err(f32_kernel, f32_plain)
+          / f32_plain.abs().max().item(),
+          f32_plain_argmax_agreement=(f32_kernel.argmax(-1)
+                                      == f32_plain.argmax(-1))
+          .float().mean().item())
+    return launches
+
+
+def moe_serve_path(torch, build, infer, cfg, params):
+    """The serve traffic (16 requests, prompt 128, up to 128 new tokens)
+    through the paged engine (8 lanes, K5 at head_dim 64: 8 launches per
+    decode step) and the slot engine (4 slots, the einsum read: no
+    kernel), every request completed, no page leaked, no fallback."""
+    from tpushare_torch.workloads.ops import registry
+    from tpushare_torch.workloads.serving import (PagedServingEngine,
+                                                  ServingEngine)
+    args = infer.parse_args(SERVE_ARGS)
+    plen, max_seq = 128, 256
+    fields = {}
+    launched = {}
+    for label in ("paged", "slot"):
+        if label == "paged":
+            eng = PagedServingEngine(params, cfg, n_lanes=8, max_seq=max_seq,
+                                     n_pages=8 * (max_seq // 32) + 1,
+                                     page_size=32, prompt_buckets=(plen,),
+                                     chunk=16, seed=args.seed)
+            lanes = 8
+        else:
+            eng = ServingEngine(params, cfg, n_slots=4, max_seq=max_seq,
+                                prompt_buckets=(plen,), chunk=16,
+                                seed=args.seed)
+            lanes = 4
+        build.reset_launches()
+        registry.reset_fallbacks()
+        res = infer.serve_traffic(eng, args, cfg, torch.device("cuda"), plen,
+                                  max_seq, lanes)
+        launches = dict(build.LAUNCHES)
+        fallbacks = registry.fallback_counts()
+        steps = res["warmup_decode_steps"] + res["decode_steps"]
+        bad = [r.status for r in res["requests"] if r.status != "completed"
+               or len(r.output) != r.max_new]
+        if bad or fallbacks:
+            raise RuntimeError(f"moe-serve {label}: {bad} (fallbacks "
+                               f"{fallbacks})")
+        want = ({"paged_decode": cfg.n_layers * steps} if label == "paged"
+                else {})
+        if {k: c for k, c in launches.items() if c} != want:
+            raise RuntimeError(f"moe-serve {label} launches {launches} != "
+                               f"{want}")
+        if label == "paged" and (eng.attn_impl != "paged"
+                                 or eng.alloc.pages_in_use()):
+            raise RuntimeError(f"moe-serve paged read {eng.attn_impl}, "
+                               f"{eng.alloc.pages_in_use()} pages held")
+        ttft = res["ttft_s"]
+        fields.update({f"{label}_tokens_per_s": res["tokens_per_s"],
+                       f"{label}_tokens": res["tokens"],
+                       f"{label}_ttft_p50_ms": ttft[len(ttft) // 2] * 1e3,
+                       f"{label}_decode_steps": steps,
+                       f"{label}_launches": launches["paged_decode"]})
+        launched[label] = launches
+        del eng, res
+        torch.cuda.empty_cache()
+    phase("moe-serve", requests=16, prefill_capacity=cfg.capacity_for(plen),
+          decode_capacity=cfg.capacity_for(1), **fields)
+    return launched["paged"]
+
+
+def moe_train_path(torch, build, cfg, params):
+    """3 steps of ``make_moe_train_step`` at B=4 x S=512 (the params are
+    trained in place: the last MoE phase): 8/8/8 flash launches per step,
+    no fallback, a finite falling loss."""
+    from tpushare_torch.workloads.ops import registry
+    from tpushare_torch.workloads.train import (init_state,
+                                                make_moe_train_step,
+                                                make_optimizer)
+    opt = make_optimizer()
+    state = init_state(params, opt)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    inputs = torch.randint(0, cfg.vocab, (MOE_B, MOE_S), generator=gen,
+                           device="cuda")
+    targets = torch.roll(inputs, -1, dims=1)
+    step = make_moe_train_step(cfg, opt, "cuda")
+    n = 3
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    registry.reset_fallbacks()
+    state, times, losses = run_steps(torch, step, state, inputs, targets, n)
+    launches = dict(build.LAUNCHES)
+    fallbacks = registry.fallback_counts()
+    want = {k: n * cfg.n_layers for k in TRAIN_KERNELS}
+    if {k: launches[k] for k in TRAIN_KERNELS} != want or any(
+            launches[k] for k in launches if k not in TRAIN_KERNELS) or \
+            fallbacks:
+        raise RuntimeError(f"moe-train launches {launches} != {want} "
+                           f"(fallbacks {fallbacks})")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"moe-train losses not finite and falling: "
+                           f"{losses}")
+    step_s = statistics.median(times[1:])
+    phase("moe-train", batch=MOE_B, seq=MOE_S, steps=n,
+          first_loss=losses[0], last_loss=losses[-1], step_ms=step_s * 1e3,
+          first_step_ms=times[0] * 1e3, tokens_per_s=MOE_B * MOE_S / step_s,
+          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+          **{f"{k}_per_step": launches[k] / n for k in TRAIN_KERNELS})
+    return launches
+
+
+def moe_f32_identity(torch, build):
+    """2-layer f32 MoEs: the paged engine through K5 (head_dim 64)
+    against the gather twin, the slot engine through K4 (head_dim 128)
+    against the einsum read and the pipelined loop, and ``moe_generate``
+    (head_dim 64) with a flash prefill against the plain one — greedy
+    tokens equal."""
+    from tpushare_torch.workloads.moe_decode import moe_generate
+    params, cfg, rng, pn, ptokens, plaunched = paged_identity(
+        torch, build, "bf16",
+        setup=f32_setup(torch, MOE_F32, 15, 6, 60, (4, 40), moe=True))
+    sn, stokens, slaunched = slot_identity(
+        torch, build, kv_int8=False,
+        setup=f32_setup(torch, MOE_F32_SLOT, 16, 6, 90, (8, 120),
+                        moe=True))
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 77))).cuda()
+    before = build.LAUNCHES["flash_fwd"]
+    g_kernel = moe_generate(params, prompt, cfg, 16)
+    prefill_launches = build.LAUNCHES["flash_fwd"] - before
+    g_plain = moe_generate(params, prompt,
+                           dataclasses.replace(cfg, attn_impl="xla"), 16)
+    if prefill_launches != cfg.n_layers or not torch.equal(g_kernel,
+                                                           g_plain):
+        raise RuntimeError(f"f32 moe_generate: flash prefill "
+                           f"({prefill_launches} launches) != plain prefill")
+    phase("moe-f32-identity", paged_requests=pn, paged_tokens=ptokens,
+          paged_launches=plaunched, slot_requests=sn, slot_tokens=stokens,
+          ragged_launches=slaunched["kernel"]["ragged_decode"],
+          generate_tokens=int(g_kernel.numel()),
+          prefill_flash_launches=prefill_launches, identical=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2779,17 +3367,24 @@ def main() -> int:
     ragged_int8_rows = ragged_int8_cases(torch)
     torch.cuda.empty_cache()
     paths = {}
-    paths["forward"], _, _ = forward_path(torch, build, infer)
+    paths["forward"], bf16_params, _ = forward_path(torch, build, infer)
+    paths["forward-w8"] = forward_w8_path(torch, build, infer, bf16_params)
+    del bf16_params
+    torch.cuda.empty_cache()
     paths["decode"] = decode_path(torch, build, infer)
+    paths["decode-w8"] = decode_w8_path(torch, build, infer)
     paths["forward-longctx"] = forward_longctx_path(torch, build, infer)
     paths["decode-longctx"] = decode_longctx_path(torch, build, infer)
     paths["serve"], serve_fields = serve_path(torch, build, infer)
     paths["serve-int8"] = serve_int8_path(torch, build, infer, serve_fields)
+    paths["serve-w8"] = serve_w8_path(torch, build, infer, serve_fields)
     paths["serve-spec"] = serve_spec_path(torch, build, infer, serve_fields)
     paths["serve-slot"] = serve_slot_path(torch, build, infer)
     paths["serve-ragged"], ragged_res = serve_ragged_path(torch, build, infer)
     paths["serve-ragged-int8"] = serve_ragged_int8_path(torch, build, infer,
                                                         ragged_res)
+    paths["serve-ragged-w8"] = serve_ragged_w8_path(torch, build, infer,
+                                                    ragged_res)
     del ragged_res
     paths["serve-ring"] = serve_ring_path(torch, build, infer)
     paths["serve-traffic"], traffic_eng = serve_traffic_path(torch, build,
@@ -2805,14 +3400,29 @@ def main() -> int:
     small_f32_identity(torch, build)
     slot_f32_identity(torch, build)
     int8_f32_identity(torch, build)
+    w8_f32_identity(torch, build)
+    moe_f32_identity(torch, build)
     prefix_f32_identity(torch, build)
     spec_f32_identity(torch, build)
     paths["train"] = train_path(torch, build, smi)
+    torch.cuda.empty_cache()
+    paths["lora-train"] = lora_train_path(torch, build, smi)
+    torch.cuda.empty_cache()
     paths["train-remat"] = train_remat_path(torch, build)
     train_f32_parity(torch, build)
     paths["train-longctx"] = train_longctx_path(torch, build, infer, smi)
     train_longctx_f32_parity(torch, build)
     paths["train-payload"] = train_payload_path(torch, build)
+    torch.cuda.empty_cache()
+    moe_cfg, moe_params = moe_setup(torch)
+    paths["moe-forward"] = moe_forward_path(torch, build, moe_cfg,
+                                            moe_params)
+    paths["moe-serve"] = moe_serve_path(torch, build, infer, moe_cfg,
+                                        moe_params)
+    paths["moe-train"] = moe_train_path(torch, build, moe_cfg, moe_params)
+    del moe_params
+    torch.cuda.empty_cache()
+    train_f32_parity(torch, build, moe=True)
     # last: a serve-traffic run right after the profiler read lower
     serve_spec_cost(torch, infer)
 
@@ -2842,19 +3452,22 @@ def main() -> int:
     kernels = [
         kernel_line("flash_fwd", "tpushare_torch/workloads/kernels/flash_fwd.cu",
                     "tpushare/workloads/ops/attention.py:94", flash_rows[0],
-                    "flash-vs-plain, forward-logits, decode, f32-identity, "
+                    "flash-vs-plain, forward-logits, forward-w8, decode, "
+                    "f32-identity, w8-f32-identity, moe-f32-identity, "
                     "prefix-f32-identity, spec-f32-identity, "
-                    "train-f32-parity"),
+                    "train-f32-parity, moe-train-f32-parity"),
         kernel_line("flash_bwd_dq",
                     "tpushare_torch/workloads/kernels/flash_bwd.cu",
                     "tpushare/workloads/ops/attention.py:245", bwd,
-                    "flash-bwd-vs-plain, train-f32-parity",
+                    "flash-bwd-vs-plain, train-f32-parity, "
+                    "moe-train-f32-parity",
                     max_abs_err="dq_max_abs_err", ms="dq_ms",
                     bound_ms="dq_bound_ms", bound_by="dq_bound_by"),
         kernel_line("flash_bwd_dkv",
                     "tpushare_torch/workloads/kernels/flash_bwd.cu",
                     "tpushare/workloads/ops/attention.py:300", bwd,
-                    "flash-bwd-vs-plain, train-f32-parity",
+                    "flash-bwd-vs-plain, train-f32-parity, "
+                    "moe-train-f32-parity",
                     max_abs_err="dkv_max_abs_err", ms="dkv_ms",
                     bound_ms="dkv_bound_ms", bound_by="dkv_bound_by"),
         kernel_line("paged_decode",
@@ -2862,20 +3475,21 @@ def main() -> int:
                     "tpushare/workloads/ops/registry.py:617", paged_rows[0],
                     "paged-vs-plain, serve, serve-spec, serve-traffic, "
                     "serve-traffic-chat, serve-overload, f32-identity, "
+                    "w8-f32-identity, moe-f32-identity, "
                     "prefix-f32-identity, spec-f32-identity"),
         kernel_line("ragged_decode",
                     "tpushare_torch/workloads/kernels/ragged_decode.cu",
                     "tpushare/workloads/ops/ragged_decode.py:70",
                     next(r for r in ragged_rows if r["case"] == "long"),
                     "ragged-vs-plain, serve-ragged, serve-traffic-ragged, "
-                    "slot-f32-identity"),
+                    "slot-f32-identity, w8-f32-identity, moe-f32-identity"),
         kernel_line("paged_decode_int8",
                     "tpushare_torch/workloads/kernels/paged_decode.cu",
                     "tpushare/workloads/ops/registry.py:617",
                     paged_int8_rows[0],
                     "paged-int8-vs-plain, serve-int8, serve-overload, "
-                    "int8-f32-identity, prefix-f32-identity, "
-                    "spec-f32-identity"),
+                    "int8-f32-identity, w8-f32-identity, "
+                    "prefix-f32-identity, spec-f32-identity"),
         kernel_line("ragged_decode_int8",
                     "tpushare_torch/workloads/kernels/ragged_decode.cu",
                     "tpushare/workloads/ops/ragged_decode.py:70",

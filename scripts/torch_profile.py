@@ -6,11 +6,14 @@
 At the flagship preset (1.2B, bf16, random weights from a seed) this
 profiles, with ``torch.profiler`` (CPU + CUDA activities):
 
-- ``forward``: three batch-8 x seq-128 forwards;
+- ``forward``: three batch-8 x seq-128 forwards; ``forward-w8`` the
+  same through ``quant.qmm`` over the int8 weights
+  (``quant.quantize_params``, ``infer --int8``);
 - ``forward-longctx``: two batch-2 x seq-4096 forwards (the splash
   forward, ``infer --mode forward --batch 2 --seq 4096``);
 - ``decode``: the paged serving engine's decode chunks with 8 lanes busy;
-  ``decode-int8`` the same over an int8 pool (``kv_codec="int8"``);
+  ``decode-int8`` the same over an int8 pool (``kv_codec="int8"``),
+  ``decode-w8`` over int8 weights (``mm=quant.qmm``, bf16 pool);
 - ``serve-ragged``: the slot engine's decode chunks with ``ragged_decode``
   (``infer --mode serve --ragged``), 4 slots busy; ``serve-ragged-int8``
   the same over int8 slot caches (``cfg.kv_int8``);
@@ -90,6 +93,7 @@ def main() -> int:
     from tpushare_torch.workloads.kernels import build
     from tpushare_torch.workloads.models.transformer import (forward,
                                                              init_params)
+    from tpushare_torch.workloads.quant import qmm, quantize_params
     from tpushare_torch.workloads.serving import (PagedServingEngine,
                                                   Request, ServingEngine)
 
@@ -110,6 +114,15 @@ def main() -> int:
             forward(params, tokens, cfg)
         return 3
     profile(torch, forwards, lambda n: n, "forward")
+
+    qparams = quantize_params(params)
+    forward(qparams, tokens, cfg, mm=qmm)
+
+    def forwards_w8():
+        for _ in range(3):
+            forward(qparams, tokens, cfg, mm=qmm)
+        return 3
+    profile(torch, forwards_w8, lambda n: n, "forward-w8")
 
     def per_step(*kernels):
         """Launch counts per step of ``kernels``, zeroed before the run."""
@@ -152,13 +165,16 @@ def main() -> int:
 
     # the paged decode: 8 lanes, each with room for prompt 128 + 128 new
     ps, max_seq, lanes = 32, 256, 8
-    for codec, label in (("bf16", "decode"), ("int8", "decode-int8")):
+    for codec, w8, label in (("bf16", False, "decode"),
+                             ("int8", False, "decode-int8"),
+                             ("bf16", True, "decode-w8")):
         decode_chunks(PagedServingEngine(
-            params, cfg, n_lanes=lanes, max_seq=max_seq,
+            qparams if w8 else params, cfg, n_lanes=lanes, max_seq=max_seq,
             n_pages=lanes * paging.pages_for_rows(max_seq, ps) + 1,
             page_size=ps, prompt_buckets=(128,), chunk=16,
-            kv_codec=codec), lanes, label,
+            kv_codec=codec, mm=qmm if w8 else None), lanes, label,
             "paged_decode_int8" if codec == "int8" else "paged_decode")
+    del qparams
 
     # serve --ragged: 4 slots, prompt 128 + up to 120 new tokens
     for int8, label in ((False, "serve-ragged"),

@@ -584,11 +584,11 @@ def test_real_oom_inside_a_chunk_quarantines_its_snapshot(sides, engine,
     prompts = [prompt(5, 200), prompt(7, 201), prompt(6, 202)]
     clean = greedy_transcripts(port, make, prompts)
 
-    real_layer_block = serving.layer_block
+    real_model_layer = serving.model_layer
     calls = {"n": 0, "armed": False, "seen": None}
     eng = make(port)
 
-    def flaky_layer_block(*args, **kw):
+    def flaky_model_layer(*args, **kw):
         if calls["armed"]:
             calls["n"] += 1
             if calls["n"] == 2 * CFG.n_layers + 2:     # step 3, layer 1
@@ -597,8 +597,8 @@ def test_real_oom_inside_a_chunk_quarantines_its_snapshot(sides, engine,
                                  dict(eng._lengths))
                 calls["armed"] = False
                 raise torch.cuda.OutOfMemoryError("CUDA out of memory")
-        return real_layer_block(*args, **kw)
-    monkeypatch.setattr(serving, "layer_block", flaky_layer_block)
+        return real_model_layer(*args, **kw)
+    monkeypatch.setattr(serving, "model_layer", flaky_model_layer)
 
     reqs = [port.Request(prompt=p, max_new=12) for p in prompts[:2]]
     for r in reqs:

@@ -23,6 +23,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from tpushare import consts as jconsts  # noqa: E402
 from tpushare.workloads import decode as jdec  # noqa: E402
 from tpushare.workloads import serving as jserving  # noqa: E402
 from tpushare.workloads.models import transformer as jt  # noqa: E402
@@ -261,19 +262,21 @@ def test_sampling_truncated_to_top_1_is_greedy():
 
 
 def test_engine_refuses_what_it_cannot_serve():
-    # int8 weights (A.7) and meshes (A.10) are not ported: refused by
-    # name; the overload knobs (A.2) and a draft (A.6) are ported
-    with pytest.raises(NotImplementedError, match="A.7"):
-        ServingEngine(PARAMS, CFG, mm=lambda x, w: x @ w, **ENGINE_KW)
+    # meshes (A.10) are not ported: refused by name; int8 weights (mm=,
+    # A.7), the overload knobs (A.2) and a draft (A.6) are ported, and mm=
+    # with a draft is the reference's ERR_SPEC_MM, word for word
+    from tpushare_torch.workloads.quant import qmm
+    assert ServingEngine(PARAMS, CFG, mm=qmm, **ENGINE_KW).mm is qmm
     with pytest.raises(NotImplementedError, match="A.10"):
         ServingEngine(PARAMS, CFG, mesh=object(), **ENGINE_KW)
     assert ServingEngine(PARAMS, CFG, queue_limit=4,
                          **ENGINE_KW).queue_limit == 4
     assert ServingEngine(PARAMS, CFG, queue_limit=4, draft=(PARAMS, CFG, 2),
                          **ENGINE_KW).draft[2] == 2
-    with pytest.raises(NotImplementedError, match="A.7"):
-        ServingEngine(PARAMS, CFG, mm=lambda x, w: x @ w,
-                      draft=(PARAMS, CFG, 2), **ENGINE_KW)
+    with pytest.raises(ValueError) as err:
+        ServingEngine(PARAMS, CFG, mm=qmm, draft=(PARAMS, CFG, 2),
+                      **ENGINE_KW)
+    assert str(err.value) == jconsts.ERR_SPEC_MM == consts.ERR_SPEC_MM
     with pytest.raises(ValueError, match="ring_rows requires"):
         ServingEngine(PARAMS, CFG, ring_rows=64, **ENGINE_KW)
     wcfg = dataclasses.replace(CFG, attn_window=40)

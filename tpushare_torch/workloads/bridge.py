@@ -42,7 +42,10 @@ def tensor_from_numpy(arr: np.ndarray,
 
 
 def params_from_numpy(tree, device: str | torch.device = "cuda"):
-    """Map a (nested dict) numpy tree onto tensors, leaf for leaf."""
+    """Map a (nested dict) numpy tree onto tensors, leaf for leaf, each
+    in its own dtype: dense params, int8 ``{"q", "s"}`` weight leaves
+    (int8 stays int8, fp32 scales fp32), MoE layer stacks (the fp32
+    router, the (L, E, ...) experts) and LoRA adapter trees alike."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)

@@ -1,5 +1,6 @@
 """Checkpoint / resume of the training payload — the counterpart of
-``tpushare/workloads/checkpoint.py``'s ``TrainCheckpointer``.
+``tpushare/workloads/checkpoint.py``'s ``TrainCheckpointer`` and
+``LoraCheckpointer``.
 
 Checkpointing belongs to the workload: a training pod that the binpacker
 evicts and replaces must resume from its last save. The interface is the
@@ -10,6 +11,11 @@ newest save. The format is the port's own: one
 ``{"params", "opt", "step"}``, written to a temporary name and moved into
 place with ``os.replace`` so a pod killed mid-save never leaves a torn
 checkpoint behind. It does not read the reference's orbax directories.
+
+``LoraCheckpointer`` keeps the adapter train state
+(``lora.init_lora_state``: ``{"adapters", "opt", "step"}``) in the same
+format — never the frozen base, which is the published weights or
+derived from them (``quant.quantize_params`` for QLoRA).
 """
 
 from __future__ import annotations
@@ -28,8 +34,10 @@ from tpushare_torch.workloads.train import tree_map
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
 
-class TrainCheckpointer:
-    """Save/restore the train state, keeping the last ``max_to_keep``."""
+class _StepFiles:
+    """One ``step_<n>.pt`` file per save in ``directory``, the last
+    ``max_to_keep`` kept, each written to a temporary name and moved into
+    place."""
 
     def __init__(self, directory: str | os.PathLike,
                  max_to_keep: int = 3) -> None:
@@ -47,43 +55,94 @@ class TrainCheckpointer:
         found = (_NAME.match(p.name) for p in self.directory.iterdir())
         return sorted(int(m.group(1)) for m in found if m)
 
-    def save(self, state: dict) -> int:
-        """Write ``state`` as its step's checkpoint (synchronously), then
-        drop all but the newest ``max_to_keep``."""
-        step = int(state["step"])
+    def _write(self, payload: dict) -> int:
+        """Write ``payload`` as its step's checkpoint (synchronously),
+        then drop all but the newest ``max_to_keep``."""
+        step = int(payload["step"])
         path = self._path(step)
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        torch.save({"params": state["params"], "opt": state["opt"],
-                    "step": step}, tmp)
+        torch.save(payload, tmp)
         os.replace(tmp, path)
         for old in self.steps()[:-self.max_to_keep]:
             self._path(old).unlink(missing_ok=True)
         return step
 
+    def _load(self, step: int | None, device) -> tuple[int, dict]:
+        """The state saved at ``step`` (default the newest) on
+        ``device``."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        return step, torch.load(self._path(step),
+                                map_location=resolve_device(device),
+                                weights_only=True)
+
     def latest_step(self) -> int | None:
         steps = self.steps()
         return steps[-1] if steps else None
+
+    def close(self) -> None:
+        """Nothing is in flight: saves are synchronous."""
+
+
+def _check_layout(step: int, name: str, tree, shapes, dtype, what) -> None:
+    got = tree_map(lambda t: (tuple(t.shape), t.dtype), tree)
+    want = tree_map(lambda s: (tuple(s), dtype), shapes)
+    if got != want:
+        raise ValueError(f"checkpoint step {step}: {name} do not match "
+                         f"{what}")
+
+
+class TrainCheckpointer(_StepFiles):
+    """Save/restore the train state, keeping the last ``max_to_keep``."""
+
+    def save(self, state: dict) -> int:
+        return self._write({"params": state["params"], "opt": state["opt"],
+                            "step": int(state["step"])})
 
     def restore(self, cfg: TransformerConfig,
                 device: str | torch.device = "cuda") -> dict:
         """Load the newest saved state onto ``device`` and check it
         against ``cfg``: every parameter and moment must have the
         config's shape and dtype."""
-        dev = resolve_device(device)
-        step = self.latest_step()
-        if step is None:
-            raise FileNotFoundError(f"no checkpoint in {self.directory}")
-        state = torch.load(self._path(step), map_location=dev,
-                           weights_only=True)
+        step, state = self._load(None, device)
         shapes = param_shapes(cfg)
         for name in ("params", "mu", "nu"):
             tree = state["params"] if name == "params" else state["opt"][name]
-            got = tree_map(lambda t: (tuple(t.shape), t.dtype), tree)
-            want = tree_map(lambda s: (tuple(s), cfg.dtype), shapes)
-            if got != want:
-                raise ValueError(f"checkpoint step {step}: {name} do not "
-                                 f"match the config {cfg}")
+            _check_layout(step, name, tree, shapes, cfg.dtype,
+                          f"the config {cfg}")
         return state
 
-    def close(self) -> None:
-        """Nothing is in flight: saves are synchronous."""
+
+class LoraCheckpointer(_StepFiles):
+    """Save/restore the adapter train state — adapters, their moments and
+    the step, never the frozen base — keeping the last ``max_to_keep``."""
+
+    def save(self, state: dict) -> int:
+        return self._write({"adapters": state["adapters"],
+                            "opt": state["opt"], "step": int(state["step"])})
+
+    def restore(self, cfg: TransformerConfig, optimizer, rank: int,
+                targets: tuple[str, ...] | None = None,
+                step: int | None = None,
+                device: str | torch.device = "cuda") -> dict:
+        """Load the adapter state saved at ``step`` (default the newest)
+        onto ``device`` and check it against the structure that
+        ``init_lora_state(init_lora(cfg, rank, targets), optimizer)``
+        builds: adapters and moments of the config's shapes and dtype
+        (``targets`` default ``lora.DEFAULT_TARGETS``)."""
+        from tpushare_torch.workloads.lora import DEFAULT_TARGETS, lora_shapes
+        tgt = targets if targets is not None else DEFAULT_TARGETS
+        step, state = self._load(step, device)
+        shapes = lora_shapes(cfg, rank, tgt)
+        want_opt = set(optimizer.init({}).keys())
+        if set(state["opt"]) != want_opt:
+            raise ValueError(f"checkpoint step {step}: optimizer state keys "
+                             f"{sorted(state['opt'])} != {sorted(want_opt)}")
+        what = f"rank {rank} adapters on {tuple(tgt)} of {cfg}"
+        for name in ("adapters", "mu", "nu"):
+            tree = (state["adapters"] if name == "adapters"
+                    else state["opt"][name])
+            _check_layout(step, name, tree, shapes, cfg.dtype, what)
+        return state

@@ -20,7 +20,10 @@ read like the reference's.
 
 All paths — batch forward, prefill, cached chunk steps, the slot and
 paged serving steps — run ``transformer.layer_block``, the one
-definition of the architecture.
+definition of the architecture; the cached steps reach it through
+:func:`model_layer`, which gives a MoE config's layers the routed
+experts (``models/moe.moe_ffn``) as its FFN. ``mm`` (``quant.qmm`` over
+an int8 parameter mirror) rides every dense path.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 
 from tpushare_torch import consts
 from tpushare_torch.device import resolve_device
+from tpushare_torch.workloads.models.moe import moe_ffn
 from tpushare_torch.workloads.models.transformer import (
     TransformerConfig,
     attention,
@@ -147,24 +151,26 @@ def cache_fill(kc, new: torch.Tensor):
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
-            cache: dict, logit_pos: int | None = None
+            cache: dict, mm=None, logit_pos: int | None = None
             ) -> tuple[torch.Tensor, dict]:
     """Run the prompt (B, P) through the model, filling cache[:, :, :P].
     Returns (logits (B, vocab) fp32 at ``logit_pos`` — default the last
     position — and the cache). On the card the registry's rows pick the
     kernel: splash for an MHA prompt of 4096 or more that tiles its
     block grid, else flash, which needs no tiled prompt (unlike the
-    reference's Pallas grid)."""
+    reference's Pallas grid). Dense models only, as in the reference: a
+    MoE prompt goes through ``moe_decode.moe_prefill`` or chunked
+    admission."""
     P = tokens.shape[1]
     cos, sin = rope_tables(cfg, P, tokens.device)
 
     def attn_core(q, k, v):
         return attention(q, k, v, cfg), (k, v)
 
-    x = embed_lookup(params["embed"], tokens)
+    x = embed_lookup(params["embed"], tokens, cfg.dtype)
     for i in range(cfg.n_layers):
         x, (k, v) = layer_block(x, layer_params(params, i), cfg, cos, sin,
-                                attn_core)
+                                attn_core, mm=mm)
         cache_fill(kv_view(cache["k"], i), k)
         cache_fill(kv_view(cache["v"], i), v)
     x_last = x[:, -1] if logit_pos is None else x[:, logit_pos]
@@ -310,9 +316,32 @@ def make_ragged_attn_core(kf, vf, layer: int, lengths: torch.Tensor,
     return attn_core
 
 
+def model_layer(x: torch.Tensor, lp: dict, cfg, cos: torch.Tensor,
+                sin: torch.Tensor, attn_core, mm=None):
+    """Route one layer to the dense or the MoE body by the config's shape
+    — the one switch through which every cached-step path (chunk_step,
+    the slot, ragged, ring and paged steps, chunked admission) runs MoE
+    models too: it only chooses ``layer_block``'s FFN. A MoE layer's
+    expert capacity follows the chunk's width (``cfg.capacity_for``, pads
+    included); its load-balancing term does not matter here and is
+    dropped. ``mm`` applies to the dense body only. Returns (x, the
+    attention core's aux)."""
+    ffn = None
+    if hasattr(cfg, "n_experts"):
+        if mm is not None:
+            raise NotImplementedError(
+                "no quantized/LoRA MoE path: the mm hook only applies to "
+                "the dense layer body")
+        capacity = cfg.capacity_for(x.shape[1])
+
+        def ffn(h, lp):
+            return moe_ffn(h, lp, cfg, capacity=capacity)[0]
+    return layer_block(x, lp, cfg, cos, sin, attn_core, mm=mm, ffn=ffn)
+
+
 def chunk_step(params: dict, tokens: torch.Tensor, cache: dict,
-               cfg: TransformerConfig, rope=None, logit_pos: int | None = None
-               ) -> tuple[torch.Tensor, dict]:
+               cfg: TransformerConfig, rope=None, mm=None,
+               logit_pos: int | None = None) -> tuple[torch.Tensor, dict]:
     """Cached multi-token step: write Q tokens' K/V at cache['length']
     and return logits at every position (B, Q, vocab) fp32 — or, with
     ``logit_pos`` (an in-chunk index), only there, (B, vocab).
@@ -342,24 +371,25 @@ def chunk_step(params: dict, tokens: torch.Tensor, cache: dict,
                   * rope_freqs(cfg, tokens.device)[None, :])
         cos, sin = torch.cos(angles), torch.sin(angles)
 
-    x = embed_lookup(params["embed"], tokens)                # (B, Q, D)
+    x = embed_lookup(params["embed"], tokens, cfg.dtype)     # (B, Q, D)
     slot_ids = torch.arange(max_seq, device=tokens.device)
     for i in range(cfg.n_layers):
         core = make_cached_attn_core(kv_view(cache["k"], i),
                                      kv_view(cache["v"], i), pos, cfg,
                                      slot_ids)
-        x, _ = layer_block(x, layer_params(params, i), cfg, cos, sin, core)
+        x, _ = model_layer(x, layer_params(params, i), cfg, cos, sin, core,
+                           mm=mm)
     if logit_pos is not None:
         x = x[:, logit_pos]
     return lm_head(params, x), {**cache, "length": pos + Q}
 
 
 def decode_step(params: dict, token: torch.Tensor, cache: dict,
-                cfg: TransformerConfig, rope=None
+                cfg: TransformerConfig, rope=None, mm=None
                 ) -> tuple[torch.Tensor, dict]:
     """One token (B,) at position cache['length'] -> (logits, cache): the
     Q=1 case of :func:`chunk_step`."""
-    return chunk_step(params, token[:, None], cache, cfg, rope=rope,
+    return chunk_step(params, token[:, None], cache, cfg, rope=rope, mm=mm,
                       logit_pos=0)
 
 
@@ -476,7 +506,7 @@ def prefill_chunk_layout(plen: int, buckets) -> list[tuple[int, int, int]]:
 
 def chunked_generate(params: dict, prompt: torch.Tensor,
                      cfg: TransformerConfig, steps: int,
-                     buckets: tuple[int, ...], max_seq: int,
+                     buckets: tuple[int, ...], max_seq: int, mm=None,
                      rows: int | None = None) -> torch.Tensor:
     """Offline greedy decode with the serving engine's chunked-prefill
     semantics (same bucket layout, same pad widths, same per-chunk
@@ -506,14 +536,14 @@ def chunked_generate(params: dict, prompt: torch.Tensor,
         if padded > piece:
             toks = torch.nn.functional.pad(toks, (0, padded - piece))
         cache = {**cache, "length": start}
-        logits, cache = chunk_step(params, toks, cache, cfg,
+        logits, cache = chunk_step(params, toks, cache, cfg, mm=mm,
                                    logit_pos=piece - 1)
     cache = {**cache, "length": plen}
     out = []
     cur = torch.argmax(logits, dim=-1)
     for _ in range(steps):
         out.append(cur)
-        lg, cache = decode_step(params, cur, cache, cfg, rope=rope)
+        lg, cache = decode_step(params, cur, cache, cfg, rope=rope, mm=mm)
         cur = torch.argmax(lg, dim=-1)
     return torch.stack(out, dim=1)
 
@@ -523,7 +553,8 @@ def chunked_generate(params: dict, prompt: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def ring_decode_step(params: dict, token: torch.Tensor, cache: dict,
-                     cfg: TransformerConfig) -> tuple[torch.Tensor, dict]:
+                     cfg: TransformerConfig, mm=None
+                     ) -> tuple[torch.Tensor, dict]:
     """One decode step over the ring cache; cache['length'] is the
     absolute position (it keeps growing past the cache rows). RoPE phases
     come from the absolute position, so no O(total-length) table exists:
@@ -536,11 +567,13 @@ def ring_decode_step(params: dict, token: torch.Tensor, cache: dict,
         # report the stale row as live
         raise ValueError(f"ring cache rows {R} < attn_window "
                          f"{cfg.attn_window}")
-    return chunk_step(params, token[:, None], cache, cfg, logit_pos=0)
+    return chunk_step(params, token[:, None], cache, cfg, mm=mm,
+                      logit_pos=0)
 
 
 def ring_generate(params: dict, prompt: torch.Tensor, cfg: TransformerConfig,
-                  steps: int, rows: int | None = None) -> torch.Tensor:
+                  steps: int, rows: int | None = None, mm=None
+                  ) -> torch.Tensor:
     """Greedy decode for a sliding-window model with bounded memory: the
     cache holds ``rows`` = 128-rounded max(prompt, window) rows whatever
     ``steps`` is. The attended key set equals the full-cache banded
@@ -553,12 +586,12 @@ def ring_generate(params: dict, prompt: torch.Tensor, cfg: TransformerConfig,
         raise ValueError(f"rows {R} must cover prompt {P} and window "
                          f"{cfg.attn_window}")
     cache = init_cache(cfg, B, R, device=prompt.device)
-    logits, cache = prefill(params, prompt, cfg, cache)
+    logits, cache = prefill(params, prompt, cfg, cache, mm=mm)
     cur = torch.argmax(logits, dim=-1)
     out = []
     for _ in range(steps):
         out.append(cur)
-        lg, cache = ring_decode_step(params, cur, cache, cfg)
+        lg, cache = ring_decode_step(params, cur, cache, cfg, mm=mm)
         cur = torch.argmax(lg, dim=-1)
     return torch.stack(out, dim=1)
 
@@ -763,14 +796,14 @@ def spec_draft_scan(dparams: dict, dstate: dict, tokens: torch.Tensor,
     for _ in range(k):
         cos = rope_d[0][dlen][:, None]
         sin = rope_d[1][dlen][:, None]
-        x = embed_lookup(dparams["embed"], tok)[:, None]
+        x = embed_lookup(dparams["embed"], tok, dcfg.dtype)[:, None]
         for i in range(dcfg.n_layers):
             core = make_paged_attn_core(kv_view(dstate["k"], i),
                                         kv_view(dstate["v"], i),
                                         dstate["tables"], dlen, dcfg,
                                         impl="xla",
                                         gather_pages_w=gather_pages_w)
-            x, _ = layer_block(x, layer_params(dparams, i), dcfg, cos, sin,
+            x, _ = model_layer(x, layer_params(dparams, i), dcfg, cos, sin,
                                core)
         nxt = torch.argmax(lm_head(dparams, x[:, 0]), dim=-1)
         tok = torch.where(active, nxt, tok)

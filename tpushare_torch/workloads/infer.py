@@ -21,6 +21,14 @@ modes on the card and prints the reference payload's throughput lines:
   from its own generator seeded by ``--seed`` (``--draft-dmodel 0``: the
   target drafts for itself).
 
+``--int8`` stores the weights as the int8 mirror
+(``quant.quantize_params``: about half the weight bytes) in every mode
+— ``forward`` and each engine run them through ``mm=quant.qmm``,
+``decode`` runs ``quant.qgenerate`` — and ``--ragged``'s re-headed
+preset is quantized the same way. It composes with ``--kv-codec int8``;
+with ``--draft-k`` the engine refuses (``ERR_SPEC_MM``), as in the
+reference.
+
 ``serve`` runs the AIMD admission controller by default
 (``overload.AdmissionController.from_env``: the pod's HBM cap, the node
 daemon's chip pressure when the env wires it), sized by the engine's
@@ -88,6 +96,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="serve: engine slot count (--paged: the "
                         "slot-reservation KV budget the pool is sized to, "
                         "lanes = 2 x slots)")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 weights in any mode (about half the weight "
+                        "bytes; pairs with a halved aliyun.com/tpu-hbm "
+                        "ask)")
     p.add_argument("--window", type=int, default=None,
                    help="serve: sliding attention window (tokens)")
     p.add_argument("--ring-rows", type=int, default=None,
@@ -191,8 +203,9 @@ def serve_config(args: argparse.Namespace, cfg, limit: int):
 
 
 def _setup(args: argparse.Namespace):
-    """Device, HBM limit, config and seeded weights from the flags
-    (plus the serve mode's prompt length and max_seq)."""
+    """Device, HBM limit, config and seeded weights from the flags (plus
+    the serve mode's prompt length and max_seq, and the weight path:
+    ``quant.qmm`` over the int8 mirror under ``--int8``, else None)."""
     from tpushare_torch.workloads.models.transformer import init_params
     device = resolve_device(args.device)
     limit = args.hbm_limit_mib
@@ -205,9 +218,14 @@ def _setup(args: argparse.Namespace):
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = init_params(gen, cfg, device)
+    mm = None
+    if args.int8:
+        from tpushare_torch.workloads.quant import qmm, quantize_params
+        params, mm = quantize_params(params), qmm
+        print("int8 weights: ~half the weight HBM", flush=True)
     print(f"payload starting: device={device} hbm_limit={limit}MiB "
           f"d_model={cfg.d_model} layers={cfg.n_layers}", flush=True)
-    return device, limit, cfg, params, gen, plen, max_seq
+    return device, limit, cfg, params, gen, plen, max_seq, mm
 
 
 def run(args: argparse.Namespace) -> dict:
@@ -222,9 +240,12 @@ def run(args: argparse.Namespace) -> dict:
             return serve_traffic(eng, args, setup["cfg"], setup["device"],
                                  setup["plen"], setup["max_seq"],
                                  setup["n_lanes"])
-    device, limit, cfg, params, gen, _, _ = _setup(args)
+    device, limit, cfg, params, gen, _, _, mm = _setup(args)
     if args.mode == "decode":
-        from tpushare_torch.workloads.decode import generate
+        if args.int8:
+            from tpushare_torch.workloads.quant import qgenerate as generate
+        else:
+            from tpushare_torch.workloads.decode import generate
         prompt = torch.randint(0, cfg.vocab,
                                (args.batch, max(8, args.seq // 4)),
                                generator=gen, device=device)
@@ -244,18 +265,18 @@ def run(args: argparse.Namespace) -> dict:
         return {"mode": "decode", "tokens_per_s": toks}
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.seq),
                            generator=gen, device=device)
-    forward(params, tokens, cfg)                               # warm-up
+    forward(params, tokens, cfg, mm=mm)                        # warm-up
     _sync(device)
     t0 = time.perf_counter()
     for _ in range(args.steps):
-        out = forward(params, tokens, cfg)
+        out = forward(params, tokens, cfg, mm=mm)
     _sync(device)
     dt = time.perf_counter() - t0
     toks = args.batch * args.seq * args.steps / dt
     print(f"throughput: {toks:,.0f} tokens/s "
           f"({args.steps} steps, d_model={cfg.d_model})", flush=True)
     return {"mode": "forward", "tokens_per_s": toks, "logits": out,
-            "params": params, "cfg": cfg}
+            "params": params, "cfg": cfg, "mm": mm}
 
 
 def admission_for(args: argparse.Namespace, params: dict, n_lanes: int,
@@ -346,9 +367,9 @@ def serve_engine(args: argparse.Namespace) -> dict:
     from tpushare_torch.workloads import paging
     from tpushare_torch.workloads.serving import (PagedServingEngine,
                                                   ServingEngine)
-    device, limit, cfg, params, _, plen, max_seq = _setup(args)
+    device, limit, cfg, params, _, plen, max_seq, mm = _setup(args)
     bucket = -(-plen // 32) * 32
-    overload_kw = dict(queue_limit=args.queue_limit,
+    overload_kw = dict(mm=mm, queue_limit=args.queue_limit,
                        default_deadline_s=args.deadline_s,
                        draft=draft_for(args, cfg, params, device))
     if args.paged:

@@ -145,8 +145,34 @@ def param_shapes(cfg: TransformerConfig) -> dict:
 
 
 def layer_params(params: dict, i: int) -> dict:
-    """Layer ``i``'s slice of the stacked layer dict (views, no copy)."""
-    return {name: w[i] for name, w in params["layers"].items()}
+    """Layer ``i``'s slice of the stacked layer dict (views, no copy). A
+    leaf may itself be a dict — an int8 ``{"q", "s"}`` leaf, a LoRA
+    ``{"w", "a", "b"}`` leaf — whose tensors all stack on the leading
+    axis."""
+    return {name: _index_leaf(w, i) for name, w in params["layers"].items()}
+
+
+def _index_leaf(w, i: int):
+    if isinstance(w, dict):
+        return {k: _index_leaf(v, i) for k, v in w.items()}
+    return w[i]
+
+
+def unbind_layers(params: dict) -> list[dict]:
+    """Every layer's slice of the stacked layer dict, by ``unbind`` rather
+    than per-layer indexing: its backward stacks the layers' gradients
+    once instead of scattering each into a zeroed full stack."""
+    stacks = {name: _unbind_leaf(w) for name, w in params["layers"].items()}
+    n = len(next(iter(stacks.values())))
+    return [{name: ws[i] for name, ws in stacks.items()} for i in range(n)]
+
+
+def _unbind_leaf(w) -> list:
+    if isinstance(w, dict):
+        parts = {k: _unbind_leaf(v) for k, v in w.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return list(w.unbind(0))
 
 
 # ---------------------------------------------------------------------------
@@ -218,35 +244,52 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # forward
 # ---------------------------------------------------------------------------
 
+def _matmul(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return h @ w
+
+
+def swiglu(h: torch.Tensor, lp: dict, mm=None) -> torch.Tensor:
+    """The dense FFN, ``w2(silu(w1 h) * w3 h)``, through ``mm``."""
+    mm = mm or _matmul
+    return mm(F.silu(mm(h, lp["w1"])) * mm(h, lp["w3"]), lp["w2"])
+
+
 def layer_block(x: torch.Tensor, lp: dict, cfg: TransformerConfig,
-                cos: torch.Tensor, sin: torch.Tensor, attn_core):
+                cos: torch.Tensor, sin: torch.Tensor, attn_core, mm=None,
+                ffn=None):
     """One transformer layer — the single definition of the architecture
     shared by the batch forward, prefill and the cached decode steps.
     ``attn_core(q, k, v) -> (o, aux)`` supplies the attention inner
-    product; ``aux`` carries per-layer state out (K/V for cache fills)."""
+    product; ``aux`` carries per-layer state out (K/V for cache fills).
+    ``mm(h, w) -> h @ w`` supplies the projection matmul: the int8
+    weight path (``quant.qmm``) and LoRA (``lora.lora_mm``) plug in here
+    with their own leaf types, so they run this very block.
+    ``ffn(h, lp) -> y`` replaces the dense :func:`swiglu` (the MoE
+    layer's routed experts, ``models/moe.moe_layer_block``)."""
+    mm = mm or _matmul
     B, S = x.shape[:2]
     H, Hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     h = rmsnorm(x, lp["ln1"])
-    q = (h @ lp["wq"]).reshape(B, S, H, hd)
-    k = (h @ lp["wk"]).reshape(B, S, Hkv, hd)
-    v = (h @ lp["wv"]).reshape(B, S, Hkv, hd)
+    q = mm(h, lp["wq"]).reshape(B, S, H, hd)
+    k = mm(h, lp["wk"]).reshape(B, S, Hkv, hd)
+    v = mm(h, lp["wv"]).reshape(B, S, Hkv, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     o, aux = attn_core(q, k, v)
-    x = x + o.reshape(B, S, cfg.d_model) @ lp["wo"]
+    x = x + mm(o.reshape(B, S, cfg.d_model), lp["wo"])
     h = rmsnorm(x, lp["ln2"])
-    x = x + (F.silu(h @ lp["w1"]) * (h @ lp["w3"])) @ lp["w2"]
-    return x, aux
+    return x + (ffn(h, lp) if ffn is not None else swiglu(h, lp, mm)), aux
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
-            attn_fn=None,
-            positions: torch.Tensor | None = None) -> torch.Tensor:
+            attn_fn=None, positions: torch.Tensor | None = None,
+            mm=None) -> torch.Tensor:
     """tokens (B, S) int -> logits (B, S, vocab) float32.
 
     ``attn_fn(q, k, v) -> o`` overrides the attention core, and
-    ``positions`` (S,) overrides each slot's RoPE position — the
-    reference's hooks, with its meaning. With ``cfg.remat`` and a
+    ``positions`` (S,) overrides each slot's RoPE position, and ``mm``
+    the projection matmul (:func:`layer_block`) — the reference's hooks,
+    with its meaning. With ``cfg.remat`` and a
     gradient being taken, each layer runs under
     ``torch.utils.checkpoint`` (non-reentrant): the backward recomputes
     it from its input instead of keeping its intermediates."""
@@ -261,15 +304,11 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
         return attention(q, k, v, cfg), None
 
     def layer(x, lp):
-        return layer_block(x, lp, cfg, cos, sin, attn_core)[0]
+        return layer_block(x, lp, cfg, cos, sin, attn_core, mm=mm)[0]
 
-    # unbind, not per-layer indexing: its backward stacks the layers'
-    # gradients once instead of scattering each into a zeroed full stack
-    stacks = {name: w.unbind(0) for name, w in params["layers"].items()}
     remat = cfg.remat and torch.is_grad_enabled()
-    x = embed_lookup(params["embed"], tokens)
-    for i in range(cfg.n_layers):
-        lp = {name: ws[i] for name, ws in stacks.items()}
+    x = embed_lookup(params["embed"], tokens, cfg.dtype)
+    for lp in unbind_layers(params):
         x = (checkpoint(layer, x, lp, use_reentrant=False) if remat
              else layer(x, lp))
     return lm_head(params, x)
@@ -277,27 +316,36 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
 
 def loss_fn(params: dict, inputs: torch.Tensor, targets: torch.Tensor,
             cfg: TransformerConfig, attn_fn=None,
-            positions: torch.Tensor | None = None) -> torch.Tensor:
+            positions: torch.Tensor | None = None, mm=None) -> torch.Tensor:
     """Mean cross entropy of (B, S) targets given (B, S) inputs, from
     fp32 logits through an fp32 log-softmax, as the reference computes
     it. Inputs and targets keep identical shapes (callers shift
-    outside)."""
+    outside). ``mm`` overrides the projection matmul (LoRA, int8)."""
     logits = forward(params, inputs, cfg, attn_fn=attn_fn,
-                     positions=positions)
+                     positions=positions, mm=mm)
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
     return -ll.mean()
 
 
-def embed_lookup(e: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed_lookup(e, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Embedding gather, dense or int8: a ``{q, s}`` table has one scale
+    per row (``quant.quantize_rows``), gathered beside its int8 row and
+    applied in fp32 before the cast to ``dtype``."""
+    if isinstance(e, dict):
+        return (e["q"][tokens].float() * e["s"][tokens]).to(dtype)
     return e[tokens]
 
 
 def lm_head(params: dict, x: torch.Tensor) -> torch.Tensor:
     """Final norm + fp32 output projection, shared by forward and
-    decode."""
+    decode. An int8 ``{q, s}`` output table (per-column scales) is
+    multiplied in fp32 and rescaled, as in the reference."""
     x = rmsnorm(x, params["norm_f"])
-    return x.float() @ params["out"].float()
+    out = params["out"]
+    if isinstance(out, dict):
+        return (x.float() @ out["q"].float()) * out["s"].reshape(1, -1)
+    return x.float() @ out.float()
 
 
 def param_count(cfg: TransformerConfig) -> int:

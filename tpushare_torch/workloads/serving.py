@@ -34,10 +34,21 @@ of speculative decoding (``_validate_draft``, ``_spec_skip``,
   and batched speculative rounds over a draft pool whose block tables
   mirror the target's.
 
-Left for later slices (ROADMAP.md): int8 weights (A.7), MoE (A.9),
-meshes (A.10), fleet handoff, ``take_queue`` and ``cancel_request``
-(A.11). The engines raise where the reference would accept those,
-naming the item.
+Both engines take the reference's weight paths: ``mm=quant.qmm`` with
+an int8 parameter mirror (``quant.quantize_params``) flows to every
+program the reference gives it — admission, the slot and paged steps,
+prefix registration and ``sample_n`` — and composes with both KV
+codecs; a MoE config (``models/moe.MoEConfig``) serves through
+``decode.model_layer``, expert capacity following the chunk's width,
+pads included, so under drop pressure chunked admission may drop other
+tokens than the offline ``moe_decode.moe_prefill`` (the reference's
+note). MoE prefixes (``ERR_PREFIX_MOE``), speculative rounds over int8
+weights or MoE (``ERR_SPEC_MM``, ``ERR_SPEC_MOE``) are refused as in
+the reference.
+
+Left for later slices (ROADMAP.md): meshes (A.10), fleet handoff,
+``take_queue`` and ``cancel_request`` (A.11). The engines raise where
+the reference would accept those, naming the item.
 
 The reference's jitted programs become eager functions that update the
 pool and the lane state IN PLACE; the host loop keeps the reference's
@@ -64,11 +75,12 @@ from tpushare_torch.workloads.decode import (
     check_ragged_config, chunk_step, copy_pool_page, init_cache,
     init_page_pool, kv_view, load_pool_pages, make_cached_attn_core,
     make_paged_attn_core, make_paged_chunk_core, make_ragged_attn_core,
-    pool_page_size, prefill, prefill_chunk_layout, scatter_scratch_pages,
-    slot_unview, slot_view, spec_draft_scan, truncate_top_k, truncate_top_p)
+    model_layer, pool_page_size, prefill, prefill_chunk_layout,
+    scatter_scratch_pages, slot_unview, slot_view, spec_draft_scan,
+    truncate_top_k, truncate_top_p)
 from tpushare_torch.workloads.models.transformer import (
-    TransformerConfig, embed_lookup, layer_block, layer_params, lm_head,
-    rope_freqs, rope_tables)
+    TransformerConfig, embed_lookup, layer_params, lm_head, rope_freqs,
+    rope_tables)
 from tpushare_torch.workloads.ops.paged_attention import resolve_paged_impl
 from tpushare_torch.workloads.overload import DrainTimeout  # re-export
 from tpushare_torch.workloads.telemetry import EngineTelemetry
@@ -79,8 +91,7 @@ __all__ = ["init_slots", "admit", "ingest_chunk", "slot_decode_chunk",
            "DrainTimeout"]
 
 # ROADMAP items of what the engines do not carry yet, for the refusals
-_UNPORTED = {"mm": "A.7 (int8 weights)",
-             "mesh": "A.10 (multi-GPU)"}
+_UNPORTED = {"mesh": "A.10 (multi-GPU)"}
 
 
 def _refuse_unported(**knobs) -> None:
@@ -89,6 +100,13 @@ def _refuse_unported(**knobs) -> None:
         if value is not None:
             raise NotImplementedError(
                 f"{name}= is not ported yet: ROADMAP {_UNPORTED[name]}")
+
+
+def params_device(params: dict) -> torch.device:
+    """The device the weights live on (the embedding table, dense or an
+    int8 ``{q, s}`` leaf)."""
+    e = params["embed"]
+    return (e["q"] if isinstance(e, dict) else e).device
 
 
 def lane_efficiency(stats: dict) -> float | None:
@@ -196,7 +214,7 @@ def init_slots(cfg: TransformerConfig, n_slots: int, max_seq: int,
 
 def ingest_chunk(params: dict, tokens: torch.Tensor, slots: dict, slot: int,
                  start: int, new_len: int, rel_last: int,
-                 cfg: TransformerConfig, temp: float = 0.0,
+                 cfg: TransformerConfig, mm=None, temp: float = 0.0,
                  generator: torch.Generator | None = None, top_k: int = 0,
                  top_p: float = 0.0, use_top_p: bool = False) -> dict:
     """Run a (1, Q) token chunk through ``slot``'s cache at position
@@ -206,7 +224,8 @@ def ingest_chunk(params: dict, tokens: torch.Tensor, slots: dict, slot: int,
     at in-chunk position ``rel_last`` (only the final chunk's matters)."""
     sub = {"k": slot_view(slots["k"], slot), "v": slot_view(slots["v"], slot),
            "length": start}
-    logits, _ = chunk_step(params, tokens, sub, cfg, logit_pos=rel_last)
+    logits, _ = chunk_step(params, tokens, sub, cfg, mm=mm,
+                           logit_pos=rel_last)
     dev = logits.device
     temps = torch.tensor([temp], dtype=torch.float32, device=dev)
     top_ps = torch.tensor([top_p], dtype=torch.float32, device=dev)
@@ -234,16 +253,17 @@ def _install_prefix(slots: dict, slot: int, pk, pv) -> dict:
 
 
 def admit(params: dict, prompt: torch.Tensor, slots: dict, slot: int,
-          plen: int, cfg: TransformerConfig) -> dict:
+          plen: int, cfg: TransformerConfig, mm=None) -> dict:
     """Install a bucket-padded (1, P) prompt in ``slot``: the start=0
     case of :func:`ingest_chunk`. ``plen`` is the true prompt length;
     the causal mask keeps the pad tail out of every real position and
     decode later overwrites the pad K/V."""
-    return ingest_chunk(params, prompt, slots, slot, 0, plen, plen - 1, cfg)
+    return ingest_chunk(params, prompt, slots, slot, 0, plen, plen - 1, cfg,
+                        mm=mm)
 
 
 def _slot_step(params: dict, slots: dict, cfg: TransformerConfig, rope,
-               top_k: int = 0, use_top_p: bool = False,
+               mm=None, top_k: int = 0, use_top_p: bool = False,
                max_len: int | None = None,
                generators: dict | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -260,7 +280,7 @@ def _slot_step(params: dict, slots: dict, cfg: TransformerConfig, rope,
     cos_t, sin_t = rope
     cos = cos_t[lengths][:, None]                  # (B, 1, half) per row
     sin = sin_t[lengths][:, None]
-    x = embed_lookup(params["embed"], slots["tokens"])[:, None]
+    x = embed_lookup(params["embed"], slots["tokens"], cfg.dtype)[:, None]
     slot_ids = torch.arange(cache_max_seq(slots), device=lengths.device)
     for i in range(cfg.n_layers):
         if cfg.ragged_decode:
@@ -270,7 +290,8 @@ def _slot_step(params: dict, slots: dict, cfg: TransformerConfig, rope,
             core = make_cached_attn_core(kv_view(slots["k"], i),
                                          kv_view(slots["v"], i), lengths,
                                          cfg, slot_ids)
-        x, _ = layer_block(x, layer_params(params, i), cfg, cos, sin, core)
+        x, _ = model_layer(x, layer_params(params, i), cfg, cos, sin, core,
+                           mm=mm)
     logits = lm_head(params, x[:, 0])
     nxt, lp = _sample_rows(logits, slots["temps"], top_k, slots["top_ps"],
                            use_top_p, generators or {})
@@ -283,7 +304,8 @@ def _slot_step(params: dict, slots: dict, cfg: TransformerConfig, rope,
 
 
 def slot_decode_chunk(params: dict, slots: dict, cfg: TransformerConfig,
-                      n_steps: int, top_k: int = 0, use_top_p: bool = False,
+                      n_steps: int, mm=None, top_k: int = 0,
+                      use_top_p: bool = False,
                       rope_len: int | None = None,
                       generators: dict | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor, dict]:
@@ -296,7 +318,7 @@ def slot_decode_chunk(params: dict, slots: dict, cfg: TransformerConfig,
     rope = rope_tables(cfg, rope_len, slots["lengths"].device)
     toks, lps = [], []
     for _ in range(n_steps):
-        nxt, lp = _slot_step(params, slots, cfg, rope, top_k=top_k,
+        nxt, lp = _slot_step(params, slots, cfg, rope, mm=mm, top_k=top_k,
                              use_top_p=use_top_p, max_len=rope_len,
                              generators=generators)
         toks.append(nxt)
@@ -328,7 +350,7 @@ def init_page_state(cfg: TransformerConfig, n_lanes: int,
 
 
 def _paged_step(params: dict, state: dict, cfg: TransformerConfig, rope,
-                top_k: int = 0, use_top_p: bool = False,
+                mm=None, top_k: int = 0, use_top_p: bool = False,
                 max_len: int | None = None, impl: str = "xla",
                 gather_pages_w: int | None = None,
                 generators: dict | None = None
@@ -341,13 +363,14 @@ def _paged_step(params: dict, state: dict, cfg: TransformerConfig, rope,
     cos_t, sin_t = rope
     cos = cos_t[lengths][:, None]                  # (B, 1, half) per row
     sin = sin_t[lengths][:, None]
-    x = embed_lookup(params["embed"], state["tokens"])[:, None]
+    x = embed_lookup(params["embed"], state["tokens"], cfg.dtype)[:, None]
     for i in range(cfg.n_layers):
         core = make_paged_attn_core(kv_view(state["k"], i),
                                     kv_view(state["v"], i),
                                     state["tables"], lengths, cfg,
                                     impl=impl, gather_pages_w=gather_pages_w)
-        x, _ = layer_block(x, layer_params(params, i), cfg, cos, sin, core)
+        x, _ = model_layer(x, layer_params(params, i), cfg, cos, sin, core,
+                           mm=mm)
     logits = lm_head(params, x[:, 0])
     nxt, lp = _sample_rows(logits, state["temps"], top_k, state["top_ps"],
                            use_top_p, generators or {})
@@ -360,7 +383,8 @@ def _paged_step(params: dict, state: dict, cfg: TransformerConfig, rope,
 
 
 def paged_decode_chunk(params: dict, state: dict, cfg: TransformerConfig,
-                       n_steps: int, top_k: int = 0, use_top_p: bool = False,
+                       n_steps: int, mm=None, top_k: int = 0,
+                       use_top_p: bool = False,
                        rope_len: int | None = None, impl: str = "xla",
                        gather_pages_w: int | None = None,
                        generators: dict | None = None
@@ -374,7 +398,7 @@ def paged_decode_chunk(params: dict, state: dict, cfg: TransformerConfig,
     rope = rope_tables(cfg, rope_len, state["tables"].device)
     toks, lps = [], []
     for _ in range(n_steps):
-        nxt, lp = _paged_step(params, state, cfg, rope, top_k=top_k,
+        nxt, lp = _paged_step(params, state, cfg, rope, mm=mm, top_k=top_k,
                               use_top_p=use_top_p, max_len=rope_len,
                               impl=impl, gather_pages_w=gather_pages_w,
                               generators=generators)
@@ -384,12 +408,13 @@ def paged_decode_chunk(params: dict, state: dict, cfg: TransformerConfig,
 
 
 def _paged_prefill_chunk(params: dict, tokens: torch.Tensor, sk, sv,
-                         start: int, rel_last: int, cfg: TransformerConfig):
+                         start: int, rel_last: int, cfg: TransformerConfig,
+                         mm=None):
     """One bucket-padded admission chunk against the lane's contiguous
     prefill scratch — exactly ``decode.chunk_step``."""
     logits, cache = chunk_step(params, tokens,
                                {"k": sk, "v": sv, "length": start}, cfg,
-                               logit_pos=rel_last)
+                               mm=mm, logit_pos=rel_last)
     return logits, cache["k"], cache["v"]
 
 
@@ -445,12 +470,12 @@ def _draft_ingest_chunk(dparams: dict, dstate: dict, lane: int,
               * rope_freqs(dcfg, dev)[None, :])
     cos, sin = torch.cos(angles), torch.sin(angles)
     starts = torch.tensor([start], dtype=torch.int32, device=dev)
-    x = embed_lookup(dparams["embed"], tokens)
+    x = embed_lookup(dparams["embed"], tokens, dcfg.dtype)
     for i in range(dcfg.n_layers):
         core = make_paged_chunk_core(kv_view(dstate["k"], i),
                                      kv_view(dstate["v"], i), tbl, starts,
                                      dcfg, gather_pages_w=gather_pages_w)
-        x, _ = layer_block(x, layer_params(dparams, i), dcfg, cos, sin, core)
+        x, _ = model_layer(x, layer_params(dparams, i), dcfg, cos, sin, core)
     dstate["lengths"][lane] = new_len
     return dstate
 
@@ -485,13 +510,13 @@ def _spec_paged_round(params: dict, dparams: dict, state: dict,
     chunk = torch.cat([state["tokens"][:, None], drafts], dim=1)
     pos = lengths[:, None] + torch.arange(Q, device=dev)[None, :]
     cos, sin = rope_t[0][pos], rope_t[1][pos]                  # (B, Q, half)
-    x = embed_lookup(params["embed"], chunk)
+    x = embed_lookup(params["embed"], chunk, cfg.dtype)
     for i in range(cfg.n_layers):
         core = make_paged_chunk_core(kv_view(state["k"], i),
                                      kv_view(state["v"], i), state["tables"],
                                      lengths, cfg,
                                      gather_pages_w=gather_pages_w)
-        x, _ = layer_block(x, layer_params(params, i), cfg, cos, sin, core)
+        x, _ = model_layer(x, layer_params(params, i), cfg, cos, sin, core)
     logits = lm_head(params, x)                                # (B, Q, V)
     g = torch.argmax(logits, dim=-1)
     logp = torch.log_softmax(logits.float(), dim=-1).gather(
@@ -524,7 +549,7 @@ class _EngineCore:
 
     def _init_core(self, params: dict, cfg: TransformerConfig, n_lanes: int,
                    max_seq: int, prompt_buckets: tuple[int, ...],
-                   chunk: int, seed: int, top_k: int,
+                   chunk: int, mm, seed: int, top_k: int,
                    queue_limit: int | None, reject_policy: str,
                    default_deadline_s: float | None,
                    admission: overload.AdmissionController | None,
@@ -536,7 +561,9 @@ class _EngineCore:
         # MiB for the slot engine, pages for the paged one), faults is an
         # injectable tpu.fake.WorkloadFaultPlan and sync_timeout_s arms
         # the harvest's watchdog.
-        self.params, self.cfg = params, cfg
+        # mm: the weight path (quant.qmm over an int8 parameter mirror)
+        self.params, self.cfg, self.mm = params, cfg, mm
+        self.device = params_device(params)
         self.max_seq, self.chunk, self.top_k = max_seq, chunk, top_k
         self.seed = seed
         self._lane_count = n_lanes
@@ -689,7 +716,7 @@ class _EngineCore:
         if draft is None:
             return
         _dparams, dcfg, dk = draft
-        if getattr(self, "mm", None) is not None:
+        if self.mm is not None:
             raise ValueError(consts.ERR_SPEC_MM)
         if hasattr(self.cfg, "n_experts") or hasattr(dcfg, "n_experts"):
             raise ValueError(consts.ERR_SPEC_MOE)
@@ -1150,8 +1177,13 @@ class ServingEngine(_EngineCore):
     ``cfg.ragged_decode``: exact in f32, bf16 near-ties may break
     differently across the two reads.
 
-    The reference's ``mm`` and ``mesh`` raise ``NotImplementedError``
-    naming their ROADMAP item.
+    ``mm=quant.qmm`` with ``quant.quantize_params``' int8 mirror serves
+    int8 weights on every program above (not with ``draft``: the
+    reference's ``ERR_SPEC_MM``). A ``MoEConfig`` serves its experts
+    through ``decode.model_layer``; prefixes and drafts are dense-only.
+
+    The reference's ``mesh`` raises ``NotImplementedError`` naming its
+    ROADMAP item.
     """
 
     def __init__(self, params: dict, cfg: TransformerConfig, n_slots: int,
@@ -1164,12 +1196,11 @@ class ServingEngine(_EngineCore):
                  default_deadline_s: float | None = None,
                  admission: overload.AdmissionController | None = None,
                  faults=None, sync_timeout_s: float | None = None):
-        _refuse_unported(mm=mm, mesh=mesh)
+        _refuse_unported(mesh=mesh)
         self._init_core(params, cfg, n_slots, max_seq, prompt_buckets,
-                        chunk, seed, top_k, queue_limit, reject_policy,
+                        chunk, mm, seed, top_k, queue_limit, reject_policy,
                         default_deadline_s, admission, faults,
                         sync_timeout_s)
-        self.device = params["embed"].device
         self.n_slots = n_slots
         self.cache_rows = max_seq
         if ring_rows is not None:
@@ -1236,7 +1267,7 @@ class ServingEngine(_EngineCore):
         cache = init_cache(self.cfg, 1, plen, device=self.device)
         _, cache = prefill(self.params,
                            torch.tensor([tokens], device=self.device),
-                           self.cfg, cache)
+                           self.cfg, cache, mm=self.mm)
         self.prefixes[name] = (plen, {"k": cache["k"], "v": cache["v"]})
 
     def _forecast_mib(self, req: Request) -> float:
@@ -1306,7 +1337,7 @@ class ServingEngine(_EngineCore):
                         req.prompt[start:start + piece], dtype=torch.int64)
                     ingest_chunk(self.params, arr, self.slots, slot,
                                  off + start, off + start + piece, piece - 1,
-                                 self.cfg, temp=req.temperature,
+                                 self.cfg, mm=self.mm, temp=req.temperature,
                                  generator=gen, top_k=self.top_k,
                                  top_p=req.top_p, use_top_p=self._use_top_p)
                     self.stats["prefill_chunks"] += 1
@@ -1355,9 +1386,11 @@ class ServingEngine(_EngineCore):
             raise ValueError("sample_n needs temperature > 0: n greedy "
                              "continuations would be identical")
         # share only when the 1-token suffix layout fits (its padded
-        # bucket costs rows the direct chunked prefill would not)
+        # bucket costs rows the direct chunked prefill would not) and the
+        # model is dense (prefixes are)
         off = len(prompt) - 1
         share = (last_token_suffix and len(prompt) > 1
+                 and not hasattr(self.cfg, "n_experts")
                  and off + self._padded_end(1) <= self.max_seq
                  and off + 1 + max_new <= self.max_seq)
         name = None
@@ -1418,7 +1451,8 @@ class ServingEngine(_EngineCore):
         snapshot = dict(self.running)
         t0 = time.monotonic()
         out = self._run_chunk(lambda: slot_decode_chunk(
-            self.params, self.slots, self.cfg, n, top_k=self.top_k,
+            self.params, self.slots, self.cfg, n, mm=self.mm,
+            top_k=self.top_k,
             use_top_p=self._use_top_p, rope_len=self.max_seq,
             generators=self._generators), snapshot)
         if out is None:
@@ -1627,6 +1661,11 @@ class PagedServingEngine(_EngineCore):
     tail; rounds that cannot fire are counted by reason
     (``stats["spec_rounds_skipped"]``).
 
+    ``mm`` and a ``MoEConfig`` as the slot engine's: int8 weights on
+    admission, decode steps and prefix registration, with either pool
+    codec; MoE layers through ``decode.model_layer`` (the kernel read
+    serves their attention as it does a dense model's).
+
     Overload defense as the slot engine's; the admission controller's
     gate here is pages (``AdmissionController.admit_ok_pages``: the
     forecast against the free pool net of promised growth).
@@ -1635,7 +1674,7 @@ class PagedServingEngine(_EngineCore):
     def __init__(self, params: dict, cfg: TransformerConfig, n_lanes: int,
                  max_seq: int, n_pages: int, page_size: int = 32,
                  prompt_buckets: tuple[int, ...] = (32, 128),
-                 chunk: int = 8, seed: int = 0, top_k: int = 0,
+                 chunk: int = 8, mm=None, seed: int = 0, top_k: int = 0,
                  attn_impl: str = "auto", kv_codec: str = "bf16",
                  draft: tuple | None = None,
                  decode_forecast_fraction: float = 1.0,
@@ -1646,10 +1685,9 @@ class PagedServingEngine(_EngineCore):
                  faults=None, sync_timeout_s: float | None = None):
         check_paged_config(cfg, kv_codec=kv_codec)
         self._init_core(params, cfg, n_lanes, max_seq, prompt_buckets,
-                        chunk, seed, top_k, queue_limit, reject_policy,
+                        chunk, mm, seed, top_k, queue_limit, reject_policy,
                         default_deadline_s, admission, faults,
                         sync_timeout_s)
-        self.device = params["embed"].device
         self.n_lanes = n_lanes
         self.kv_codec = kv_codec
         self.attn_impl = resolve_paged_impl(attn_impl, self.device.type,
@@ -1738,7 +1776,7 @@ class PagedServingEngine(_EngineCore):
                     pool=self.kv_codec, cache="int8 (cfg.kv_int8)"))
             _, cache = prefill(self.params,
                                torch.tensor([tokens], device=self.device),
-                               self.cfg, cache)
+                               self.cfg, cache, mm=self.mm)
             _install_pages(self.state["k"], self.state["v"], cache["k"],
                            cache["v"], self._ids(ids))
         except Exception:
@@ -1924,7 +1962,8 @@ class PagedServingEngine(_EngineCore):
             arr[0, :piece] = torch.tensor(prompt[start:start + piece],
                                           dtype=torch.int64)
             logits, sk, sv = _paged_prefill_chunk(
-                self.params, arr, sk, sv, off + start, piece - 1, self.cfg)
+                self.params, arr, sk, sv, off + start, piece - 1, self.cfg,
+                mm=self.mm)
             self.stats["prefill_chunks"] += 1
             self.telemetry.prefill_chunk(padded_len)
         return logits, sk, sv
@@ -2334,7 +2373,8 @@ class PagedServingEngine(_EngineCore):
         snapshot = dict(self.running)
         t0 = time.monotonic()
         out = self._run_chunk(lambda: paged_decode_chunk(
-            self.params, self.state, self.cfg, n, top_k=self.top_k,
+            self.params, self.state, self.cfg, n, mm=self.mm,
+            top_k=self.top_k,
             use_top_p=self._use_top_p, rope_len=self.max_seq,
             impl=self.attn_impl, gather_pages_w=self._gather_rung(n),
             generators=self._generators), snapshot)

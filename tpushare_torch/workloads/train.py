@@ -20,8 +20,12 @@ scalars. ``torch.optim.AdamW`` differs in each of those places
 step counting), so the port keeps this form and the tests hold it to
 optax.
 
-There is no mesh in this slice: ring attention and more than one device
-are ROADMAP A.10.
+:func:`make_moe_train_step` is the same step over the MoE model
+(``models/moe.moe_loss_fn``: cross entropy plus ``router_aux_coef`` x
+the load-balancing term) on one device.
+
+There is no mesh in this slice: ring attention, expert parallelism and
+more than one device are ROADMAP A.10.
 """
 
 from __future__ import annotations
@@ -169,13 +173,14 @@ def _one_device(device) -> torch.device:
 
 
 def loss_and_grads(params: dict, inputs: torch.Tensor,
-                   targets: torch.Tensor,
-                   cfg: TransformerConfig) -> tuple[torch.Tensor, dict]:
-    """(loss, grads) of :func:`loss_fn`: detached leaves that share the
-    params' storage stand in as the autograd leaves."""
+                   targets: torch.Tensor, cfg: TransformerConfig,
+                   loss_of=loss_fn) -> tuple[torch.Tensor, dict]:
+    """(loss, grads) of ``loss_of`` (default :func:`loss_fn`): detached
+    leaves that share the params' storage stand in as the autograd
+    leaves."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
     with torch.enable_grad():
-        loss = loss_fn(leaves, inputs, targets, cfg)
+        loss = loss_of(leaves, inputs, targets, cfg)
     flat = list(tree_leaves(leaves))
     grads = iter(torch.autograd.grad(loss, flat))
     return loss.detach(), tree_map(lambda _: next(grads), leaves)
@@ -230,6 +235,27 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW,
         return state, loss
 
     return body
+
+
+def make_moe_train_step(cfg, optimizer: AdamW, device="cuda"):
+    """Returns ``step(state, inputs, targets) -> (state, loss)`` over the
+    MoE model (``init_state(init_moe_params(...), optimizer)``): the
+    gradient of ``moe_loss_fn`` (on the card the attention runs the
+    flash forward with LSE and its dQ / dK/dV backward), then one AdamW
+    update in place — the reference's ``make_moe_train_step`` on one
+    device. A list of more than one device raises (ROADMAP A.10: the
+    ``ep`` mesh)."""
+    from tpushare_torch.workloads.models.moe import moe_loss_fn
+    dev = _one_device(device)
+
+    def step(state: dict, inputs: torch.Tensor, targets: torch.Tensor):
+        loss, grads = loss_and_grads(state["params"], inputs.to(dev),
+                                     targets.to(dev), cfg, moe_loss_fn)
+        optimizer.update(grads, state["opt"], state["params"])
+        state["step"] += 1
+        return state, loss
+
+    return step
 
 
 def make_train_loop(cfg: TransformerConfig, optimizer: AdamW, device,
