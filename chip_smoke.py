@@ -3329,6 +3329,788 @@ def moe_f32_identity(torch, build):
           prefill_flash_launches=prefill_launches, identical=True)
 
 
+# ---------------------------------------------------------------------------
+# fleet serving: the router over co-resident paged engines, the page
+# handoff, disaggregation, salvage, replication, the cross-process fleet
+# ---------------------------------------------------------------------------
+
+FLEET_F32_KW = dict(n_lanes=3, max_seq=128, n_pages=40, page_size=16,
+                    prompt_buckets=(16, 64), chunk=4)
+# manual probes: the phases open members themselves
+FLEET_KNOBS = dict(probe_interval_s=1000.0, probe_timeout_s=0.5,
+                   breaker_cooldown_s=0.05, half_open_probes=1)
+
+
+def count_inside(build, obj, methods, into: dict) -> dict:
+    """Wrap ``obj``'s ``methods`` so every kernel launch made inside one
+    of them adds to ``into[kernel]``: one member's share of the
+    process-wide counts."""
+    for m in methods:
+        fn = getattr(obj, m)
+
+        def wrapped(*a, _fn=fn, **kw):
+            before = dict(build.LAUNCHES)
+            try:
+                return _fn(*a, **kw)
+            finally:
+                for k, n in build.LAUNCHES.items():
+                    if n != before[k]:
+                        into[k] = into.get(k, 0) + n - before[k]
+        setattr(obj, m, wrapped)
+    return into
+
+
+def live_page_ids(eng, lane) -> list:
+    from tpushare_torch.workloads import paging
+    return eng.alloc.table(lane)[:paging.pages_for_rows(
+        eng._lengths[lane], eng.alloc.page_size)]
+
+
+def planes_equal(torch, a, b) -> bool:
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(a, b))
+
+
+def handoff_bitwise(torch, make, prompt, max_new, codec):
+    """(a) of ``fleet-f32-identity``: a request admitted and one chunk
+    decoded on one engine, extracted and installed into another — its
+    pages bitwise equal on the card, ``q`` and ``s`` under int8 — and
+    finished there with the unmigrated engine's tokens. The controls must
+    fail the same byte check: an install that drops the last page, and
+    (int8) one that installs the pages dequantized to bf16 and quantized
+    again. Returns the phase's fields."""
+    from tpushare_torch.workloads.decode import kv_dequantize, kv_quantize
+    from tpushare_torch.workloads.serving import Request
+    src, dst = make(), make()
+    q = Request(prompt=list(prompt), max_new=max_new)
+    src.submit(q)
+    src.step()                  # admission and one decode chunk
+    lane = next(iter(src.running))
+    before = planes_at(torch, src.state, live_page_ids(src, lane))
+    record = src.extract_request(lane)
+
+    def installed(rec):
+        got_lane = dst.install_request(rec)
+        got = planes_at(torch, dst.state, dst.alloc.table(got_lane))
+        return got_lane, planes_equal(torch, before, got)
+
+    def drop_last(leaf):
+        if isinstance(leaf, dict):
+            return {p: drop_last(leaf[p]) for p in ("q", "s")}
+        out = leaf.clone()
+        out[:, -1] = 0
+        return out
+
+    controls = {}
+    variants = {"drop_last_page": {"k": drop_last(record["k"]),
+                                   "v": drop_last(record["v"])}}
+    if codec == "int8":
+        variants["requantized"] = {
+            side: kv_quantize(kv_dequantize(record[side],
+                                            torch.bfloat16).float())
+            for side in ("k", "v")}
+    for label, planes in variants.items():
+        bad_lane, same = installed({**record, **planes})
+        dst.cancel_request(bad_lane)
+        controls[label] = same
+    good_lane, bitwise = installed(record)
+    src.detach_request(lane)
+    dst.run()
+    stay = make()
+    want = transcripts(stay, [(list(prompt), max_new)])[0]
+    if not bitwise or any(controls.values()) or q.output != want or \
+            dst.alloc.pages_in_use() or src.alloc.pages_in_use():
+        raise RuntimeError(f"fleet f32 ({codec}) handoff: bitwise "
+                           f"{bitwise}, controls passing {controls}, tokens "
+                           f"== unmigrated {q.output == want}")
+    return {"handoff_bitwise": bitwise, "handoff_pages": before[0].shape[1],
+            **{f"control_{k}_passes": v for k, v in controls.items()}}
+
+
+def sampled_migration(torch, params, cfg, reseed=False):
+    """(d) of ``fleet-f32-identity``: a temperature-0.8 request served on
+    one engine, and the same request, same seed, moved mid-decode to an
+    engine of another seed — its CUDA generator's state (seed and Philox
+    offset) rides the record. ``reseed`` is the control: the destination
+    gets a freshly seeded generator. Returns (unmigrated, migrated)."""
+    from tpushare_torch.workloads.serving import PagedServingEngine, Request
+
+    def make(seed):
+        return PagedServingEngine(params, cfg, seed=seed, attn_impl="paged",
+                                  **FLEET_F32_KW)
+
+    prompt = list(range(3, 14))
+    stay = make(7)
+    q_stay = Request(prompt=prompt, max_new=24, temperature=0.8)
+    stay.submit(q_stay)
+    stay.run()
+    src = make(7)
+    q = Request(prompt=prompt, max_new=24, temperature=0.8)
+    src.submit(q)
+    src.step()
+    src.step()
+    lane = next(iter(src.running))
+    record = src.extract_request(lane)
+    if reseed:
+        fresh = torch.Generator(device="cuda")
+        fresh.manual_seed(12345)
+        record = {**record, "generator": fresh.get_state()}
+    dst = make(99)
+    if dst.install_request(record) is None:
+        raise RuntimeError("fleet f32: the sampler's install was refused")
+    src.detach_request(lane)
+    dst.run()
+    return q_stay, q
+
+
+def fleet_f32_identity(torch, build):
+    """A 2-layer f32 config on both pool codecs, kernels (K5, K5-int8,
+    K1 at registration) against ``attn_impl="xla"``: (a) the handoff
+    bitwise with its failing controls (``handoff_bitwise``); (b) a
+    disaggregated 2-member fleet gives one engine's greedy tokens, with
+    no decode launch on the prefill member; (c) ``open_member`` on a
+    member with running lanes salvages them mid-decode by migration,
+    their tokens those of the unmigrated run; (e) a prefix replicated to
+    a second engine launches no K1 there and serves the source's tokens.
+    Then (d), sampled: a sampler migrated mid-decode on CUDA generators
+    equals the unmigrated run, and the reseeded control does not."""
+    from tpushare_torch.workloads.fleet import FleetRouter
+    from tpushare_torch.workloads.serving import PagedServingEngine
+    cfg, params, specs, rng = f32_setup(torch, PAGED_F32, 15, 6, 60,
+                                        (8, 40))
+    prefix = rng.integers(0, cfg.vocab, 21).tolist()
+    fields = {}
+    for codec in ("bf16", "int8"):
+        k5 = "paged_decode_int8" if codec == "int8" else "paged_decode"
+
+        def make(impl="paged", **kw):
+            return PagedServingEngine(params, cfg, kv_codec=codec,
+                                      attn_impl=impl,
+                                      **{**FLEET_F32_KW, **kw})
+
+        fields.update({f"{codec}_{k}": v for k, v in handoff_bitwise(
+            torch, make, specs[0][0], specs[0][1], codec).items()})
+        one = transcripts(make(), specs)
+        if transcripts(make("xla"), specs) != one:
+            raise RuntimeError(f"fleet f32 ({codec}): kernel != twin")
+        # (b) disaggregated
+        members = [make(), make()]
+        prefill_launches = count_inside(build, members[0],
+                                        ("prefill_step", "step"), {})
+        before = build.LAUNCHES[k5]
+        r = FleetRouter(members, disaggregate=True, publish=False)
+        disagg = transcripts(r, specs)
+        decode_launches = build.LAUNCHES[k5] - before
+        if disagg != one or prefill_launches.get(k5) or \
+                not decode_launches or r.stats["handoffs"] != len(specs) \
+                or any(e.alloc.pages_in_use() for e in members):
+            raise RuntimeError(f"fleet f32 ({codec}) disaggregated: tokens "
+                               f"== one engine {disagg == one}, prefill "
+                               f"member launches {prefill_launches}, "
+                               f"{k5} {decode_launches}, router {r.stats}")
+        # (c) salvage mid-decode
+        members = [make(n_lanes=6, n_pages=80), make(n_lanes=6, n_pages=80)]
+        r = FleetRouter(members, publish=False, **FLEET_KNOBS)
+        reqs = served_start(r, specs)
+        for _ in range(3):
+            r.step()
+        victims = sum(1 for q in members[0].running.values() if q.output)
+        r.open_member(0)
+        r.run()
+        salvaged = [q.output for q in reqs]
+        if not victims or r.stats["migrations"] < victims or \
+                salvaged != one or members[1].alloc.pages_in_use():
+            raise RuntimeError(f"fleet f32 ({codec}) salvage: {victims} "
+                               f"victims, router {r.stats}, tokens == "
+                               f"unmigrated {salvaged == one}")
+        # (e) replication: no K1 on the replica
+        src, dst = make(), make()
+        flash0 = build.LAUNCHES["flash_fwd"]
+        src.register_prefix("sys", prefix)
+        home_k1 = build.LAUNCHES["flash_fwd"] - flash0
+        flash0 = build.LAUNCHES["flash_fwd"]
+        dst.install_prefix_pages("sys", prefix, src.extract_prefix("sys"))
+        replica_k1 = build.LAUNCHES["flash_fwd"] - flash0
+        same_pins = planes_equal(
+            torch, planes_at(torch, src.state, src.prefixes["sys"][1]),
+            planes_at(torch, dst.state, dst.prefixes["sys"][1]))
+        on_src = transcripts(src, specs, prefix="sys")
+        on_dst = transcripts(dst, specs, prefix="sys")
+        for e in (src, dst):
+            e.drop_prefix("sys")
+        if home_k1 != cfg.n_layers or replica_k1 or not same_pins or \
+                on_src != on_dst or src.alloc.pages_in_use() or \
+                dst.alloc.pages_in_use():
+            raise RuntimeError(f"fleet f32 ({codec}) replication: K1 home "
+                               f"{home_k1} replica {replica_k1}, pins "
+                               f"bitwise {same_pins}, tokens equal "
+                               f"{on_src == on_dst}")
+        fields.update({f"{codec}_disagg_handoffs": len(specs),
+                       f"{codec}_disagg_{k5}": decode_launches,
+                       f"{codec}_prefill_member_{k5}":
+                           prefill_launches.get(k5, 0),
+                       f"{codec}_salvaged": victims,
+                       f"{codec}_replica_flash": replica_k1,
+                       f"{codec}_home_flash": home_k1})
+    stay, moved = sampled_migration(torch, params, cfg)
+    c_stay, c_moved = sampled_migration(torch, params, cfg, reseed=True)
+    if moved.output != stay.output or c_moved.output == c_stay.output:
+        raise RuntimeError(f"fleet f32 sampled migration: continues "
+                           f"{moved.output == stay.output}, reseeded "
+                           f"control parts {c_moved.output != c_stay.output}")
+    diverge = next(i for i, (a, b) in enumerate(zip(c_moved.output,
+                                                    c_stay.output))
+                   if a != b)
+    phase("fleet-f32-identity", requests=len(specs), **fields,
+          sampled_tokens=len(moved.output), sampled_continues=True,
+          reseeded_control_parts_at=diverge)
+
+
+def served_start(front, specs, prefix=None):
+    """Submit ``specs`` to ``front`` (an engine or a router); the
+    requests, not yet run."""
+    from tpushare_torch.workloads.serving import Request
+    reqs = [Request(prompt=list(p), max_new=n, prefix=prefix)
+            for p, n in specs]
+    for r in reqs:
+        front.submit(r)
+    return reqs
+
+
+def smi_memory_mib() -> int:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return int(out.stdout.strip().splitlines()[0])
+
+
+def fleet_serve(torch, build, infer, extra):
+    """One ``infer --mode serve --paged`` run over a fleet (``extra``
+    names it) at the serve traffic, the counts zeroed just before and
+    the prefill member's own launches counted apart. Every request
+    completes; every member pool is empty after; the router's merged
+    snapshot is taken and the process provider cleared."""
+    from tpushare_torch.workloads.ops import registry
+    from tpushare_torch.workloads.telemetry import set_snapshot_provider
+    args = infer.parse_args(SERVE_ARGS + ["--paged"] + extra)
+    setup = infer.serve_engine(args)
+    router = setup["router"]
+    prefill = {}
+    if router.disaggregate:
+        count_inside(build, router.engines[0], ("prefill_step", "step"),
+                     prefill)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    registry.reset_fallbacks()
+    res = infer.serve_traffic(router, args, setup["cfg"], setup["device"],
+                              setup["plen"], setup["max_seq"],
+                              setup["n_lanes"])
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    fallbacks = registry.fallback_counts()
+    set_snapshot_provider(None)
+    reqs = res["requests"]
+    bad = [r.status for r in reqs if r.status != "completed"
+           or len(r.output) != r.max_new]
+    leaks = [e.alloc.pages_in_use() for e in router.engines
+             if hasattr(e, "alloc")]
+    if bad or any(leaks) or fallbacks or launches["flash_fwd"]:
+        raise RuntimeError(f"fleet serve {extra}: statuses {bad}, pages "
+                           f"{leaks}, fallbacks {fallbacks}, launches "
+                           f"{launches}")
+    ttft = res["ttft_s"]
+    snap = res["telemetry"]
+    from tpushare_torch import consts
+    fields = dict(tokens_per_s=res["tokens_per_s"], tokens=res["tokens"],
+                  seconds=res["seconds"],
+                  ttft_p50_ms=ttft[len(ttft) // 2] * 1e3,
+                  ttft_max_ms=ttft[-1] * 1e3,
+                  decode_p99_ms=snap[consts.TELEMETRY_DECODE_P99_MS],
+                  handoffs=router.stats["handoffs"],
+                  reasons=json.dumps(router.stats["reasons"],
+                                     separators=(",", ":")),
+                  states="+".join(router.member_states()),
+                  member_lanes="+".join(str(e.n_lanes)
+                                        for e in router.engines),
+                  member_pages="+".join(str(e.alloc.n_pages)
+                                        for e in router.engines
+                                        if hasattr(e, "alloc")),
+                  handoffs_in="+".join(str(e.stats["handoffs_in"])
+                                       for e in router.engines),
+                  handoffs_out="+".join(str(e.stats["handoffs_out"])
+                                        for e in router.engines),
+                  member_decode_steps="+".join(
+                      str(w + s) for w, s in zip(
+                          res["member_warmup_decode_steps"],
+                          res["member_decode_steps"])))
+    return res, router, launches, prefill, fields
+
+
+def serve_fleet_path(torch, build, infer):
+    """``serve --paged --fleet 2`` over ``serve``'s 16 flagship requests,
+    then ``--disaggregate`` on a bf16 and on an int8 pool: K5 (K5-int8)
+    launches equal 16 x the decode steps summed over the decode members,
+    none on the prefill member, every request completed, every pool
+    empty after."""
+    launches_all, out = {}, {}
+    for label, extra in (("fleet", ["--fleet", "2"]),
+                         ("disagg", ["--fleet", "2", "--disaggregate"]),
+                         ("disagg_int8", ["--fleet", "2", "--disaggregate",
+                                          "--kv-codec", "int8"])):
+        res, router, launches, prefill, fields = fleet_serve(
+            torch, build, infer, extra)
+        cfg = res["engine"].engines[0].cfg
+        k5 = ("paged_decode_int8" if "int8" in label else "paged_decode")
+        first = 1 if router.disaggregate else 0
+        steps = sum(w + s for w, s in zip(
+            res["member_warmup_decode_steps"][first:],
+            res["member_decode_steps"][first:]))
+        others = {k: n for k, n in launches.items() if n and k != k5}
+        if launches[k5] != cfg.n_layers * steps or others or \
+                prefill.get(k5) or (router.disaggregate and (
+                    res["member_decode_steps"][0]
+                    or router.stats["handoffs"] != len(res["requests"]))):
+            raise RuntimeError(f"serve-fleet {label}: {k5} {launches[k5]} "
+                               f"!= {cfg.n_layers} x {steps} decode steps, "
+                               f"others {others}, prefill member "
+                               f"{prefill}, handoffs {router.stats}")
+        out[label] = [r.output for r in res["requests"]]
+        for k, n in launches.items():
+            launches_all[k] = launches_all.get(k, 0) + n
+        phase("serve-fleet", run=label, **fields, decode_steps=steps,
+              **{f"{k5}_launches": launches[k5]},
+              prefill_member_launches=sum(prefill.values()))
+        del res, router
+    return launches_all, out
+
+
+FLEET_AB_LANES, FLEET_AB_N, FLEET_AB_MAX_SEQ = 12, 48, 512
+
+
+def fleet_ab_traffic():
+    """The reference bench's fleet traffic (its full preset): a 100-token
+    system prompt, 48 tails of 12-32 tokens, 48-80 new tokens, rng 13."""
+    import numpy as np
+    rng = np.random.default_rng(13)
+    sysp = [int(t) for t in rng.integers(0, 32768, 100)]
+    tails = [[int(t) for t in rng.integers(0, 32768,
+                                           int(rng.integers(12, 33)))]
+             for _ in range(FLEET_AB_N)]
+    news = [int(n) for n in rng.integers(48, 81, FLEET_AB_N)]
+    return sysp, tails, news
+
+
+def fleet_ab_arm(torch, build, params, cfg, n_engines=2, disagg=False,
+                 affinity=True):
+    """One arm of the fleet A/B: 2 members of 12 lanes x 64 pages of 32
+    rows (or one engine of 24 lanes x 128 pages), max_seq 512, buckets
+    (32, 128), chunk 8, forecast fraction 0.8, the K5 read; a warm burst
+    of 8, then the 48 requests timed. ``affinity`` registers the system
+    prompt and names it; otherwise it is inlined in every prompt.
+    Returns the arm's fields, its launches and the K1 launches counted
+    inside replications."""
+    from tpushare_torch import consts
+    from tpushare_torch.workloads import paging
+    from tpushare_torch.workloads.fleet import FleetRouter
+    from tpushare_torch.workloads.serving import PagedServingEngine, Request
+    sysp, tails, news = fleet_ab_traffic()
+    pages = paging.pages_for_rows(4 * FLEET_AB_MAX_SEQ, 32)
+    lanes, pages = ((FLEET_AB_LANES, pages) if n_engines > 1
+                    else (2 * FLEET_AB_LANES, 2 * pages))
+    members = [PagedServingEngine(
+        params, cfg, n_lanes=lanes, max_seq=FLEET_AB_MAX_SEQ, n_pages=pages,
+        page_size=32, prompt_buckets=(32, 128), chunk=8,
+        decode_forecast_fraction=0.8) for _ in range(n_engines)]
+    replica_k1 = {}
+    for e in members:
+        count_inside(build, e, ("install_prefix_pages",), replica_k1)
+    front = FleetRouter(members, disaggregate=disagg, publish=False)
+    flash0 = build.LAUNCHES["flash_fwd"]
+    if affinity:
+        front.register_prefix("sys", sysp)
+    home_k1 = build.LAUNCHES["flash_fwd"] - flash0
+
+    def req(i):
+        if affinity:
+            return Request(prompt=list(tails[i]), max_new=news[i],
+                           prefix="sys")
+        return Request(prompt=sysp + list(tails[i]), max_new=news[i])
+
+    for r in [req(i) for i in range(8)]:
+        front.submit(r)
+    front.run()
+    warm_replications = front.stats["replications"]
+    front.reset_stats()
+    reqs = [req(i) for i in range(FLEET_AB_N)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        front.submit(r)
+    front.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    snap = front.snapshot()
+    rs = front.stats
+    statuses = sorted({r.status for r in reqs})
+    fields = {"tokens_per_s": sum(len(r.output) for r in reqs) / dt,
+              "seconds": dt,
+              "ttft_p50_ms": snap[consts.TELEMETRY_TTFT_P50_MS],
+              "ttft_p99_ms": snap[consts.TELEMETRY_TTFT_P99_MS],
+              "decode_p99_ms": snap[consts.TELEMETRY_DECODE_P99_MS],
+              "hit_rate": rs["affinity_hits"] / max(1, rs["submitted"]
+                                                    - rs["shed"]),
+              "prefix_hits": sum(e.stats["prefix_hits"] for e in members),
+              "handoffs": rs["handoffs"], "replications": rs["replications"],
+              "warm_replications": warm_replications,
+              "reasons": json.dumps(rs["reasons"], separators=(",", ":")),
+              "statuses": "+".join(statuses)}
+    if affinity:
+        front.drop_prefix("sys")
+    leaks = [e.alloc.pages_in_use() for e in members]
+    if statuses != ["completed"] or any(leaks) or (
+            affinity and not fields["prefix_hits"]):
+        raise RuntimeError(f"fleet-ab arm ({n_engines} engines, disagg "
+                           f"{disagg}, affinity {affinity}): statuses "
+                           f"{statuses}, pages left {leaks}, fields "
+                           f"{fields}")
+    return fields, home_k1, replica_k1.get("flash_fwd", 0)
+
+
+def fleet_ab_path(torch, build, params, cfg):
+    """The reference's fleet A/B at its full preset and the flagship's
+    widths, on the kernel path: affinity on, affinity off (the prefix
+    inlined), disaggregated, and one engine of twice the pages and
+    lanes. Per arm: tokens/s, TTFT p50 / p99, decode p99, hit rate,
+    handoffs, replications, reasons. Hard: every request completed,
+    prefix hits with affinity on, 16 K1 per registration on the first
+    home and none inside a replication, every pool empty after the drop,
+    no kernel but K1 and K5."""
+    from tpushare_torch.workloads.ops import registry
+    torch.cuda.synchronize()
+    build.reset_launches()
+    registry.reset_fallbacks()
+    arms = {}
+    homes = 0
+    for label, kw in (("affinity", {}), ("affinity_off",
+                                         {"affinity": False}),
+                      ("disagg", {"disagg": True}),
+                      ("single", {"n_engines": 1})):
+        fields, home_k1, replica_k1 = fleet_ab_arm(torch, build, params,
+                                                   cfg, **kw)
+        registered = kw.get("affinity", True)
+        homes += registered
+        if home_k1 != cfg.n_layers * registered or replica_k1:
+            raise RuntimeError(f"fleet-ab {label}: K1 at registration "
+                               f"{home_k1}, inside replications "
+                               f"{replica_k1}")
+        arms[label] = fields
+        phase("fleet-ab", arm=label, **fields, home_flash=home_k1,
+              replica_flash=replica_k1)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    fallbacks = registry.fallback_counts()
+    others = {k: n for k, n in launches.items()
+              if n and k not in ("paged_decode", "flash_fwd")}
+    if launches["flash_fwd"] != cfg.n_layers * homes or others or \
+            fallbacks or not launches["paged_decode"]:
+        raise RuntimeError(f"fleet-ab launches {launches}, fallbacks "
+                           f"{fallbacks}")
+    phase("fleet-ab", arm="summary",
+          affinity_vs_off_ttft_p50=arms["affinity"]["ttft_p50_ms"]
+          / max(1e-9, arms["affinity_off"]["ttft_p50_ms"]),
+          disagg_vs_affinity_decode_p99=arms["disagg"]["decode_p99_ms"]
+          / max(1e-9, arms["affinity"]["decode_p99_ms"]),
+          fleet_vs_single_tokens_per_s=arms["affinity"]["tokens_per_s"]
+          / arms["single"]["tokens_per_s"],
+          paged_launches=launches["paged_decode"],
+          flash_launches=launches["flash_fwd"])
+    return launches
+
+
+class FleetHost:
+    """A second OS process serving one paged engine on a socket (``argv``:
+    ``infer --mode serve --listen 127.0.0.1:0`` with the serve flags, or
+    ``FLEET_F32_HOST``), started at once so its start-up overlaps other
+    phases; ``address`` waits for its first ``fleet host:`` (or
+    ``PORT``) line. Its output is drained on a thread; ``kill`` sends
+    SIGKILL and reaps it."""
+
+    def __init__(self, argv: list, timeout_s: float = 300.0):
+        import os
+        import queue
+        import threading
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        self.proc = subprocess.Popen(argv, cwd=REPO, env=env,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self.lines: list = []
+        self._lines: queue.Queue = queue.Queue()
+        self._deadline = time.monotonic() + timeout_s
+        self._address = None
+
+        def drain():
+            for line in self.proc.stdout:
+                self.lines.append(line.rstrip())
+                self._lines.put(line)
+            self._lines.put(None)
+
+        threading.Thread(target=drain, daemon=True).start()
+
+    @property
+    def address(self) -> tuple:
+        import queue
+        while self._address is None:
+            try:
+                line = self._lines.get(timeout=max(
+                    0.1, self._deadline - time.monotonic()))
+            except queue.Empty:
+                line = None
+            if line is None:
+                self.kill()
+                raise RuntimeError("fleet host never came up: "
+                                   + " | ".join(self.lines[-20:]))
+            for key in ("fleet host: paged engine at ", "PORT "):
+                if line.startswith(key):
+                    tail = line[len(key):].split()[0].rstrip(":")
+                    host, _, port = tail.rpartition(":")
+                    self._address = (host or "127.0.0.1", int(port))
+        return self._address
+
+    def kill(self) -> None:
+        import signal
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGKILL)
+        self.proc.wait(timeout=60)
+
+
+def fleet_hosts() -> tuple:
+    """The two host processes ``serve-fleet-remote`` joins, started
+    before the fleet phases: the flagship ``infer --listen`` and the f32
+    check's ``fleet_f32_host``."""
+    return (FleetHost([sys.executable, "-m",
+                       "tpushare_torch.workloads.infer", "--listen",
+                       "127.0.0.1:0"] + SERVE_ARGS + ["--paged"]),
+            FleetHost([sys.executable, "-c",
+                       FLEET_F32_HOST.format(repo=str(REPO))]))
+
+
+# the child of the f32 cross-process check: chip_smoke's own engine
+FLEET_F32_HOST = (
+    "import sys; sys.path.insert(0, {repo!r}); import chip_smoke; "
+    "chip_smoke.fleet_f32_host()")
+
+
+def fleet_f32_host() -> None:
+    """Serve ``fleet_f32_identity``'s f32 config on the card from this
+    process (the child of ``serve-fleet-remote``'s f32 check)."""
+    import torch
+    from tpushare_torch.workloads.remote import EngineHost
+    from tpushare_torch.workloads.serving import PagedServingEngine
+    cfg, params, _, _ = f32_setup(torch, PAGED_F32, 15, 6, 60, (8, 40))
+    host = EngineHost(PagedServingEngine(params, cfg, attn_impl="paged",
+                                         **FLEET_F32_KW))
+    print("PORT", host.address[1], flush=True)
+    host.serve_forever()
+
+
+def f32_remote_identity(torch, build, child):
+    """Cross-process identity in f32: the same disaggregated fleet (a
+    local prefill member, a decode member of the same shape) with the
+    decode member in this process, then in a second OS process on the
+    same card — every handoff crossing the wire from one CUDA context to
+    the other — over the greedy specs and one temperature-0.8 sampler
+    queued last, whose CUDA generator state crosses with its pages. The
+    greedy tokens equal the in-process run's; the sampler's tokens equal
+    the in-process run's and one engine's, unmigrated, same seed (the
+    prefill member seeds it as that engine would: the same admission
+    count). Returns (greedy equal, sampler continues, handoffs, wire
+    bytes sent)."""
+    from tpushare_torch.workloads.fleet import FleetRouter
+    from tpushare_torch.workloads.remote import RemoteMember
+    from tpushare_torch.workloads.serving import PagedServingEngine, Request
+    cfg, params, specs, _ = f32_setup(torch, PAGED_F32, 15, 6, 60, (8, 40))
+
+    def make():
+        return PagedServingEngine(params, cfg, attn_impl="paged",
+                                  **FLEET_F32_KW)
+
+    def outputs(front):
+        reqs = [Request(prompt=list(p), max_new=n) for p, n in specs]
+        reqs.append(Request(prompt=list(range(3, 14)), max_new=24,
+                            temperature=0.8))
+        for r in reqs:
+            front.submit(r)
+        front.run()
+        return [r.output for r in reqs]
+
+    local = outputs(FleetRouter([make(), make()], disaggregate=True,
+                                publish=False))
+    unmigrated = outputs(make())[-1]
+    member = None
+    try:
+        member = RemoteMember(child.address)
+        r = FleetRouter([make(), member], disaggregate=True, publish=False)
+        remote = outputs(r)
+        handoffs = r.stats["handoffs"]
+        sent = member.wire_stats["bytes_sent"]
+    finally:
+        if member is not None:
+            member.close()
+        child.kill()
+    return (remote[:-1] == local[:-1],
+            remote[-1] == local[-1] == unmigrated, handoffs, sent)
+
+
+def serve_fleet_remote_path(torch, build, infer, disagg_outputs, hosts):
+    """Two OS processes on one card. ``hosts`` (``fleet_hosts``, started
+    before the fleet phases): an ``infer --listen 127.0.0.1:0`` host with
+    the serve flags and seed, and the f32 check's child. ``serve``'s
+    requests run from this process with ``--join ADDR --disaggregate``:
+    prefill local (no K5 here), decode remote, every handoff across the
+    wire. Its greedy tokens are reported against the in-process
+    disaggregated run's (bf16: the in-process decode members have 4
+    lanes, the host 8, so batch composition may part them) and held
+    equal in f32, with a sampler's CUDA generator stream continuing
+    across the wire (``f32_remote_identity``, same shapes on both
+    sides).
+    Then ``--join ADDR`` (host and local engine both serving) with the
+    host killed by SIGKILL mid-decode: every request ends in exactly one
+    terminal status, the ``member_failed`` sheds counted, the wire
+    breaker open, the local pool empty; the card's used memory is read
+    before and after the kill."""
+    from tpushare_torch.workloads.ops import registry
+    from tpushare_torch.workloads.serving import Request
+    from tpushare_torch.workloads.telemetry import set_snapshot_provider
+    host, f32_host = hosts
+    try:
+        addr = f"{host.address[0]}:{host.address[1]}"
+        args = infer.parse_args(SERVE_ARGS + ["--paged", "--join", addr,
+                                              "--disaggregate"])
+        setup = infer.serve_engine(args)
+        router = setup["router"]
+        remote = router.engines[1]
+        wire_ms: list = []
+        install = remote.install_request
+
+        def timed_install(record):
+            t = time.perf_counter()
+            try:
+                return install(record)
+            finally:
+                wire_ms.append((time.perf_counter() - t) * 1e3)
+        remote.install_request = timed_install
+        torch.cuda.synchronize()
+        build.reset_launches()
+        registry.reset_fallbacks()
+        res = infer.serve_traffic(router, args, setup["cfg"],
+                                  setup["device"], setup["plen"],
+                                  setup["max_seq"], setup["n_lanes"])
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        set_snapshot_provider(None)
+        reqs = res["requests"]
+        outs = [r.output for r in reqs]
+        agree = sum(a == b for a, b in zip(outs, disagg_outputs))
+        bad = [r.status for r in reqs if r.status != "completed"]
+        if bad or any(launches.values()) or \
+                router.engines[0].alloc.pages_in_use() or \
+                router.stats["handoffs"] < len(reqs) or \
+                router.member_states() != ["closed", "closed"]:
+            raise RuntimeError(f"serve-fleet-remote: statuses {bad}, local "
+                               f"launches {launches}, router "
+                               f"{router.stats}, states "
+                               f"{router.member_states()}")
+        ttft = res["ttft_s"]
+        wire = remote.wire_stats
+        fields = dict(tokens_per_s=res["tokens_per_s"], tokens=res["tokens"],
+                      ttft_p50_ms=ttft[len(ttft) // 2] * 1e3,
+                      ttft_max_ms=ttft[-1] * 1e3,
+                      handoffs=router.stats["handoffs"],
+                      remote_decode_steps=res["member_decode_steps"][1]
+                      + res["member_warmup_decode_steps"][1],
+                      local_launches=sum(launches.values()),
+                      install_ms_p50=statistics.median(wire_ms),
+                      install_ms_max=max(wire_ms),
+                      wire_mib_sent=wire["bytes_sent"] / 2 ** 20,
+                      wire_mib_per_handoff=wire["bytes_sent"] / 2 ** 20
+                      / max(1, router.stats["handoffs"]),
+                      wire_calls=wire["calls"],
+                      wire_faults=wire["wire_faults"],
+                      bf16_agree_with_in_process=f"{agree}/{len(reqs)}")
+        remote.close()
+        del router, setup, res, remote
+        f32_equal, f32_sampler, f32_handoffs, f32_sent = \
+            f32_remote_identity(torch, build, f32_host)
+        if not (f32_equal and f32_sampler):
+            raise RuntimeError(f"serve-fleet-remote: f32 across two "
+                               f"processes: greedy == in-process "
+                               f"{f32_equal}, sampler continues "
+                               f"{f32_sampler}")
+        # the kill: host and local engine both serve
+        args = infer.parse_args(SERVE_ARGS + ["--paged", "--join", addr])
+        setup = infer.serve_engine(args)
+        router = setup["router"]
+        local, remote = router.engines
+        reqs = [Request(prompt=list(range(7 + i, 7 + i + 64)), max_new=48)
+                for i in range(16)]
+        for r in reqs:
+            router.submit(r)
+        for _ in range(400):
+            router.step()
+            if any(q.output for q in remote.running.values()):
+                break
+        in_flight = sum(1 for q in remote.running.values() if q.output)
+        if not in_flight:
+            raise RuntimeError("serve-fleet-remote: no token in flight on "
+                               "the host before the kill")
+        mem_before = smi_memory_mib()
+        host.kill()
+        time.sleep(2.0)
+        mem_after = smi_memory_mib()
+        router.run()
+        set_snapshot_provider(None)
+        statuses = [r.status for r in reqs]
+        by = {s: statuses.count(s) for s in sorted(set(statuses), key=str)}
+        failed = router.stats["reasons"].get("member_failed", 0)
+        member = router.healthz()["members"][1]
+        # the wire's breaker: consecutive wire faults, or the healthz
+        # probe that timed out on the dead socket first
+        if not all(r.done for r in reqs) or \
+                not set(statuses) <= {"completed", "shed"} or \
+                by.get("shed", 0) != failed or failed < in_flight or \
+                router.member_states()[1] != "open" or \
+                member["reason"] not in ("transport_faults",
+                                         "probe_timeout") or \
+                local.alloc.pages_in_use() or local.alloc.leaked():
+            raise RuntimeError(f"serve-fleet-remote kill: statuses {by}, "
+                               f"member_failed {failed}, router "
+                               f"{router.stats}, member {member}, local "
+                               f"pages {local.alloc.pages_in_use()}")
+        remote.close()
+        fields.update(kill_in_flight=in_flight,
+                      kill_statuses=json.dumps(by, separators=(",", ":")),
+                      kill_member_failed=failed,
+                      kill_wire_faults=router.stats["wire_faults"],
+                      kill_breaker=router.member_states()[1],
+                      kill_breaker_reason=member["reason"],
+                      kill_migrations=router.stats["migrations"],
+                      kill_hedged=router.stats["hedged"],
+                      smi_used_mib_before_kill=mem_before,
+                      smi_used_mib_after_kill=mem_after,
+                      f32_equal=f32_equal,
+                      f32_sampler_continues=f32_sampler,
+                      f32_handoffs=f32_handoffs,
+                      f32_wire_mib=f32_sent / 2 ** 20)
+        del router, setup, local, remote
+    finally:
+        host.kill()
+        f32_host.kill()
+    phase("serve-fleet-remote", **fields)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3395,6 +4177,34 @@ def main() -> int:
                                                           infer)
     paths["serve-overload"] = serve_overload_path(
         torch, build, traffic_eng.params, traffic_eng.cfg)
+    # the fleet phases: nothing they build may outlive them (a router's
+    # snapshot provider holds every member pool), so the training
+    # phases' peaks read as before
+    import gc
+    torch.cuda.synchronize()
+    fleet_t0, fleet_base = time.perf_counter(), torch.cuda.memory_allocated()
+    hosts = fleet_hosts()
+    try:
+        paths["serve-fleet"], fleet_outs = serve_fleet_path(torch, build,
+                                                            infer)
+        paths["fleet-ab"] = fleet_ab_path(torch, build, traffic_eng.params,
+                                          traffic_eng.cfg)
+        paths["serve-fleet-remote"] = serve_fleet_remote_path(
+            torch, build, infer, fleet_outs["disagg"], hosts)
+    finally:
+        for h in hosts:
+            h.kill()
+    del fleet_outs
+    gc.collect()
+    torch.cuda.synchronize()
+    fleet_left = torch.cuda.memory_allocated() - fleet_base
+    # a leaked member pool is 128 MiB or more, leaked weights 2.25 GiB;
+    # a kernel workspace cached for a new shape stays under this
+    if fleet_left > 64 * 2 ** 20:
+        raise RuntimeError(f"the fleet phases left {fleet_left} bytes "
+                           "allocated on the card")
+    phase("fleet-memory", left_bytes=fleet_left,
+          seconds=time.perf_counter() - fleet_t0)
     del traffic_eng
     torch.cuda.empty_cache()
     small_f32_identity(torch, build)
@@ -3403,6 +4213,7 @@ def main() -> int:
     w8_f32_identity(torch, build)
     moe_f32_identity(torch, build)
     prefix_f32_identity(torch, build)
+    fleet_f32_identity(torch, build)
     spec_f32_identity(torch, build)
     paths["train"] = train_path(torch, build, smi)
     torch.cuda.empty_cache()
@@ -3454,7 +4265,8 @@ def main() -> int:
                     "tpushare/workloads/ops/attention.py:94", flash_rows[0],
                     "flash-vs-plain, forward-logits, forward-w8, decode, "
                     "f32-identity, w8-f32-identity, moe-f32-identity, "
-                    "prefix-f32-identity, spec-f32-identity, "
+                    "prefix-f32-identity, fleet-f32-identity, "
+                    "spec-f32-identity, "
                     "train-f32-parity, moe-train-f32-parity"),
         kernel_line("flash_bwd_dq",
                     "tpushare_torch/workloads/kernels/flash_bwd.cu",
@@ -3474,9 +4286,11 @@ def main() -> int:
                     "tpushare_torch/workloads/kernels/paged_decode.cu",
                     "tpushare/workloads/ops/registry.py:617", paged_rows[0],
                     "paged-vs-plain, serve, serve-spec, serve-traffic, "
-                    "serve-traffic-chat, serve-overload, f32-identity, "
-                    "w8-f32-identity, moe-f32-identity, "
-                    "prefix-f32-identity, spec-f32-identity"),
+                    "serve-traffic-chat, serve-overload, serve-fleet, "
+                    "fleet-ab, f32-identity, w8-f32-identity, "
+                    "moe-f32-identity, prefix-f32-identity, "
+                    "fleet-f32-identity, serve-fleet-remote, "
+                    "spec-f32-identity"),
         kernel_line("ragged_decode",
                     "tpushare_torch/workloads/kernels/ragged_decode.cu",
                     "tpushare/workloads/ops/ragged_decode.py:70",
@@ -3488,8 +4302,9 @@ def main() -> int:
                     "tpushare/workloads/ops/registry.py:617",
                     paged_int8_rows[0],
                     "paged-int8-vs-plain, serve-int8, serve-overload, "
-                    "int8-f32-identity, w8-f32-identity, "
-                    "prefix-f32-identity, spec-f32-identity"),
+                    "serve-fleet, int8-f32-identity, w8-f32-identity, "
+                    "prefix-f32-identity, fleet-f32-identity, "
+                    "spec-f32-identity"),
         kernel_line("ragged_decode_int8",
                     "tpushare_torch/workloads/kernels/ragged_decode.cu",
                     "tpushare/workloads/ops/ragged_decode.py:70",

@@ -141,3 +141,117 @@ TELEMETRY_SLO_VIOLATIONS_PREFILL = "slo_violations_prefill_total"
 TELEMETRY_SLO_VIOLATIONS_DECODE = "slo_violations_decode_total"
 # kernel-registry fallbacks ("impl:reason" -> count), present when any
 TELEMETRY_KERNEL_FALLBACKS = "kernel_fallbacks"
+
+# ---------------------------------------------------------------------------
+# Fleet serving (workloads/fleet.py, transport.py, remote.py, wirecodec.py)
+# ---------------------------------------------------------------------------
+
+# A cross-pool page handoff (disaggregation, prefix replication, salvage)
+# moves raw page bytes: both pools must share codec and page size.
+ERR_HANDOFF_POOL_FMT = (
+    "page handoff layout mismatch: source pool is {src} but the "
+    "destination pool is {dst} — extract/install move raw page bytes "
+    "and require identical kv_codec and page_size on both engines")
+
+# FleetRouter's constructor guards and its respawn refusal.
+ERR_FLEET_EMPTY = "a fleet needs at least one engine"
+ERR_FLEET_SEQ_MISMATCH_FMT = (
+    "fleet members must share max_seq and prompt_buckets (got {got})")
+ERR_FLEET_DISAGG_FMT = (
+    "disaggregation needs 1 <= n_prefill ({n_prefill}) < engines "
+    "({engines}): at least one engine on each side of the split")
+ERR_FLEET_REPLICATE_DEPTH_FMT = "replicate_depth {depth} must be >= 1"
+ERR_FLEET_NO_FACTORY_FMT = (
+    "fleet member {member} failed fatally ({reason}) and no factory was "
+    "given: FleetRouter(factory=...) builds replacement members")
+
+# Member health: the healthz probe's wall bound and throttle, the
+# breaker thresholds (consecutive dispatch faults escaping step(), new
+# watchdog trips and OOM recoveries between probes), the open breaker's
+# cooldown, the clean half-open probes that close it, and how often one
+# request may be re-admitted after losing its member.
+FLEET_PROBE_TIMEOUT_S = 0.25
+FLEET_PROBE_INTERVAL_S = 0.5
+FLEET_BREAKER_DISPATCH_FAULTS = 3
+FLEET_BREAKER_WATCHDOG_TRIPS = 2
+FLEET_BREAKER_OOM_STORM = 5
+FLEET_BREAKER_COOLDOWN_S = 1.0
+FLEET_BREAKER_HALF_OPEN_PROBES = 2
+FLEET_HEDGE_RETRY_BUDGET = 2
+
+# The cross-process wire: the frame cap (MiB; a larger length field is
+# refused before any allocation), the per-op deadline, the deadline of
+# compute ops (step, prefill_step, extract, install, prefix replication),
+# the dial deadline, how long a host replays a mutating op's response by
+# its idempotency token, and the consecutive wire faults that open a
+# remote member's (non-fatal) breaker.
+FLEET_WIRE_MAX_FRAME_MIB = 256
+FLEET_RPC_OP_DEADLINE_S = 5.0
+FLEET_RPC_STEP_DEADLINE_S = 120.0
+FLEET_RPC_CONNECT_DEADLINE_S = 2.0
+FLEET_RPC_IDEMPOTENCY_TTL_S = 60.0
+FLEET_BREAKER_WIRE_FAULTS = 3
+
+# Typed wire-fault kinds: the decoder's WireError taxonomy and the
+# {kind} label of METRIC_FLEET_WIRE_FAULTS.
+WIRE_FAULT_TRUNCATED = "truncated"
+WIRE_FAULT_CRC = "crc_mismatch"
+WIRE_FAULT_VERSION = "version_skew"
+WIRE_FAULT_OVER_LENGTH = "over_length"
+WIRE_FAULT_BAD_MAGIC = "bad_magic"
+WIRE_FAULT_GARBAGE = "garbage"
+WIRE_FAULT_TIMEOUT = "timeout"
+WIRE_FAULT_CUT = "cut"
+WIRE_FAULT_REFUSED = "refused"
+WIRE_FAULT_KINDS = (
+    WIRE_FAULT_TRUNCATED, WIRE_FAULT_CRC, WIRE_FAULT_VERSION,
+    WIRE_FAULT_OVER_LENGTH, WIRE_FAULT_BAD_MAGIC, WIRE_FAULT_GARBAGE,
+    WIRE_FAULT_TIMEOUT, WIRE_FAULT_CUT, WIRE_FAULT_REFUSED)
+
+# Remote-member connection states ({state} of METRIC_FLEET_REMOTE_MEMBERS).
+REMOTE_MEMBER_CONNECTED = "connected"
+REMOTE_MEMBER_DISCONNECTED = "disconnected"
+REMOTE_MEMBER_STATES = (REMOTE_MEMBER_CONNECTED,
+                        REMOTE_MEMBER_DISCONNECTED)
+
+# A member's circuit-breaker states ({state} of METRIC_FLEET_MEMBER_STATE).
+FLEET_MEMBER_CLOSED = "closed"
+FLEET_MEMBER_OPEN = "open"
+FLEET_MEMBER_HALF_OPEN = "half_open"
+FLEET_MEMBER_STATES = (FLEET_MEMBER_CLOSED, FLEET_MEMBER_OPEN,
+                       FLEET_MEMBER_HALF_OPEN)
+
+# Typed outcomes of one failover action ({outcome} of
+# METRIC_FLEET_FAILOVER_OUTCOMES).
+FLEET_MIGRATED = "migrated"
+FLEET_SHED_MEMBER_FAILED = "member_failed"
+FLEET_HEDGED = "hedged"
+FLEET_RESPAWNED = "respawned"
+FLEET_SCALED_IN = "scaled_in"
+FLEET_OUTCOMES = (FLEET_MIGRATED, FLEET_SHED_MEMBER_FAILED, FLEET_HEDGED,
+                  FLEET_RESPAWNED, FLEET_SCALED_IN)
+
+# The fleet's merged snapshot keys (telemetry.fleet_snapshot plus the
+# router's counters); a single engine's snapshot carries none of them
+# but TELEMETRY_FLEET_ENGINE_ID once it joins a fleet.
+TELEMETRY_FLEET_ENGINES = "fleet_engines"
+TELEMETRY_FLEET_HANDOFFS = "fleet_handoffs_total"
+TELEMETRY_FLEET_AFFINITY_HITS = "fleet_affinity_hits_total"
+TELEMETRY_FLEET_MEMBERS_OPEN = "fleet_members_open"
+TELEMETRY_FLEET_MIGRATIONS = "fleet_migrations_total"
+TELEMETRY_FLEET_HEDGES = "fleet_hedged_prefills_total"
+TELEMETRY_FLEET_SHED_MEMBER_FAILED = "fleet_shed_member_failed_total"
+TELEMETRY_FLEET_RESPAWNS = "fleet_respawns_total"
+TELEMETRY_FLEET_REMOTE_MEMBERS = "fleet_remote_members"
+TELEMETRY_FLEET_WIRE_RECONNECTS = "fleet_wire_reconnects_total"
+TELEMETRY_FLEET_WIRE_FAULTS = "fleet_wire_faults_total"
+TELEMETRY_FLEET_REMOTE_MIGRATIONS = "fleet_remote_migrations_total"
+TELEMETRY_FLEET_SHED_SLO = "fleet_shed_slo_total"
+
+# The five fleet metric series (metrics.py; the reference's names).
+METRIC_FLEET_MEMBER_STATE = "tpushare_fleet_member_state"
+METRIC_FLEET_BREAKER_TRANSITIONS = (
+    "tpushare_fleet_breaker_transitions_total")
+METRIC_FLEET_FAILOVER_OUTCOMES = "tpushare_fleet_failover_outcomes_total"
+METRIC_FLEET_WIRE_FAULTS = "tpushare_fleet_wire_faults_total"
+METRIC_FLEET_REMOTE_MEMBERS = "tpushare_fleet_remote_members"

@@ -1,6 +1,10 @@
-"""The port's own copy of the reference's ``metrics.Histogram``
-(``tpushare/metrics.py:113``): the one metric type the serving
-telemetry uses, kept unregistered in the payload process."""
+"""The port's own copy of the metric types its workloads use —
+the reference's ``metrics.Histogram`` (``tpushare/metrics.py:113``) for
+the serving telemetry, and ``LabeledCounter`` / ``LabeledGauge`` for the
+five fleet series the router advances (``tpushare/metrics.py:540-563``:
+member state, breaker transitions, failover outcomes, wire faults,
+remote members) — under the reference's names and labels, kept
+unregistered in the payload process."""
 
 from __future__ import annotations
 
@@ -8,7 +12,12 @@ import math
 import threading
 from bisect import bisect_right
 
-__all__ = ["Histogram", "DEFAULT_BUCKETS"]
+from tpushare_torch import consts
+
+__all__ = ["Histogram", "DEFAULT_BUCKETS", "Counter", "Gauge",
+           "LabeledCounter", "LabeledGauge", "FLEET_MEMBER_STATE",
+           "FLEET_BREAKER_TRANSITIONS", "FLEET_FAILOVER_OUTCOMES",
+           "FLEET_WIRE_FAULTS", "FLEET_REMOTE_MEMBERS"]
 
 DEFAULT_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
                    0.25, 0.5, 1.0, 2.5)
@@ -67,3 +76,89 @@ class Histogram:
 
     def percentile(self, q: float) -> float:
         return self.percentile_of(self.samples_snapshot(), q)
+
+
+class Counter:
+    """A monotonically increasing value."""
+
+    def __init__(self, name: str, help_: str) -> None:
+        self.name, self.help = name, help_
+        self._lock = threading.Lock()
+        self.value = 0.0
+
+    def inc(self, amount: float = 1.0) -> None:
+        with self._lock:
+            self.value += amount
+
+
+class Gauge:
+    """A value that is set."""
+
+    def __init__(self, name: str, help_: str) -> None:
+        self.name, self.help = name, help_
+        self._lock = threading.Lock()
+        self.value = 0.0
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self.value = value
+
+
+class _LabeledFamily:
+    """One child series per label-value tuple, created on first use."""
+
+    _child = Counter
+
+    def __init__(self, name: str, help_: str,
+                 label_names: tuple[str, ...]) -> None:
+        if not label_names:
+            raise ValueError(f"{name}: a labeled family needs label names")
+        self.name, self.help = name, help_
+        self._lock = threading.Lock()
+        self._label_names = tuple(label_names)
+        self._children: dict[tuple[str, ...], object] = {}
+
+    def labels(self, **kv: object):
+        if set(kv) != set(self._label_names):
+            raise ValueError(f"{self.name}: expected labels "
+                             f"{self._label_names}, got {tuple(kv)}")
+        key = tuple(str(kv[n]) for n in self._label_names)
+        with self._lock:
+            child = self._children.get(key)
+            if child is None:
+                child = self._children[key] = self._child(self.name,
+                                                          self.help)
+        return child
+
+    def values(self) -> dict[tuple[str, ...], float]:
+        """Every child's value by its label-value tuple."""
+        with self._lock:
+            return {k: c.value for k, c in self._children.items()}
+
+
+class LabeledCounter(_LabeledFamily):
+    _child = Counter
+
+
+class LabeledGauge(_LabeledFamily):
+    _child = Gauge
+
+
+FLEET_MEMBER_STATE = LabeledGauge(
+    consts.METRIC_FLEET_MEMBER_STATE,
+    "One fleet member's circuit-breaker state, one-hot over "
+    "closed/open/half_open", ("member", "state"))
+FLEET_BREAKER_TRANSITIONS = LabeledCounter(
+    consts.METRIC_FLEET_BREAKER_TRANSITIONS,
+    "Fleet member circuit-breaker transitions by destination state",
+    ("member", "to"))
+FLEET_FAILOVER_OUTCOMES = LabeledCounter(
+    consts.METRIC_FLEET_FAILOVER_OUTCOMES,
+    "Fleet failover actions by typed terminal outcome", ("outcome",))
+FLEET_WIRE_FAULTS = LabeledCounter(
+    consts.METRIC_FLEET_WIRE_FAULTS,
+    "Typed wire faults charged against a remote member after the "
+    "transport's retry policy gave up", ("member", "kind"))
+FLEET_REMOTE_MEMBERS = LabeledGauge(
+    consts.METRIC_FLEET_REMOTE_MEMBERS,
+    "Cross-process fleet members by wire state", ("state",))

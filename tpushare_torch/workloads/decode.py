@@ -697,6 +697,44 @@ def copy_pool_page(kp, vp, src: int, dst: int):
     return kp, vp
 
 
+def extract_request_pages(kp, vp, page_ids: torch.Tensor):
+    """Gather one request's (or one pinned prefix's) pages out of a
+    pool, byte for byte: ``pool[:, page_ids]`` across every layer, K and
+    V — the read half of the cross-pool handoff. A codec leaf gathers
+    its ``q`` and ``s`` planes together and is never dequantized. The
+    source pool is only read."""
+    def grab(leaf):
+        if isinstance(leaf, dict):
+            return {"q": leaf["q"][:, page_ids], "s": leaf["s"][:, page_ids]}
+        return leaf[:, page_ids]
+    return grab(kp), grab(vp)
+
+
+def install_request_pages(kp, vp, pk, pv, page_ids: torch.Tensor):
+    """Scatter extracted pages into another pool's reserved ``page_ids``,
+    in place: ``pool[:, page_ids] = pages`` — the write half of the
+    handoff, ``q`` and ``s`` planes together, nothing requantized. The
+    pages may come from another device (the wire lands them on the
+    host): every plane is on the pool's device, and every shape and
+    dtype checked, before the first byte is written, so a layout
+    mismatch raises, and an out-of-memory in the copy leaves the pool
+    as it was."""
+    pairs = []
+    for pool, pages in ((kp, pk), (vp, pv)):
+        if isinstance(pool, dict) != isinstance(pages, dict):
+            raise ValueError("handoff pages and pool differ in codec")
+        for dst, src in zip(kv_planes(pool), kv_planes(pages)):
+            want = (dst.shape[0], page_ids.shape[0], *dst.shape[2:])
+            if tuple(src.shape) != want or src.dtype != dst.dtype:
+                raise ValueError(
+                    f"handoff pages {tuple(src.shape)} {src.dtype} do not "
+                    f"fit the pool's {want} {dst.dtype}")
+            pairs.append((dst, src.to(dst.device)))
+    for dst, src in pairs:
+        dst[:, page_ids] = src
+    return kp, vp
+
+
 def make_paged_attn_core(kp, vp, tables: torch.Tensor, lengths: torch.Tensor,
                          cfg: TransformerConfig, impl: str = "xla",
                          gather_pages_w: int | None = None):

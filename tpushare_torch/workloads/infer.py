@@ -40,6 +40,19 @@ SIGTERM drains the engine (stop admitting, finish in flight, shed the
 queue with exact accounting). The serve result carries the engine's
 telemetry snapshot.
 
+Fleet serving (``workloads/fleet.py``): ``--fleet N`` (implies
+``--paged``) fronts N co-resident paged engines with the ``FleetRouter``
+— the slot-reservation KV budget splits across the member pools, each
+member gets ``max(2, 2 x slots // N)`` lanes and its own admission
+controller —; ``--disaggregate`` makes engine 0 an admission-only
+prefill member whose pages are handed into the decode members' pools
+(the draft arms only the decode side). ``--listen HOST:PORT`` hosts one
+paged engine behind the fleet's RPC transport (``remote.EngineHost``),
+prints ``fleet host: paged engine at HOST:PORT`` (port 0 binds a free
+one) and serves until killed; ``--join ADDR[,ADDR...]`` composes such
+hosts as remote members beside the local engine(s). The router takes
+SIGTERM's drain, and the run reports ``router.fleet_stats()``.
+
 ``--device cpu`` runs the plain-PyTorch path (tests); the default is the
 card, and a host without CUDA raises. Invalid flag combinations print a
 message and exit 2, as the reference payload does.
@@ -121,6 +134,25 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                         "halves bytes/page so the same pool HBM holds "
                         "~2x pages -> deeper admitted concurrency "
                         "(implies --paged)")
+    p.add_argument("--fleet", type=int, default=None,
+                   help="serve: front this many co-resident paged "
+                        "engines with the prefix-affinity FleetRouter "
+                        "(implies --paged; the slot-reservation KV "
+                        "budget splits across the member pools)")
+    p.add_argument("--disaggregate", action="store_true",
+                   help="serve --fleet/--join: engine 0 admits and "
+                        "prefills only and hands each admission's pages "
+                        "into a decode engine's pool")
+    p.add_argument("--listen", metavar="HOST:PORT", default=None,
+                   help="serve: host one paged engine behind the fleet "
+                        "RPC transport at this address (port 0: any "
+                        "free port) and serve until killed — the far "
+                        "side of --join (implies --paged, excludes "
+                        "--fleet/--join)")
+    p.add_argument("--join", metavar="ADDR[,ADDR...]", default=None,
+                   help="serve: dial these --listen hosts and compose "
+                        "them as remote fleet members beside the local "
+                        "engine(s) (implies --paged)")
     p.add_argument("--draft-k", type=int, default=None,
                    help="serve: arm speculative decoding with this many "
                         "draft tokens per round (>= 2), on either engine: "
@@ -165,6 +197,41 @@ def _cli_error(msg: str):
     """The reference payload's flag errors: a message and exit code 2."""
     print(msg, file=sys.stderr, flush=True)
     raise SystemExit(2)
+
+
+def _host_port(text: str, flag: str) -> tuple[str, int]:
+    host, _, port = text.strip().rpartition(":")
+    if not port.isdigit() or (flag == "--join" and not host):
+        _cli_error(f"{flag}: {text.strip()!r} is not HOST:PORT")
+    return host or "127.0.0.1", int(port)
+
+
+def fleet_flags(args: argparse.Namespace) -> list[tuple[str, int]]:
+    """The reference payload's fleet guards (each a message and exit
+    2); sets ``--paged`` where a fleet flag implies it and returns the
+    ``--join`` addresses."""
+    if args.listen is not None and (args.fleet is not None
+                                    or args.join is not None):
+        _cli_error("--listen hosts ONE engine for a remote router; it "
+                   "excludes --fleet/--join (run the router process with "
+                   "--join instead)")
+    remote = []
+    if args.join is not None:
+        remote = [_host_port(part, "--join")
+                  for part in args.join.split(",")]
+        args.paged = True
+    if args.listen is not None:
+        _host_port(args.listen, "--listen")
+        args.paged = True
+    if args.fleet is not None:
+        if args.fleet < 2:
+            _cli_error("--fleet needs at least 2 engines (1 is just "
+                       "--paged)")
+        args.paged = True
+    elif args.disaggregate and args.join is None:
+        _cli_error("--disaggregate needs --fleet N or --join (prefill "
+                   "and decode roles live on different member engines)")
+    return remote
 
 
 def serve_config(args: argparse.Namespace, cfg, limit: int):
@@ -235,11 +302,13 @@ def run(args: argparse.Namespace) -> dict:
     from tpushare_torch.workloads.models.transformer import forward
     if args.mode == "serve":
         setup = serve_engine(args)
-        eng = setup["engine"]
-        with _drain_on_sigterm(eng):
-            return serve_traffic(eng, args, setup["cfg"], setup["device"],
-                                 setup["plen"], setup["max_seq"],
-                                 setup["n_lanes"])
+        if setup.get("host") is not None:
+            return serve_host(setup["host"])
+        front = setup["router"] or setup["engine"]
+        with _drain_on_sigterm(front):
+            return serve_traffic(front, args, setup["cfg"],
+                                 setup["device"], setup["plen"],
+                                 setup["max_seq"], setup["n_lanes"])
     device, limit, cfg, params, gen, _, _, mm = _setup(args)
     if args.mode == "decode":
         if args.int8:
@@ -367,36 +436,78 @@ def serve_engine(args: argparse.Namespace) -> dict:
     from tpushare_torch.workloads import paging
     from tpushare_torch.workloads.serving import (PagedServingEngine,
                                                   ServingEngine)
+    remote = fleet_flags(args)
     device, limit, cfg, params, _, plen, max_seq, mm = _setup(args)
     bucket = -(-plen // 32) * 32
+    draft = draft_for(args, cfg, params, device)
     overload_kw = dict(mm=mm, queue_limit=args.queue_limit,
-                       default_deadline_s=args.deadline_s,
-                       draft=draft_for(args, cfg, params, device))
+                       default_deadline_s=args.deadline_s, draft=draft)
+    router = host = None
     if args.paged:
         # equal-HBM sizing against the slot engine's reservation, as in
         # the reference: the slots' KV budget buys the pool's pages under
-        # the chosen codec — int8 gets about twice the pages
+        # the chosen codec — int8 gets about twice the pages —, split
+        # across a fleet's local member pools
         page_size = 32
+        n_members = args.fleet or 1
         budget_mib = paging.pool_hbm_mib(
             paging.pages_for_rows(args.slots * max_seq, page_size),
             page_size, cfg.n_layers, cfg.kv_heads, cfg.head_dim)
-        n_pages = paging.pages_for_hbm(budget_mib, page_size, cfg.n_layers,
-                                       cfg.kv_heads, cfg.head_dim,
-                                       codec=args.kv_codec)
-        n_lanes = max(2, args.slots * 2)
-        eng = PagedServingEngine(params, cfg, n_lanes=n_lanes,
-                                 max_seq=max_seq, n_pages=n_pages,
-                                 page_size=page_size, prompt_buckets=(bucket,),
-                                 chunk=16, seed=args.seed, top_k=args.top_k,
-                                 kv_codec=args.kv_codec,
-                                 admission=admission_for(args, params,
-                                                         n_lanes, limit),
-                                 **overload_kw)
+        n_pages = paging.pages_for_hbm(budget_mib / n_members, page_size,
+                                       cfg.n_layers, cfg.kv_heads,
+                                       cfg.head_dim, codec=args.kv_codec)
+        n_lanes = max(2, args.slots * 2 // n_members)
+
+        def member(with_draft: bool) -> PagedServingEngine:
+            return PagedServingEngine(
+                params, cfg, n_lanes=n_lanes, max_seq=max_seq,
+                n_pages=n_pages, page_size=page_size,
+                prompt_buckets=(bucket,), chunk=16, seed=args.seed,
+                top_k=args.top_k, kv_codec=args.kv_codec,
+                admission=admission_for(args, params, n_lanes, limit),
+                **{**overload_kw, "draft": draft if with_draft else None})
+
         bpt = paging.kv_bytes_per_token(cfg.n_layers, cfg.kv_heads,
                                         cfg.head_dim, args.kv_codec)
-        print(f"paged KV pool: {n_pages} pages x {page_size} rows (codec "
-              f"{args.kv_codec}, {bpt:.0f} B/token, {n_lanes} lanes, read "
-              f"{eng.attn_impl})", flush=True)
+        layout = (f"{n_pages} pages x {page_size} rows (codec "
+                  f"{args.kv_codec}, {bpt:.0f} B/token, {n_lanes} lanes, "
+                  "read ")
+        if args.listen is not None:
+            from tpushare_torch.workloads.remote import EngineHost
+            eng = member(True)
+            host = EngineHost(eng, *_host_port(args.listen, "--listen"))
+            hhost, hport = host.address
+            print(f"fleet host: paged engine at {hhost}:{hport}: {layout}"
+                  f"{eng.attn_impl}) — join with --join {hhost}:{hport}",
+                  flush=True)
+        elif args.fleet is not None or remote:
+            from tpushare_torch.workloads.fleet import FleetRouter
+            from tpushare_torch.workloads.remote import RemoteMember
+            from tpushare_torch.workloads.transport import TransportError
+            # a prefill member never decodes: the draft arms only the
+            # decode side
+            engines = [member(not (args.disaggregate and i == 0))
+                       for i in range(n_members)]
+            for addr in remote:
+                try:
+                    engines.append(RemoteMember(addr))
+                except (TransportError, OSError) as e:
+                    _cli_error(f"--join {addr[0]}:{addr[1]}: {e}")
+            try:
+                router = FleetRouter(engines,
+                                     disaggregate=args.disaggregate)
+            except ValueError as e:
+                # a joined host of another pool layout or shape
+                _cli_error(f"fleet compose: {e}")
+            eng = None
+            print(f"fleet: {n_members} local engine(s) x {layout}"
+                  f"{engines[0].attn_impl})"
+                  + (f", +{len(remote)} remote member(s)" if remote else "")
+                  + (", disaggregated (engine 0 = prefill)"
+                     if args.disaggregate else ""), flush=True)
+        else:
+            eng = member(True)
+            print(f"paged KV pool: {layout}{eng.attn_impl})", flush=True)
     else:
         n_lanes = args.slots
         eng = ServingEngine(params, cfg, n_slots=n_lanes, max_seq=max_seq,
@@ -412,21 +523,47 @@ def serve_engine(args: argparse.Namespace) -> dict:
             print(f"ring KV cache: {eng.cache_rows} rows/slot "
                   f"(window {args.window}, logical max_seq {max_seq})",
                   flush=True)
-    if eng.admission is not None:
-        print(f"admission: watermark {eng.admission.watermark()} of "
-              f"{n_lanes} lanes, cap {eng.admission.cap_mib:.0f} MiB "
-              f"(weights {eng.admission.base_mib:.0f} MiB)", flush=True)
-    return {"engine": eng, "cfg": cfg, "device": device, "plen": plen,
-            "max_seq": max_seq, "n_lanes": n_lanes}
+    adm = (eng or router.engines[0]).admission
+    if adm is not None:
+        print(f"admission: watermark {adm.watermark()} of {n_lanes} lanes"
+              f"{' per member' if router is not None else ''}, cap "
+              f"{adm.cap_mib:.0f} MiB (weights {adm.base_mib:.0f} MiB)",
+              flush=True)
+    return {"engine": eng, "router": router, "host": host, "cfg": cfg,
+            "device": device, "plen": plen, "max_seq": max_seq,
+            "n_lanes": n_lanes}
+
+
+def serve_host(host) -> dict:
+    """``--listen``: serve the hosted engine to remote routers until the
+    process is killed (or interrupted)."""
+    try:
+        host.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        host.close()
+    return {"mode": "serve", "host": host}
+
+
+def _decode_steps(members, n_lanes: int) -> list[int]:
+    """Decode steps each member dispatched (its lane-steps over its
+    lanes); a prefill member of a disaggregated fleet dispatches none."""
+    return [m.stats.get("lane_steps", 0) // getattr(m, "n_lanes", n_lanes)
+            for m in members]
 
 
 def serve_traffic(eng, args, cfg, device, plen: int, max_seq: int,
                   n_lanes: int) -> dict:
-    """Drive a serving engine with the payload's synthetic traffic from
-    ``args`` (``--requests`` prompts of ``plen`` tokens, up to
-    ``--steps`` new tokens each, from ``--seed``) after one warm-up
-    request, print the throughput lines and return the measurements, the
-    engine, the requests and the engine's telemetry snapshot."""
+    """Drive a serving engine (or a ``FleetRouter``) with the payload's
+    synthetic traffic from ``args`` (``--requests`` prompts of ``plen``
+    tokens, up to ``--steps`` new tokens each, from ``--seed``) after
+    one warm-up request, print the throughput lines and return the
+    measurements, the engine, the requests and its telemetry snapshot
+    (a fleet's merged one, with ``fleet_stats()`` and each member's
+    decode steps)."""
+    fleet = getattr(eng, "fleet_stats", None) is not None
+    members = eng.engines if fleet else [eng]
     from tpushare_torch.workloads.serving import Request, lane_efficiency
     rng = np.random.default_rng(args.seed)
     reqs = [Request(
@@ -437,7 +574,7 @@ def serve_traffic(eng, args, cfg, device, plen: int, max_seq: int,
                    max_new=max(1, min(17, max_seq - plen)))
     eng.submit(warm)
     eng.run()
-    warm_steps = eng.stats["lane_steps"] // n_lanes
+    warm_steps = _decode_steps(members, n_lanes)
     eng.reset_stats()
     for r in reqs:
         eng.submit(r)
@@ -446,7 +583,8 @@ def serve_traffic(eng, args, cfg, device, plen: int, max_seq: int,
     _sync(device)
     dt = time.perf_counter() - t0
     total = sum(len(r.output) for r in reqs)
-    eff = lane_efficiency(eng.stats)
+    s = eng.fleet_stats() if fleet else eng.stats
+    eff = lane_efficiency(s)
     ttft = sorted(r.first_token_at - r.submitted_at for r in reqs
                   if r.first_token_at is not None)
     print(f"serve throughput: {total / dt:,.0f} tokens/s "
@@ -456,24 +594,45 @@ def serve_traffic(eng, args, cfg, device, plen: int, max_seq: int,
     if ttft:
         print(f"time to first token: p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms, "
               f"max {ttft[-1] * 1e3:.1f} ms", flush=True)
-    s = eng.stats
     if args.draft_k is not None:
         print(f"spec: rounds={s['spec_rounds']} "
               f"accept={s['spec_accepted'] / max(1, s['spec_drafted']):.2f} "
               f"emitted={s['spec_emitted']} "
               f"skipped={s['spec_rounds_skipped']}", flush=True)
-    if eng.draining or s["shed"] or s["deadline_exceeded"] \
+    def overload_line(st, label=""):
+        return (f"{label}overload accounting: completed={st['completed']} "
+                f"shed={st['shed']} "
+                f"deadline_exceeded={st['deadline_exceeded']} "
+                f"oom_quarantined={st['oom_quarantined']} "
+                f"oom_recoveries={st['oom_recoveries']}")
+
+    if fleet:
+        for i, m in enumerate(members):
+            ms = m.stats
+            print(overload_line(ms, f"engine {i}: ")
+                  + f" handoffs_in={ms['handoffs_in']}"
+                  f" handoffs_out={ms['handoffs_out']}", flush=True)
+        rs = eng.stats
+        print(f"router: routed={rs['submitted'] - rs['shed']} "
+              f"shed={rs['shed']} handoffs={rs['handoffs']} "
+              f"affinity_hits={rs['affinity_hits']} "
+              f"reasons={rs['reasons']} states={eng.member_states()}",
+              flush=True)
+    elif eng.draining or s["shed"] or s["deadline_exceeded"] \
             or s["oom_quarantined"]:
-        print(f"overload accounting: completed={s['completed']} "
-              f"shed={s['shed']} deadline_exceeded={s['deadline_exceeded']} "
-              f"oom_quarantined={s['oom_quarantined']} "
-              f"oom_recoveries={s['oom_recoveries']}", flush=True)
+        print(overload_line(s), flush=True)
     # decode steps of the wave: each reads the cache once per layer
-    return {"mode": "serve", "tokens_per_s": total / dt, "seconds": dt,
-            "tokens": total, "ttft_s": ttft, "engine": eng,
-            "requests": reqs, "warmup_decode_steps": warm_steps,
-            "decode_steps": s["lane_steps"] // n_lanes,
-            "telemetry": eng.telemetry.snapshot()}
+    steps = _decode_steps(members, n_lanes)
+    out = {"mode": "serve", "tokens_per_s": total / dt, "seconds": dt,
+           "tokens": total, "ttft_s": ttft, "engine": eng,
+           "requests": reqs, "warmup_decode_steps": sum(warm_steps),
+           "decode_steps": sum(steps),
+           "telemetry": (eng.snapshot() if fleet
+                         else eng.telemetry.snapshot())}
+    if fleet:
+        out.update(fleet_stats=s, member_decode_steps=steps,
+                   member_warmup_decode_steps=warm_steps)
+    return out
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -46,9 +46,16 @@ note). MoE prefixes (``ERR_PREFIX_MOE``), speculative rounds over int8
 weights or MoE (``ERR_SPEC_MM``, ``ERR_SPEC_MOE``) are refused as in
 the reference.
 
-Left for later slices (ROADMAP.md): meshes (A.10), fleet handoff,
-``take_queue`` and ``cancel_request`` (A.11). The engines raise where
-the reference would accept those, naming the item.
+The fleet's seam (``workloads/fleet.py``): ``take_queue`` on both
+engines; on the paged engine ``pool_layout``, ``extract_request`` ->
+``install_request`` -> ``detach_request`` (the pages move byte for byte,
+an int8 pool's ``q`` and ``s`` planes together, a sampling lane's
+generator state with them), ``cancel_request``, ``can_install``,
+``extract_prefix`` / ``install_prefix_pages`` (replication without a
+prefill) and ``prefill_step`` (a disaggregated prefill member's
+admission-only iteration). Left for a later slice (ROADMAP.md): meshes
+(A.10); the engines raise where the reference would accept one, naming
+the item.
 
 The reference's jitted programs become eager functions that update the
 pool and the lane state IN PLACE; the host loop keeps the reference's
@@ -72,8 +79,9 @@ from tpushare_torch import consts, tracing
 from tpushare_torch.workloads import overload, paging
 from tpushare_torch.workloads.decode import (
     BucketOverflowError, cache_max_seq, check_paged_config,
-    check_ragged_config, chunk_step, copy_pool_page, init_cache,
-    init_page_pool, kv_view, load_pool_pages, make_cached_attn_core,
+    check_ragged_config, chunk_step, copy_pool_page, extract_request_pages,
+    init_cache, init_page_pool, install_request_pages, kv_view,
+    load_pool_pages, make_cached_attn_core,
     make_paged_attn_core, make_paged_chunk_core, make_ragged_attn_core,
     model_layer, pool_page_size, prefill, prefill_chunk_layout,
     scatter_scratch_pages, slot_unview, slot_view, spec_draft_scan,
@@ -447,6 +455,26 @@ def _paged_admit_commit(state: dict, lane: int, table_row: torch.Tensor,
     state["temps"][lane] = temp
     state["top_ps"][lane] = top_p
     state["logps"][lane] = flogp[0]
+    return state
+
+
+def _handoff_commit(state: dict, lane: int, table_row: torch.Tensor,
+                    new_len: int, token: int, temp: float, top_p: float,
+                    logp: float) -> dict:
+    """Commit a handed-off request into ``lane`` once its pages landed
+    (``decode.install_request_pages``), in place: table row, length,
+    active flag and the live sampling state — the next input token (the
+    last one emitted), temperature, top_p, last logprob. The cross-pool
+    twin of :func:`_paged_admit_commit` without its sampling: the
+    source engine sampled every token the host has seen. The lane's
+    generator is the engine's business (``install_request``)."""
+    state["tables"][lane] = table_row
+    state["lengths"][lane] = new_len
+    state["active"][lane] = True
+    state["tokens"][lane] = token
+    state["temps"][lane] = temp
+    state["top_ps"][lane] = top_p
+    state["logps"][lane] = logp
     return state
 
 
@@ -868,6 +896,18 @@ class _EngineCore:
         """Injection hook of a tpu.fake.WorkloadFaultPlan (none: no-op)."""
         if self.faults is not None:
             self.faults.fire(route)
+
+    def take_queue(self) -> list[Request]:
+        """Remove and return every queued (never admitted) request — the
+        fleet router's re-route hook when it drains or evacuates a
+        member. The requests stay live (no terminal status: the router
+        owes them a resubmit elsewhere), so telemetry releases their
+        queue slots without counting a shed. Running lanes are not
+        touched."""
+        taken, self.queue = self.queue, []
+        for req in taken:
+            self.telemetry.requeued(id(req))
+        return taken
 
     # ---- prefill bucket layout ----------------------------------------
 
@@ -1671,6 +1711,10 @@ class PagedServingEngine(_EngineCore):
     forecast against the free pool net of promised growth).
     """
 
+    # the fleet router catches ``eng._paging.PagePoolExhausted`` around a
+    # prefix replication, on local and remote members alike
+    _paging = paging
+
     def __init__(self, params: dict, cfg: TransformerConfig, n_lanes: int,
                  max_seq: int, n_pages: int, page_size: int = 32,
                  prompt_buckets: tuple[int, ...] = (32, 128),
@@ -1722,6 +1766,8 @@ class PagedServingEngine(_EngineCore):
         self.stats["peak_shared_pages"] = 0
         self.stats["prefix_hits"] = 0
         self.stats["cow_copies"] = 0
+        self.stats["handoffs_out"] = 0
+        self.stats["handoffs_in"] = 0
         # speculative decoding: the draft model's own pool and allocator,
         # per-lane block tables mirroring the target lanes
         self._validate_draft(draft)
@@ -1836,6 +1882,215 @@ class PagedServingEngine(_EngineCore):
         if self._dprefixes.pop(name, None) is not None:
             self._dalloc.release(("__dprefix__", name))
         self._publish_pages()
+
+    # ---- cross-pool handoff (the fleet's seam) -------------------------
+
+    @property
+    def pool_layout(self) -> str:
+        """What a byte-exact handoff needs both pools to share: the
+        storage codec and the rows per page."""
+        return f"{self.kv_codec}/{self.alloc.page_size}r"
+
+    def _check_handoff_layout(self, record: dict) -> None:
+        theirs = f"{record['kv_codec']}/{record['page_size']}r"
+        if record.get("mesh_tp", 1) * record.get("mesh_pp", 1) > 1:
+            theirs += f"/tp{record['mesh_tp']}xpp{record['mesh_pp']}"
+        if theirs != self.pool_layout:
+            raise ValueError(consts.ERR_HANDOFF_POOL_FMT.format(
+                src=theirs, dst=self.pool_layout))
+
+    def extract_request(self, lane: int) -> dict:
+        """Gather a running request's live pages and lane state into a
+        handoff record another engine's :meth:`install_request` takes —
+        the read half of disaggregation and of a member's salvage. Read
+        only: the lane keeps serving here until :meth:`detach_request`,
+        so a failed install elsewhere loses nothing. Only the pages
+        covering the live length travel. A sampling lane's generator
+        state rides along (``torch.Generator.get_state()``, a CPU byte
+        tensor), so its stream continues where it stopped."""
+        req = self.running[lane]
+        length = self._lengths[lane]
+        keep = paging.pages_for_rows(length, self.alloc.page_size)
+        pk, pv = extract_request_pages(
+            self.state["k"], self.state["v"],
+            self._ids(self.alloc.table(lane)[:keep]))
+        gen = self._generators.get(lane)
+        return {"req": req, "length": length, "k": pk, "v": pv,
+                "generator": None if gen is None else gen.get_state(),
+                "kv_codec": self.kv_codec,
+                "page_size": self.alloc.page_size,
+                "mesh_tp": 1, "mesh_pp": 1}
+
+    def detach_request(self, lane: int) -> Request:
+        """Release a lane whose request now runs elsewhere (its pages
+        were installed into another pool): pages recycle, the table row
+        zeroes, and no terminal accounting lands here — the request's
+        one terminal status lands on the destination."""
+        req = self.running.pop(lane)
+        self._lengths.pop(lane, None)
+        self.stats["handoffs_out"] += 1
+        self._scrub_lane(lane)
+        return req
+
+    def cancel_request(self, lane: int) -> Request:
+        """Release a lane whose request will be admitted again from
+        scratch elsewhere (the fleet's hedged replay, or the release of
+        a lane that cannot be salvaged): pages recycle, and neither a
+        terminal nor a handoff is counted — the request stays live;
+        only its pending TTFT entry is dropped, so a replay restarts the
+        clock."""
+        req = self.running.pop(lane)
+        self._lengths.pop(lane, None)
+        self.telemetry.cancelled(id(req))
+        self._scrub_lane(lane)
+        return req
+
+    def can_install(self, rows: int, left: int) -> bool:
+        """Host-side feasibility probe for :meth:`install_request` — a
+        free lane, and the page forecast of a request holding ``rows``
+        with ``left`` tokens still to decode within the free pool net of
+        the growth promised to running lanes — asked before the router
+        pays an extract (a gather on the card, a copy across the wire).
+        Advisory: the install re-checks."""
+        if len(self.running) >= self.n_lanes:
+            return False
+        return (self._handoff_charge(rows, left)
+                <= self.alloc.free_pages() - self._reserved_growth())
+
+    def _handoff_charge(self, rows: int, left: int) -> int:
+        """A handed-off request's page forecast: its rows, a chunk's
+        look-ahead (a dispatch grows the table over the chunk's rows)
+        and the decode growth still to come (the draft's round tail on a
+        drafted engine) — the admission gate's charging rule."""
+        tail = (self.draft[2] + 1) if self.draft is not None else 0
+        return paging.forecast_request_pages(
+            rows + self.chunk - 1, left, self.alloc.page_size,
+            self.max_seq, self.decode_forecast_fraction, tail)
+
+    def install_request(self, record: dict) -> int | None:
+        """Admit a handed-off request into this pool: reserve pages
+        (``PageAllocator.begin_install``), write the migrated bytes in
+        place (``decode.install_request_pages``), commit the lane.
+        Returns the lane, or None when no lane or pages are free, when
+        the request's page forecast (its rows and the decode growth still
+        to come) exceeds the free pool net of the growth promised to
+        running lanes — the admission gate's rule, which the reference's
+        install skips and then over-commits the pool —, or when the copy
+        ran out of memory: a load condition the router retries;
+        the source lane is untouched either way. The ``install`` fault
+        fires between reserve and copy; any failure there aborts the
+        reservation, and since the table row is written only after the
+        commit, no reader ever sees a reserved page. The pages install
+        private here even where the source lane shared prefix pages. A
+        sampling request's generator takes the carried state (never a
+        fresh seed: the engine's admission count stays as it was). On a
+        drafted engine a greedy request builds its draft mirror from the
+        host's tokens."""
+        self._check_handoff_layout(record)
+        req, length = record["req"], int(record["length"])
+        if not req.output:
+            raise ValueError("install_request of a request that never "
+                             "admitted (no sampled token to resume from)")
+        remaining = max(0, req.max_new - len(req.output))
+        if length + remaining > self.max_seq:
+            raise ValueError(f"handoff length {length} + {remaining} "
+                             f"remaining tokens does not fit max_seq "
+                             f"{self.max_seq}")
+        free = [i for i in range(self.n_lanes) if i not in self.running]
+        if not free:
+            return None
+        charge = self._handoff_charge(length, remaining)
+        if charge > self.alloc.free_pages() - self._reserved_growth():
+            # its decode growth is room already promised to running
+            # lanes: admitting it would over-commit the pool (a later
+            # eviction), so the request waits where it is
+            return None
+        lane = free[0]
+        try:
+            ids = self.alloc.begin_install(lane, length)
+        except paging.PagePoolExhausted:
+            return None
+        try:
+            self._fire_fault("install")
+            install_request_pages(self.state["k"], self.state["v"],
+                                  record["k"], record["v"], self._ids(ids))
+        except Exception as e:
+            self.alloc.abort_install(ids)
+            if overload.is_resource_exhausted(e):
+                return None
+            raise
+        self.alloc.commit_install(lane, ids, length)
+        _handoff_commit(self.state, lane, self._table_row(self.alloc, lane),
+                        length, req.output[-1], req.temperature, req.top_p,
+                        req.logprobs[-1])
+        if req.temperature > 0 and record.get("generator") is not None:
+            gen = torch.Generator(device=self.device)
+            gen.set_state(record["generator"])
+            self._generators[lane] = gen
+        if req.top_p > 0:
+            self._use_top_p = True
+        self.running[lane] = req
+        self._lengths[lane] = length
+        self._charged_pages[lane] = charge
+        self.stats["handoffs_in"] += 1
+        self.stats["peak_running"] = max(self.stats["peak_running"],
+                                         len(self.running))
+        if req.prefix is None:
+            # the prompt now, the output gap through the usual catch-up
+            self._mirror_admit(lane, req, 0, len(req.prompt))
+        self._publish_pages()
+        return lane
+
+    def extract_prefix(self, name: str) -> dict:
+        """Gather a registration's pinned pages into a handoff record —
+        the read half of hot-prefix replication. The source
+        registration, its pins and its subscribers are only read."""
+        if name not in self.prefixes:
+            raise ValueError(consts.ERR_PREFIX_UNKNOWN_FMT.format(name=name))
+        plen, ids = self.prefixes[name]
+        pk, pv = extract_request_pages(self.state["k"], self.state["v"],
+                                       self._ids(ids))
+        return {"plen": plen, "k": pk, "v": pv, "kv_codec": self.kv_codec,
+                "page_size": self.alloc.page_size,
+                "mesh_tp": 1, "mesh_pp": 1}
+
+    def install_prefix_pages(self, name: str, tokens: list,
+                             record: dict) -> None:
+        """Register ``name`` here from another engine's extracted pins:
+        the same pages byte for byte, no prefill (no K1 launch), under
+        ``register_prefix``'s guards, all or nothing. A drafted engine
+        prefills the draft half with the draft model, as
+        ``register_prefix`` does."""
+        self._check_handoff_layout(record)
+        plen = self._validate_prefix_registration(name, tokens)
+        if plen != int(record["plen"]):
+            raise ValueError(f"prefix {name!r} tokens ({plen}) do not "
+                             f"match the extracted registration "
+                             f"({record['plen']})")
+        owner = self._prefix_owner(name)
+        ids = self.alloc.begin_install(owner, plen)
+        try:
+            install_request_pages(self.state["k"], self.state["v"],
+                                  record["k"], record["v"], self._ids(ids))
+        except Exception:
+            self.alloc.abort_install(ids)
+            raise
+        self.alloc.commit_install(owner, ids, plen)
+        if self.draft is not None:
+            try:
+                self._register_draft_prefix(name, tokens, plen)
+            except Exception:
+                self.alloc.release(owner)
+                raise
+        self.prefixes[name] = (plen, list(ids))
+        self._publish_pages()
+
+    def prefill_step(self) -> None:
+        """One admission-only iteration — a disaggregated fleet's
+        prefill member: admit, chunked prefill, first-token sample, and
+        never a decode dispatch (no K5 launch). The router hands each
+        admitted request into a decode member's pool and lane."""
+        self._admit_waiting()
 
     # ---- page accounting ----------------------------------------------
 

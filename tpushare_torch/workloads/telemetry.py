@@ -1,6 +1,7 @@
 """Serving-engine telemetry of the port — its own copy of
-``tpushare/workloads/telemetry.py`` (``EngineTelemetry`` and the process
-snapshot provider; the fleet merge comes with fleet serving):
+``tpushare/workloads/telemetry.py`` (``EngineTelemetry``, the process
+snapshot provider, and ``fleet_snapshot``, the fleet router's merge of
+its members' snapshots into one document):
 
 - per-request **TTFT** (submit -> first token, which the engine samples
   at admission) and per-token **decode latency** (harvested chunk wall
@@ -37,7 +38,8 @@ from tpushare_torch.workloads import overload
 from tpushare_torch.workloads.kernels import build
 from tpushare_torch.workloads.slo import SLOPolicy, phase_reached
 
-__all__ = ["EngineTelemetry", "current_snapshot", "set_snapshot_provider"]
+__all__ = ["EngineTelemetry", "current_snapshot", "set_snapshot_provider",
+           "fleet_snapshot"]
 
 # TTFT spans admission, so the ladder reaches tens of seconds; decode
 # per-token latency is sub-ms to tens of ms. percentile() reads the exact
@@ -700,3 +702,122 @@ class EngineTelemetry:
         the usage reporter attaches to every POST)."""
         set_snapshot_provider(self.snapshot)
         return self
+
+
+# ---------------------------------------------------------------------------
+# fleet aggregation
+# ---------------------------------------------------------------------------
+
+# counters that sum across member engines (the SLO verdicts of every
+# member too: a degraded member's violations are real; its goodput is
+# not banked — fleet_snapshot sums goodput over healthy members only)
+_FLEET_SUM_KEYS = (
+    consts.TELEMETRY_TOKENS_PER_S, consts.TELEMETRY_QUEUE_DEPTH,
+    consts.TELEMETRY_ADMITTED, consts.TELEMETRY_RETIRED,
+    consts.TELEMETRY_SHED, consts.TELEMETRY_DEADLINE_EXCEEDED,
+    consts.TELEMETRY_OOM_RECOVERIES,
+    consts.TELEMETRY_PAGES_TOTAL, consts.TELEMETRY_PAGES_IN_USE,
+    consts.TELEMETRY_PAGES_SHARED, consts.TELEMETRY_PAGES_PINNED,
+    consts.TELEMETRY_PREFIX_HITS, consts.TELEMETRY_COW_COPIES,
+    consts.TELEMETRY_KV_POOL_SHARD_MIB,
+    consts.TELEMETRY_SPEC_ROUNDS, consts.TELEMETRY_SPEC_DRAFTED,
+    consts.TELEMETRY_SPEC_ACCEPTED, consts.TELEMETRY_SPEC_EMITTED,
+    consts.TELEMETRY_SLO_GOOD,
+    consts.TELEMETRY_SLO_VIOLATIONS_QUEUED,
+    consts.TELEMETRY_SLO_VIOLATIONS_ADMISSION,
+    consts.TELEMETRY_SLO_VIOLATIONS_PREFILL,
+    consts.TELEMETRY_SLO_VIOLATIONS_DECODE,
+)
+
+
+def _merged_percentile(hists: list, q: float) -> float:
+    """Exact percentile over the union of the histograms' sample pools,
+    through ``metrics.Histogram``'s own index rule."""
+    samples: list[float] = []
+    for h in hists:
+        samples.extend(h.samples_snapshot())
+    return metrics.Histogram.percentile_of(samples, q)
+
+
+def fleet_snapshot(telemetries: list, extra: dict | None = None) -> dict:
+    """Merge N member engines' telemetry into one snapshot under the
+    single engine's schema: counters sum, the TTFT and decode tails are
+    exact over the union of the members' sample pools, degraded and
+    draining take the worst member, goodput sums over members that are
+    not degraded, the admission watermark sums over members that carry
+    one, and the compile counters take the largest member's (the kernel
+    builds are process-wide: summing would count one build N times).
+    ``extra`` (the router's fleet counters) lands last."""
+    snaps = [t.snapshot() for t in telemetries]
+    out: dict = {}
+    for key in _FLEET_SUM_KEYS:
+        vals = [s[key] for s in snaps if key in s]
+        if vals:
+            total = sum(vals)
+            out[key] = round(total, 1) if isinstance(total, float) else total
+    out[consts.TELEMETRY_GOODPUT_TOKENS_PER_S] = round(sum(
+        s.get(consts.TELEMETRY_GOODPUT_TOKENS_PER_S, 0.0) for s in snaps
+        if not s.get(consts.TELEMETRY_DEGRADED)), 1)
+    total = out.get(consts.TELEMETRY_PAGES_TOTAL)
+    if total:
+        out[consts.TELEMETRY_PAGE_OCCUPANCY_PCT] = round(
+            100.0 * out.get(consts.TELEMETRY_PAGES_IN_USE, 0) / total, 1)
+        # weighted by pages in use: an idle member's 0% must not dilute
+        # a loaded member's waste
+        pairs = [(s.get(consts.TELEMETRY_PAGE_FRAG_PCT, 0.0),
+                  s.get(consts.TELEMETRY_PAGES_IN_USE, 0))
+                 for s in snaps if consts.TELEMETRY_PAGE_FRAG_PCT in s]
+        weight = sum(w for _, w in pairs)
+        out[consts.TELEMETRY_PAGE_FRAG_PCT] = round(
+            sum(f * w for f, w in pairs) / weight, 1) if weight else 0.0
+    if consts.TELEMETRY_SPEC_DRAFTED in out:
+        out[consts.TELEMETRY_SPEC_ACCEPT_RATE] = round(
+            out.get(consts.TELEMETRY_SPEC_ACCEPTED, 0)
+            / max(1, out[consts.TELEMETRY_SPEC_DRAFTED]), 4)
+    codecs = {s[consts.TELEMETRY_KV_CODEC] for s in snaps
+              if consts.TELEMETRY_KV_CODEC in s}
+    if len(codecs) == 1:
+        out[consts.TELEMETRY_KV_CODEC] = codecs.pop()
+        bpts = [s[consts.TELEMETRY_KV_BYTES_PER_TOKEN] for s in snaps
+                if consts.TELEMETRY_KV_BYTES_PER_TOKEN in s]
+        if bpts:
+            out[consts.TELEMETRY_KV_BYTES_PER_TOKEN] = round(
+                sum(bpts) / len(bpts), 1)
+    for key, attr, q in (
+            (consts.TELEMETRY_TTFT_P50_MS, "ttft", 50),
+            (consts.TELEMETRY_TTFT_P99_MS, "ttft", 99),
+            (consts.TELEMETRY_DECODE_P50_MS, "decode", 50),
+            (consts.TELEMETRY_DECODE_P99_MS, "decode", 99)):
+        out[key] = round(_merged_percentile(
+            [getattr(t, attr) for t in telemetries], q) * 1e3, 3)
+    marks = [s[consts.TELEMETRY_ADMISSION_WATERMARK] for s in snaps
+             if s.get(consts.TELEMETRY_ADMISSION_WATERMARK, -1.0) >= 0]
+    out[consts.TELEMETRY_ADMISSION_WATERMARK] = round(
+        sum(marks), 2) if marks else -1.0
+    out[consts.TELEMETRY_DEGRADED] = int(any(
+        s.get(consts.TELEMETRY_DEGRADED) for s in snaps))
+    draining = [s for s in snaps if consts.TELEMETRY_DRAINING in s]
+    if draining:
+        out[consts.TELEMETRY_DRAINING] = int(any(
+            s[consts.TELEMETRY_DRAINING] for s in draining))
+        out[consts.TELEMETRY_DRAINED] = int(all(
+            s.get(consts.TELEMETRY_DRAINED) for s in draining))
+    buckets: dict[str, int] = {}
+    for s in snaps:
+        for b, n in (s.get(consts.TELEMETRY_PREFILL_BUCKETS) or {}).items():
+            buckets[b] = buckets.get(b, 0) + n
+    out[consts.TELEMETRY_PREFILL_BUCKETS] = dict(sorted(buckets.items()))
+    out[consts.TELEMETRY_COMPILES] = max(
+        (s.get(consts.TELEMETRY_COMPILES, 0) for s in snaps), default=0)
+    out[consts.TELEMETRY_COMPILE_SECONDS] = max(
+        (s.get(consts.TELEMETRY_COMPILE_SECONDS, 0.0) for s in snaps),
+        default=0.0)
+    fallbacks = next((s[consts.TELEMETRY_KERNEL_FALLBACKS] for s in snaps
+                      if consts.TELEMETRY_KERNEL_FALLBACKS in s), None)
+    if fallbacks:
+        # process-wide counters: every member reports the same map
+        out[consts.TELEMETRY_KERNEL_FALLBACKS] = fallbacks
+    out[consts.TELEMETRY_FLEET_ENGINES] = len(telemetries)
+    if extra:
+        out.update(extra)
+    return out
