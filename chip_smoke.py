@@ -116,6 +116,29 @@ then drives the main paths through their entry points at full width
   64 through the kernels against ``attn_impl="xla"``, at the f32 train
   step's tolerances);
 
+- sharded serving over a serving mesh that names the card several
+  times: ``mesh-vs-plain`` (B.9 and B.11: K5, K5-int8, K4, K4-int8 with
+  heads over tp=2, the shards' outputs in rank order bitwise one
+  unsharded launch, rank 0's shard against its twin and timed beside its
+  bound at the shard's shape), ``serve-mesh`` (``serve --tp 2 --pp 2``
+  on bf16 then int8 pools: 32 K5 / K5-int8 a decode step, tokens/s
+  beside ``serve``), ``serve-ragged-mesh`` (``ServingEngine(mesh=)``,
+  tp=2, ``--ragged`` on dense then int8 caches: 32 K4 / K4-int8 a
+  step), ``mesh-f32-identity`` (2-layer f32 engines, tp2×pp2 paged with
+  a mid-run join on both codecs and tp2 ragged on both caches, against
+  the unsharded engines: tokens equal, paged logprobs within
+  ``MESH_F32_LOGP_TOL``, ragged logprobs bitwise);
+- the payload as a pod runs it, each in a child process reporting to a
+  usage endpoint the smoke serves on 127.0.0.1: ``payload-cap``
+  (``infer --mode serve --paged`` at ``TPUSHARE_HBM_LIMIT_MIB=32768``:
+  the reference's fraction of the card, the final POST's allocator peak
+  at or under the cap with the telemetry attached; a child capped at
+  2048 MiB refused an allocation past it), ``payload-coresident`` (two
+  36000 MiB pods serving at once, each under its own cap; the card's
+  used memory), ``payload-drain`` (every POST answered ``{"drain":
+  true}``: each of 48 requests ends in one terminal status, and the
+  final POST carries the counters);
+
 with the launch counts zeroed just before each path runs and read just
 after, so the run shows each path went through its kernels. It prints
 one line per phase, a ``{"kernels": [...]}`` JSON line, the card's name
@@ -4111,6 +4134,622 @@ def serve_fleet_remote_path(torch, build, infer, disagg_outputs, hosts):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# sharded serving (tp×pp): the per-shard reads, the mesh paths, identities
+# ---------------------------------------------------------------------------
+
+MESH_TP, MESH_PP = 2, 2
+
+
+def shard_read_cases(torch):
+    """B.9 and B.11: the paged read (K5, K5-int8) with KV heads over tp
+    and the ragged read (K4, K4-int8) with heads over tp, at the
+    ``serve --paged`` and ``serve --ragged`` shapes over a tp=2 mesh
+    naming the card twice. The per-shard launches, concatenated in rank
+    order, must equal one unsharded launch bit for bit: the paged read
+    over the pool shards a sharded engine holds
+    (``sharded_pool.place_state``: one contiguous tensor per shard), the
+    ragged read through ``registry._build_decode_ragged`` with the mesh
+    (each shard a view of the whole slot cache, read in place). Rank 0's
+    shard is then held against its twin and timed beside its bound at
+    the per-shard shape. At the ``long`` ragged shape the whole meshed
+    read is timed against one unsharded launch, beside the copy of the
+    layer's shards that a read from copies would add."""
+    from tpushare_torch.workloads import sharded_pool
+    from tpushare_torch.workloads.decode import kv_view
+    from tpushare_torch.workloads.ops import registry
+    from tpushare_torch.workloads.ops.paged_attention import (paged_decode,
+                                                              xla_paged_read)
+    from tpushare_torch.workloads.ops.ragged_decode import (
+        ragged_decode_attention, ragged_decode_plain)
+    from tpushare_torch.workloads.parallel.mesh import make_serving_mesh
+    dev = torch.device("cuda", 0)
+    mesh = make_serving_mesh(MESH_TP, devices=[dev] * MESH_TP)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows = {}
+    _, B, H, Hkv, hd, ps, P, max_len, short_max, dtype = PAGED_CASES[0]
+    hs, ks = H // MESH_TP, Hkv // MESH_TP
+
+    def stacked(leaf):
+        return ({n: t[None] for n, t in leaf.items()}
+                if isinstance(leaf, dict) else leaf[None])
+    for int8 in (False, True):
+        name = "paged_decode_int8" if int8 else "paged_decode"
+        q1, kp, vp, tables, kv_lens = paged_inputs(
+            torch, gen, B, H, Hkv, hd, ps, P, max_len, short_max, dtype,
+            int8=int8)
+        one = paged_decode(q1, kp, vp, tables, kv_lens)
+        pool = sharded_pool.place_state(
+            {"k": stacked(kp), "v": stacked(vp)}, mesh,
+            "int8" if int8 else "bf16")
+        shards = [(q1[:, r * hs:(r + 1) * hs].contiguous(),
+                   kv_view(pool["k"][0][r], 0), kv_view(pool["v"][0][r], 0))
+                  for r in range(MESH_TP)]
+        sharded = torch.cat([paged_decode(sq, skp, svp, tables, kv_lens)
+                             for sq, skp, svp in shards], dim=1)
+        if not torch.equal(one, sharded):
+            raise RuntimeError(f"{name}: the tp shards' outputs in rank "
+                               "order differ from one unsharded launch")
+        sq, skp, svp = shards[0]
+
+        def kernel():
+            return paged_decode(sq, skp, svp, tables, kv_lens)
+
+        def plain():
+            return xla_paged_read(sq[:, None], skp, svp, tables, kv_lens,
+                                  hs, ks)[:, 0]
+        what = f"{name} tp shard"
+        checked = (check_int8 if int8 else check_paged)(what, kernel(),
+                                                        plain(), dtype)
+        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        live = int(kv_lens.sum().item())
+        unique = paged_unique_rows(torch, tables, kv_lens, ps)
+        elem = sq.element_size()
+        kv_bytes = (int8_rows_bytes(unique, ks, hd) if int8
+                    else 2 * unique * ks * hd * elem)
+        n_bytes = kv_bytes + 2 * sq.numel() * elem + tables.numel() * 4 \
+            + kv_lens.numel() * 4
+        bms, by = bound_ms(n_bytes, 4 * hs * hd * live, dtype)
+        row = dict(case="main-path-tp2", form="B.9", B=B, H=hs, Hkv=ks,
+                   hd=hd, ps=ps, P=P, dtype=dtype, tp=MESH_TP,
+                   rank_order_bitwise=True, **checked, ms=ms,
+                   plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                   bound_by=by)
+        phase("mesh-vs-plain", kernel=name, **row)
+        rows[name] = row
+        del q1, kp, vp, pool, shards, skp, svp
+    _, B, S, H, Hkv, dtype = RAGGED_CASES[0]
+    hs, ks = H // MESH_TP, Hkv // MESH_TP
+    for int8 in (False, True):
+        name = "ragged_decode_int8" if int8 else "ragged_decode"
+        q, k, v, lens = ragged_inputs(torch, gen, "serve", B, S, H, Hkv,
+                                      dtype, int8=int8)
+        one = ragged_decode_attention(q, k, v, lens)
+        sharded = registry._build_decode_ragged(mesh, batch=B)(q, k, v,
+                                                               lens)
+        if not torch.equal(one, sharded):
+            raise RuntimeError(f"{name}: the tp shards' outputs in rank "
+                               "order differ from one unsharded launch")
+        sq = q[:, :hs].contiguous()
+        sk = registry._shard(k, slice(None), slice(0, ks), dev)
+        sv = registry._shard(v, slice(None), slice(0, ks), dev)
+
+        def kernel():
+            return ragged_decode_attention(sq, sk, sv, lens)
+
+        def plain():
+            return ragged_decode_plain(sq, sk, sv, lens)
+        what = f"{name} tp shard"
+        if int8:
+            checked = check_int8(what, kernel(), plain(), dtype)
+        else:
+            got, want = kernel(), plain()
+            rel = elem_rel_err(got, want)
+            if not rel <= FWD_TOL[dtype]:
+                raise RuntimeError(f"{what}: {rel} of the value > "
+                                   f"{FWD_TOL[dtype]}")
+            checked = dict(max_abs_err=max_err(got, want), rel_err=rel,
+                           rel_tol=FWD_TOL[dtype])
+        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        live = int((lens.long() + 1).clamp(max=S).sum().item())
+        elem = sq.element_size()
+        kv_bytes = (int8_rows_bytes(live, ks, RAGGED_HD) if int8
+                    else 2 * live * ks * RAGGED_HD * elem)
+        n_bytes = kv_bytes + 2 * sq.numel() * elem + 4 * B
+        bms, by = bound_ms(n_bytes, 4 * hs * RAGGED_HD * live, dtype)
+        row = dict(case="serve-tp2", form="B.11", B=B, S=S, H=hs, Hkv=ks,
+                   hd=RAGGED_HD, dtype=dtype, tp=MESH_TP,
+                   rank_order_bitwise=True, **checked, ms=ms,
+                   plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                   bound_by=by)
+        phase("mesh-vs-plain", kernel=name, **row)
+        rows[name] = row
+        del q, k, v, sk, sv
+    _, B, S, H, Hkv, dtype = RAGGED_CASES[1]
+    ks = Hkv // MESH_TP
+    q, k, v, lens = ragged_inputs(torch, gen, "long", B, S, H, Hkv, dtype)
+    meshed = registry._build_decode_ragged(mesh, batch=B)
+
+    def unsharded():
+        return ragged_decode_attention(q, k, v, lens)
+
+    def shard_copies():
+        for r in range(MESH_TP):
+            k[:, :, r * ks:(r + 1) * ks].contiguous()
+            v[:, :, r * ks:(r + 1) * ks].contiguous()
+    if not torch.equal(meshed(q, k, v, lens), unsharded()):
+        raise RuntimeError("ragged_decode long: the tp shards' outputs in "
+                           "rank order differ from one unsharded launch")
+    long = dict(case="long-tp2", B=B, S=S, H=H, Hkv=Hkv, dtype=dtype,
+                tp=MESH_TP, rank_order_bitwise=True,
+                meshed_ms=time_ms(lambda: meshed(q, k, v, lens)),
+                unsharded_ms=time_ms(unsharded),
+                shard_copy_ms=time_ms(shard_copies))
+    phase("mesh-vs-plain", kernel="ragged_decode", **long)
+    rows["ragged_decode"]["long_tp2"] = long
+    del q, k, v, lens
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serve_mesh_path(torch, build, infer, serve_fields):
+    """``serve --tp 2 --pp 2`` at the flagship on ``serve``'s traffic,
+    bf16 then int8 pools, over a 2×2 serving mesh naming the card four
+    times: the sharded engine's four pool shards, each read by K5
+    (K5-int8) on its own — n_layers x tp launches a decode step, none of
+    the other rung, no flash (admission is the pipelined chunk prefill),
+    every request completed, no page leaked."""
+    from tpushare_torch.workloads.ops import registry
+    devices = [torch.device("cuda", 0)] * (MESH_TP * MESH_PP)
+    out = {}
+    for codec in ("bf16", "int8"):
+        name = "paged_decode_int8" if codec == "int8" else "paged_decode"
+        other = "paged_decode" if codec == "int8" else "paged_decode_int8"
+        build.reset_launches()
+        registry.reset_fallbacks()
+        res = infer.run(infer.parse_args(
+            SERVE_ARGS + ["--tp", str(MESH_TP), "--pp", str(MESH_PP),
+                          "--kv-codec", codec]), mesh_devices=devices)
+        launches = dict(build.LAUNCHES)
+        fallbacks = registry.fallback_counts()
+        eng, reqs = res["engine"], res["requests"]
+        bad = [r.status for r in reqs if r.status != "completed"
+               or len(r.output) != r.max_new]
+        steps = res["warmup_decode_steps"] + res["decode_steps"]
+        per_step = eng.cfg.n_layers * MESH_TP
+        if bad or (eng._tp, eng._pp) != (MESH_TP, MESH_PP) or \
+                eng.attn_impl != "paged" or eng.alloc.pages_in_use() or \
+                eng.alloc.leaked():
+            raise RuntimeError(f"serve-mesh {codec}: statuses {bad}, mesh "
+                               f"{(eng._tp, eng._pp)}, read {eng.attn_impl}")
+        if launches[name] != per_step * steps or launches[other] or \
+                launches["flash_fwd"] or fallbacks:
+            raise RuntimeError(f"serve-mesh {codec}: launches {launches} != "
+                               f"{per_step} x {steps} decode steps on "
+                               f"{name} alone (fallbacks {fallbacks})")
+        ttft = res["ttft_s"]
+        snap = res["telemetry"]
+        phase("serve-mesh", kv_codec=codec, tp=MESH_TP, pp=MESH_PP,
+              tokens_per_s=res["tokens_per_s"], tokens=res["tokens"],
+              seconds=res["seconds"], ttft_p50_ms=ttft[len(ttft) // 2] * 1e3,
+              ttft_max_ms=ttft[-1] * 1e3, decode_steps=steps,
+              launches_per_step=per_step, n_pages=eng.alloc.n_pages,
+              pool_shard_mib=snap["kv_pool_shard_mib"],
+              serve_tokens_per_s=serve_fields["tokens_per_s"],
+              tokens_per_s_ratio=res["tokens_per_s"]
+              / serve_fields["tokens_per_s"],
+              **{f"{k}_launches": n for k, n in launches.items()})
+        out[codec] = launches
+        del res, eng, reqs
+        torch.cuda.empty_cache()
+    return out["bf16"], out["int8"]
+
+
+def serve_ragged_mesh_path(torch, build, infer, ragged_res):
+    """``serve --ragged`` over a tp=2 mesh naming the card twice
+    (``ServingEngine(mesh=)``, the ``serve-ragged`` engine's weights and
+    traffic), then the same with int8 caches: each layer's read runs K4
+    (K4-int8) once per tp shard — n_layers x tp launches a decode step,
+    no other kernel —, the dense run with the unsharded ragged run's
+    tokens, request for request."""
+    from tpushare_torch.workloads.ops import registry
+    from tpushare_torch.workloads.parallel.mesh import make_serving_mesh
+    from tpushare_torch.workloads.serving import ServingEngine
+    base = ragged_res["engine"]
+    mesh = make_serving_mesh(MESH_TP, devices=[torch.device("cuda", 0)]
+                             * MESH_TP)
+    args = infer.parse_args(SERVE_ARGS + ["--ragged"])
+    out = {}
+    for int8 in (False, True):
+        name = "ragged_decode_int8" if int8 else "ragged_decode"
+        cfg = dataclasses.replace(base.cfg, kv_int8=int8)
+        build.reset_launches()
+        registry.reset_fallbacks()
+        eng = ServingEngine(base.params, cfg, n_slots=base.n_slots,
+                            max_seq=base.max_seq,
+                            prompt_buckets=base.buckets, chunk=base.chunk,
+                            seed=args.seed, top_k=args.top_k, mesh=mesh)
+        res = infer.serve_traffic(eng, args, cfg, torch.device("cuda"),
+                                  len(ragged_res["requests"][0].prompt),
+                                  base.max_seq, base.n_slots)
+        launches = dict(build.LAUNCHES)
+        fallbacks = registry.fallback_counts()
+        bad = [r.status for r in res["requests"] if r.status != "completed"
+               or len(r.output) != r.max_new]
+        steps = res["warmup_decode_steps"] + res["decode_steps"]
+        per_step = cfg.n_layers * MESH_TP
+        others = {k: n for k, n in launches.items() if k != name and n}
+        if bad or launches[name] != per_step * steps or others or \
+                fallbacks:
+            raise RuntimeError(f"serve-ragged-mesh int8={int8}: statuses "
+                               f"{bad}, launches {launches} != {per_step} "
+                               f"x {steps} on {name} (fallbacks "
+                               f"{fallbacks})")
+        same = None
+        if not int8:
+            # the per-shard reads are bitwise one launch and nothing else
+            # is split: the unsharded run's tokens, request for request
+            same = sum(a.output == b.output for a, b in
+                       zip(res["requests"], ragged_res["requests"]))
+            if same != len(res["requests"]):
+                raise RuntimeError(f"serve-ragged-mesh: {same} of "
+                                   f"{len(res['requests'])} requests equal "
+                                   "the unsharded serve-ragged run's")
+        ttft = res["ttft_s"]
+        phase("serve-ragged-mesh", kv_int8=int8, tp=MESH_TP,
+              tokens_per_s=res["tokens_per_s"], tokens=res["tokens"],
+              seconds=res["seconds"], ttft_p50_ms=ttft[len(ttft) // 2] * 1e3,
+              ttft_max_ms=ttft[-1] * 1e3, decode_steps=steps,
+              launches_per_step=per_step,
+              ragged_tokens_per_s=ragged_res["tokens_per_s"],
+              bf16_requests_equal_unsharded=same,
+              **{f"{k}_launches": n for k, n in launches.items()})
+        out[int8] = launches
+        del eng, res
+    torch.cuda.empty_cache()
+    return out[False], out[True]
+
+
+MESH_F32_KW = dict(n_lanes=3, max_seq=128, n_pages=40, page_size=16,
+                   prompt_buckets=(16, 64), chunk=4)
+# sharded f32 engines vs the unsharded one, the largest distance of a
+# request's token logprobs: a tp column shard is a cuBLAS GEMM over half
+# the columns, which need not round as the full GEMM's columns (1.67e-6
+# read over a bf16 pool on an H100); over an int8 pool a K/V element
+# that lands across a quantization step moves a logprob further
+# (2.75e-4 read). The ragged read under tp splits no projection: its
+# engine must read bitwise.
+MESH_F32_LOGP_TOL = {"bf16": 1e-5, "int8": 1e-3}
+
+
+def mesh_f32_identity(torch, build):
+    """2-layer f32 models through sharded engines on the card against the
+    unsharded engine: the paged engine over tp2×pp2 on both pool codecs
+    with a request joining mid-run, and the slot engine's ragged read
+    over tp2 on dense and int8 caches. Greedy tokens must be equal, the
+    paged logprobs within ``MESH_F32_LOGP_TOL`` of the unsharded run's
+    and the ragged ones bitwise."""
+    from tpushare_torch.workloads.parallel.mesh import make_serving_mesh
+    from tpushare_torch.workloads.serving import (PagedServingEngine,
+                                                  Request, ServingEngine)
+    dev = torch.device("cuda", 0)
+    cfg, params, specs, _ = f32_setup(torch, PAGED_F32, 21, 6, 60, (8, 40))
+    fields = {}
+
+    def paged_run(mesh, codec):
+        eng = PagedServingEngine(params, cfg, attn_impl="paged",
+                                 kv_codec=codec, mesh=mesh, **MESH_F32_KW)
+        first = [Request(prompt=p, max_new=n) for p, n in specs[:-1]]
+        for r in first:
+            eng.submit(r)
+        for _ in range(3):
+            eng.step()
+        late = Request(prompt=specs[-1][0], max_new=specs[-1][1])
+        eng.submit(late)
+        eng.run()
+        if eng.alloc.pages_in_use() or eng.alloc.leaked():
+            raise RuntimeError(f"mesh-f32-identity {codec}: pages leaked")
+        return first + [late]
+
+    def distance(a, b):
+        return max((abs(x - y) for ra, rb in zip(a, b)
+                    for x, y in zip(ra.logprobs, rb.logprobs)), default=0.0)
+
+    for codec in ("bf16", "int8"):
+        name = "paged_decode_int8" if codec == "int8" else "paged_decode"
+        before = build.LAUNCHES[name]
+        sharded = paged_run(make_serving_mesh(
+            MESH_TP, MESH_PP, devices=[dev] * (MESH_TP * MESH_PP)), codec)
+        launched = build.LAUNCHES[name] - before
+        plain = paged_run(None, codec)
+        if [r.output for r in sharded] != [r.output for r in plain] or \
+                not launched:
+            raise RuntimeError(f"mesh-f32-identity paged {codec}: tp2xpp2 "
+                               f"tokens differ from the unsharded engine's "
+                               f"(K5 launches {launched})")
+        gap = distance(sharded, plain)
+        if not gap <= MESH_F32_LOGP_TOL[codec]:
+            raise RuntimeError(f"mesh-f32-identity paged {codec}: logprobs "
+                               f"{gap} from the unsharded engine's > "
+                               f"{MESH_F32_LOGP_TOL[codec]}")
+        fields[f"paged_{codec}_launches"] = launched
+        fields[f"paged_{codec}_logprob_max_abs_diff"] = gap
+    scfg, sparams, sspecs, _ = f32_setup(torch, SLOT_F32, 22, 6, 90, (8, 60))
+    for int8 in (False, True):
+        name = "ragged_decode_int8" if int8 else "ragged_decode"
+        rcfg = dataclasses.replace(scfg, ragged_decode=True, kv_int8=int8)
+        outs = {}
+        for label, mesh in (("tp2", make_serving_mesh(
+                MESH_TP, devices=[dev] * MESH_TP)), ("plain", None)):
+            before = build.LAUNCHES[name]
+            eng = ServingEngine(sparams, rcfg, n_slots=3, max_seq=512,
+                                prompt_buckets=(16, 64), chunk=4, mesh=mesh)
+            outs[label] = served(eng, sspecs)
+            if label == "tp2":
+                launched = build.LAUNCHES[name] - before
+        gap = distance(outs["tp2"], outs["plain"])
+        if [r.output for r in outs["tp2"]] != \
+                [r.output for r in outs["plain"]] or not launched or gap:
+            raise RuntimeError(f"mesh-f32-identity ragged int8={int8}: "
+                               "tp2 tokens or logprobs differ from the "
+                               f"unsharded read's ({gap})")
+        tag = "int8" if int8 else "bf16"
+        fields[f"ragged_{tag}_launches"] = launched
+        fields[f"ragged_{tag}_logprob_max_abs_diff"] = gap
+    phase("mesh-f32-identity", paged_requests=len(specs),
+          slot_requests=len(sspecs), tp=MESH_TP, pp=MESH_PP, **fields)
+
+
+# ---------------------------------------------------------------------------
+# the payload's contract with the device plugin: cap, reports, drain
+# ---------------------------------------------------------------------------
+
+PAYLOAD_ARGS = ["--mode", "serve", "--paged", "--requests", "16", "--slots",
+                "4", "--seq", "512", "--steps", "128", "--seed", "0"]
+# a child that caps itself at 2048 MiB, allocates 1 GiB (fits), then 2 GiB
+# more (past the cap), and prints what happened as one JSON line
+CAP_CHILD = (
+    "import sys, json; sys.path.insert(0, {repo!r}); import torch\n"
+    "from tpushare_torch.device import apply_hbm_cap\n"
+    "frac = apply_hbm_cap('cuda', 2048, environ={{}})\n"
+    "small = torch.empty(1024 * 2**20, dtype=torch.uint8, device='cuda')\n"
+    "try:\n"
+    "    big = torch.empty(2048 * 2**20, dtype=torch.uint8, device='cuda')\n"
+    "    refused = False\n"
+    "except torch.cuda.OutOfMemoryError:\n"
+    "    refused = True\n"
+    "print(json.dumps({{'fraction': frac, 'refused': refused, "
+    "'allocated_mib': torch.cuda.memory_allocated() / 2**20}}))\n")
+
+
+class UsageSink:
+    """The node daemon's usage endpoint, played by the smoke: a local
+    HTTP server (127.0.0.1) that keeps every POST body and answers each
+    with ``answer`` (a drain directive, or nothing)."""
+
+    def __init__(self, answer: dict | None = None):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        self.bodies: list = []
+        sink = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):  # noqa: N802
+                n = int(self.headers.get("Content-Length", 0))
+                sink.bodies.append(json.loads(self.rfile.read(n)))
+                body = json.dumps(answer or {}).encode()
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        threading.Thread(target=self.httpd.serve_forever,
+                         daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}/usage"
+
+    def of(self, pod: str) -> list:
+        return [b for b in self.bodies if b.get("pod") == pod]
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def payload_child(pod: str, limit_mib: int, url: str, extra=()):
+    """``infer`` as a pod runs it: a child process with the Allocate env
+    contract (the HBM limit, the usage endpoint, the pod identity) and
+    no allocator fraction of its own, so it derives its cap."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(REPO),
+               TPUSHARE_HBM_LIMIT_MIB=str(limit_mib),
+               TPUSHARE_USAGE_URL=url, POD_NAME=pod, POD_NAMESPACE="smoke")
+    for key in ("XLA_PYTHON_CLIENT_MEM_FRACTION",
+                "TPUSHARE_DISABLE_ISOLATION", "TPU_VISIBLE_CHIPS"):
+        env.pop(key, None)
+    return subprocess.Popen(
+        [sys.executable, "-m", "tpushare_torch.workloads.infer",
+         *PAYLOAD_ARGS, *extra], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def finish(proc, what: str, timeout_s: float = 300.0) -> str:
+    """The child's output once it exited 0 (killed at the timeout)."""
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        raise RuntimeError(f"{what} did not finish in {timeout_s} s: "
+                           f"{out[-2000:]}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what} exited {proc.returncode}: "
+                           f"{out[-3000:]}")
+    return out
+
+
+def child_cap_mib(out: str, total_mib: float, what: str) -> tuple:
+    """(fraction, cap MiB) from the child's ``allocator cap:`` line."""
+    import re
+    m = re.search(r"allocator cap: XLA_PYTHON_CLIENT_MEM_FRACTION=([0-9.]+)",
+                  out)
+    if not m:
+        raise RuntimeError(f"{what} printed no allocator cap: {out[-2000:]}")
+    frac = float(m.group(1))
+    return frac, frac * total_mib
+
+
+def child_tokens_per_s(out: str) -> float:
+    import re
+    m = re.search(r"serve throughput: ([0-9,.]+) tokens/s", out)
+    return float(m.group(1).replace(",", "")) if m else float("nan")
+
+
+def last_report(sink: UsageSink, pod: str, cap_mib: float, what: str):
+    """The pod's final usage POST: allocator figures at or under the cap,
+    the serving telemetry attached."""
+    reports = sink.of(pod)
+    if not reports:
+        raise RuntimeError(f"{what}: no usage report reached the sink")
+    last = reports[-1]
+    if last.get("source") != "memory_stats" or \
+            last.get("peak_kind") != "allocator" or \
+            not last["peak_mib"] <= cap_mib or \
+            "telemetry" not in last or not last["telemetry"]:
+        raise RuntimeError(f"{what}: final report {last} (cap {cap_mib:.0f} "
+                           "MiB)")
+    return reports, last
+
+
+def payload_cap_path(torch):
+    """``infer --mode serve --paged`` as a pod at TPUSHARE_HBM_LIMIT_MIB
+    32768 (the flagship preset) in a child process, reporting to the
+    smoke's sink: the cap is the reference's fraction of the card, the
+    final POST's allocator peak lies at or under it with the telemetry
+    attached. Beside it a tiny child capped at 2048 MiB allocates 1 GiB
+    and is refused 2 GiB more (``torch.cuda.OutOfMemoryError``)."""
+    from tpushare_torch.device import memory_fraction
+    total_mib = torch.cuda.get_device_properties(0).total_memory / 2 ** 20
+    sink = UsageSink()
+    child = payload_child("cap", 32768, sink.url)
+    tiny = subprocess.Popen([sys.executable, "-c",
+                             CAP_CHILD.format(repo=str(REPO))], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        tiny_out = finish(tiny, "the 2048 MiB child")
+        out = finish(child, "the payload-cap child")
+    finally:
+        sink.close()
+        for p in (child, tiny):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    frac, cap_mib = child_cap_mib(out, total_mib, "payload-cap")
+    if frac != memory_fraction(32768, total_mib):
+        raise RuntimeError(f"payload-cap: fraction {frac} is not the "
+                           "reference's rule")
+    reports, last = last_report(sink, "cap", cap_mib, "payload-cap")
+    tiny_res = json.loads(tiny_out.strip().splitlines()[-1])
+    if not tiny_res["refused"] or tiny_res["allocated_mib"] < 1024:
+        raise RuntimeError(f"the 2048 MiB child: {tiny_res}")
+    phase("payload-cap", limit_mib=32768, fraction=frac, cap_mib=cap_mib,
+          card_mib=total_mib, peak_mib=last["peak_mib"],
+          used_mib=last["used_mib"], posts=len(reports),
+          telemetry_keys=len(last["telemetry"]),
+          tokens_per_s=child_tokens_per_s(out),
+          tiny_fraction=tiny_res["fraction"],
+          tiny_allocated_mib=tiny_res["allocated_mib"],
+          tiny_refused_past_cap=tiny_res["refused"])
+
+
+def payload_coresident_path(torch):
+    """Two pods at 36000 MiB each serving on the card at once, each in
+    its own child capped at its grant: both complete, each final peak
+    under its own cap; the card's used memory (nvidia-smi) sampled while
+    they run."""
+    total_mib = torch.cuda.get_device_properties(0).total_memory / 2 ** 20
+    sink = UsageSink()
+    base_used = smi_memory_mib()
+    kids = {pod: payload_child(pod, 36000, sink.url)
+            for pod in ("co-a", "co-b")}
+    peak_used = base_used
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in kids.values()):
+            peak_used = max(peak_used, smi_memory_mib())
+            time.sleep(0.5)
+            if time.perf_counter() - t0 > 300:
+                raise RuntimeError("payload-coresident: children hang")
+        outs = {pod: finish(p, f"payload-coresident {pod}")
+                for pod, p in kids.items()}
+    finally:
+        sink.close()
+        for p in kids.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    fields = {}
+    for pod, out in outs.items():
+        frac, cap_mib = child_cap_mib(out, total_mib, pod)
+        _, last = last_report(sink, pod, cap_mib, f"payload-coresident {pod}")
+        tag = pod.replace("-", "_")
+        fields.update({f"{tag}_fraction": frac, f"{tag}_cap_mib": cap_mib,
+                       f"{tag}_peak_mib": last["peak_mib"],
+                       f"{tag}_tokens_per_s": child_tokens_per_s(out)})
+    if fields["co_a_fraction"] + fields["co_b_fraction"] > 1.0:
+        raise RuntimeError(f"co-resident fractions sum past the card: "
+                           f"{fields}")
+    phase("payload-coresident", limit_mib_each=36000,
+          seconds=time.perf_counter() - t0, smi_used_mib_before=base_used,
+          smi_used_mib_peak=peak_used, **fields)
+
+
+DRAIN_REQUESTS = 48
+
+
+def payload_drain_path(torch):
+    """A pod whose usage endpoint answers every POST ``{"drain": true}``
+    (a rebalancer migration): the directive reaches the serving engine
+    through the reporter (its 10 s cadence), the engine stops admitting
+    and finishes in flight; every request ends in exactly one terminal
+    status, and the final POST carries the counters."""
+    import re
+    total_mib = torch.cuda.get_device_properties(0).total_memory / 2 ** 20
+    sink = UsageSink(answer={"drain": True})
+    child = payload_child("drain", 32768, sink.url,
+                          ["--requests", str(DRAIN_REQUESTS)])
+    t0 = time.perf_counter()
+    try:
+        out = finish(child, "the payload-drain child")
+    finally:
+        sink.close()
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    _, cap_mib = child_cap_mib(out, total_mib, "payload-drain")
+    reports, last = last_report(sink, "drain", cap_mib, "payload-drain")
+    m = re.search(r"overload accounting: completed=(\d+) shed=(\d+) "
+                  r"deadline_exceeded=(\d+) oom_quarantined=(\d+)", out)
+    tel = last["telemetry"]
+    if not m or sum(map(int, m.groups())) != DRAIN_REQUESTS or \
+            not tel.get("draining") or \
+            tel.get("shed_total") != int(m.group(2)):
+        raise RuntimeError(f"payload-drain: accounting {m and m.groups()}, "
+                           f"final telemetry {tel}: {out[-2000:]}")
+    phase("payload-drain", requests=DRAIN_REQUESTS,
+          completed=int(m.group(1)), shed=int(m.group(2)),
+          deadline_exceeded=int(m.group(3)),
+          oom_quarantined=int(m.group(4)), posts=len(reports),
+          final_shed_total=tel.get("shed_total"),
+          final_draining=tel.get("draining"),
+          final_drained=tel.get("drained"),
+          seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4148,6 +4787,7 @@ def main() -> int:
     torch.cuda.empty_cache()    # the long-cache rows' caches and twins
     ragged_int8_rows = ragged_int8_cases(torch)
     torch.cuda.empty_cache()
+    mesh_rows = shard_read_cases(torch)
     paths = {}
     paths["forward"], bf16_params, _ = forward_path(torch, build, infer)
     paths["forward-w8"] = forward_w8_path(torch, build, infer, bf16_params)
@@ -4161,12 +4801,16 @@ def main() -> int:
     paths["serve-int8"] = serve_int8_path(torch, build, infer, serve_fields)
     paths["serve-w8"] = serve_w8_path(torch, build, infer, serve_fields)
     paths["serve-spec"] = serve_spec_path(torch, build, infer, serve_fields)
+    paths["serve-mesh"], paths["serve-mesh-int8"] = serve_mesh_path(
+        torch, build, infer, serve_fields)
     paths["serve-slot"] = serve_slot_path(torch, build, infer)
     paths["serve-ragged"], ragged_res = serve_ragged_path(torch, build, infer)
     paths["serve-ragged-int8"] = serve_ragged_int8_path(torch, build, infer,
                                                         ragged_res)
     paths["serve-ragged-w8"] = serve_ragged_w8_path(torch, build, infer,
                                                     ragged_res)
+    paths["serve-ragged-mesh"], paths["serve-ragged-mesh-int8"] = \
+        serve_ragged_mesh_path(torch, build, infer, ragged_res)
     del ragged_res
     paths["serve-ring"] = serve_ring_path(torch, build, infer)
     paths["serve-traffic"], traffic_eng = serve_traffic_path(torch, build,
@@ -4207,6 +4851,12 @@ def main() -> int:
           seconds=time.perf_counter() - fleet_t0)
     del traffic_eng
     torch.cuda.empty_cache()
+    # the payload as a pod runs it: child processes under their grants
+    payload_t0 = time.perf_counter()
+    payload_cap_path(torch)
+    payload_coresident_path(torch)
+    payload_drain_path(torch)
+    phase("payload-phases", seconds=time.perf_counter() - payload_t0)
     small_f32_identity(torch, build)
     slot_f32_identity(torch, build)
     int8_f32_identity(torch, build)
@@ -4215,6 +4865,7 @@ def main() -> int:
     prefix_f32_identity(torch, build)
     fleet_f32_identity(torch, build)
     spec_f32_identity(torch, build)
+    mesh_f32_identity(torch, build)
     paths["train"] = train_path(torch, build, smi)
     torch.cuda.empty_cache()
     paths["lora-train"] = lora_train_path(torch, build, smi)
@@ -4332,6 +4983,35 @@ def main() -> int:
                     max_abs_err="dkv_max_abs_err", ms="dkv_ms",
                     bound_ms="dkv_bound_ms", bound_by="dkv_bound_by"),
     ]
+    # B.9 and B.11: the same kernels launched once per tp shard, timed
+    # and bounded at the shard's shape, counted on the mesh paths
+    mesh_paths = ("serve-mesh", "serve-mesh-int8", "serve-ragged-mesh",
+                  "serve-ragged-mesh-int8")
+    for name, source, replaces, checked_in in (
+            ("paged_decode", "paged_decode.cu",
+             "tpushare/workloads/ops/registry.py:698",
+             "mesh-vs-plain, serve-mesh, mesh-f32-identity"),
+            ("paged_decode_int8", "paged_decode.cu",
+             "tpushare/workloads/ops/registry.py:698",
+             "mesh-vs-plain, serve-mesh, mesh-f32-identity"),
+            ("ragged_decode", "ragged_decode.cu",
+             "tpushare/workloads/ops/registry.py:580",
+             "mesh-vs-plain, serve-ragged-mesh, mesh-f32-identity"),
+            ("ragged_decode_int8", "ragged_decode.cu",
+             "tpushare/workloads/ops/registry.py:580",
+             "mesh-vs-plain, serve-ragged-mesh, mesh-f32-identity")):
+        row = mesh_rows[name]
+        counts = {p: paths[p][name] for p in mesh_paths if paths[p][name]}
+        kernels.append({
+            "name": f"{name}_tp_shard", "route": "cuda",
+            "source": f"tpushare_torch/workloads/kernels/{source}",
+            "replaces": replaces, "form": row["form"],
+            "checked_in": checked_in, "launches": sum(counts.values()),
+            "launches_by_path": counts,
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+            "shape": {k: row[k] for k in ("B", "S", "H", "Hkv", "hd", "ps",
+                                          "P", "dtype", "tp") if k in row}})
     line_of = {line["name"]: line for line in kernels}
     fields = ("B", "S", "H", "Hkv", "hd", "dtype", "max_abs_err", "ms",
               "plain_ms", "bound_ms", "bound_by", "library_ms")

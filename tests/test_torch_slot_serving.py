@@ -262,13 +262,26 @@ def test_sampling_truncated_to_top_1_is_greedy():
 
 
 def test_engine_refuses_what_it_cannot_serve():
-    # meshes (A.10) are not ported: refused by name; int8 weights (mm=,
-    # A.7), the overload knobs (A.2) and a draft (A.6) are ported, and mm=
-    # with a draft is the reference's ERR_SPEC_MM, word for word
+    # a serving mesh the model cannot tile (kv_heads 1 over tp 2) is
+    # refused with the reference's ERR_SERVING_MESH_HEADS_FMT word for
+    # word, and the ragged read under it through the registry's
+    # mesh:heads-untiled row; int8 weights (mm=, A.7), the overload knobs
+    # (A.2) and a draft (A.6) are ported, and mm= with a draft is the
+    # reference's ERR_SPEC_MM, word for word
+    from tpushare_torch.workloads.parallel.mesh import make_serving_mesh
     from tpushare_torch.workloads.quant import qmm
+    from tpushare_torch.workloads.serving import PagedServingEngine
     assert ServingEngine(PARAMS, CFG, mm=qmm, **ENGINE_KW).mm is qmm
-    with pytest.raises(NotImplementedError, match="A.10"):
-        ServingEngine(PARAMS, CFG, mesh=object(), **ENGINE_KW)
+    untiled = make_serving_mesh(tp=2, devices=["cpu", "cpu"])
+    with pytest.raises(ValueError) as err:
+        PagedServingEngine(PARAMS, CFG, n_lanes=2, max_seq=256, n_pages=9,
+                           page_size=32, mesh=untiled)
+    assert str(err.value) == jconsts.ERR_SERVING_MESH_HEADS_FMT.format(
+        tp=2, kv_heads=1, n_heads=2) == \
+        consts.ERR_SERVING_MESH_HEADS_FMT.format(tp=2, kv_heads=1, n_heads=2)
+    with pytest.raises(registry.KernelUnavailable, match="divide by tp"):
+        ServingEngine(PARAMS, dataclasses.replace(CFG, ragged_decode=True),
+                      mesh=untiled, **ENGINE_KW)
     assert ServingEngine(PARAMS, CFG, queue_limit=4,
                          **ENGINE_KW).queue_limit == 4
     assert ServingEngine(PARAMS, CFG, queue_limit=4, draft=(PARAMS, CFG, 2),

@@ -191,14 +191,18 @@ def test_snapshot_provider_matches_reference_contract():
 def test_consts_equal_the_reference():
     names = [n for n in dir(consts)
              if n.startswith(("TELEMETRY_", "SLO_", "ENV_", "REJECT",
-                              "SHED_", "STATUS_", "PRESSURE_ENGAGE"))
-             or n in ("MIB", "GIB", "TERMINAL_STATUSES", "KERNEL_IMPLS")]
-    assert len(names) > 50
+                              "SHED_", "STATUS_", "PRESSURE_ENGAGE",
+                              "ERR_VISIBLE_DEVICES", "ERR_SERVING_MESH_"))
+             or n in ("MIB", "GIB", "TERMINAL_STATUSES", "KERNEL_IMPLS",
+                      "USAGE_TELEMETRY_KEY")]
+    assert len(names) > 60
     from tpushare.workloads import overload as joverload
+    from tpushare.workloads import profiling as jprofiling
     for n in names:
         # the reference keeps the statuses and reject policies in its
-        # overload module
-        home = jconsts if hasattr(jconsts, n) else joverload
+        # overload module, the trace directory's env in its profiler
+        home = next(m for m in (jconsts, joverload, jprofiling)
+                    if hasattr(m, n))
         assert getattr(consts, n) == getattr(home, n), n
 
 

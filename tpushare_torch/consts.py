@@ -23,6 +23,20 @@ ERR_KV_CODEC_MISMATCH_FMT = (
     "PagedServingEngine(kv_codec=...); cfg.kv_int8 is the slot engine's "
     "cache layout")
 
+# A serving mesh shards the KV-head axis over tp, the layer stack over
+# pp and the MLP hidden columns over tp: a model must tile it
+# (parallel/mesh.check_serving_mesh), word for word the reference's.
+ERR_SERVING_MESH_HEADS_FMT = (
+    "serving mesh tp={tp} shards the KV-head axis: n_kv_heads "
+    "{kv_heads} and n_heads {n_heads} must both divide by tp — pick tp "
+    "from the divisors of n_kv_heads (docs/KERNELS.md 'Sharded pool')")
+ERR_SERVING_MESH_LAYERS_FMT = (
+    "serving mesh pp={pp} shards the layer stack into stages: n_layers "
+    "{n_layers} must divide by pp (docs/KERNELS.md 'Sharded pool')")
+ERR_SERVING_MESH_FF_FMT = (
+    "serving mesh tp={tp} column-shards the MLP hidden dim: d_ff "
+    "{d_ff} must divide by tp")
+
 # A request named a prefix no engine registered; a prefix registration
 # on a MoE config (both engines prefill prefixes with the dense model).
 ERR_PREFIX_UNKNOWN_FMT = "unknown prefix {name!r}: register_prefix first"
@@ -63,6 +77,28 @@ ENV_RESOURCE_BY_POD = "ALIYUN_COM_TPU_HBM_POD"
 ENV_USAGE_URL = "TPUSHARE_USAGE_URL"
 ENV_USAGE_PORT = "TPUSHARE_USAGE_PORT"
 ENV_HOST_IP = "HOST_IP"
+
+# The payload surface (workloads/usage_report.py, infer.py,
+# train_payload.py): the pod identity the usage reporter posts under
+# (downward API), the allocation-lifecycle trace id Allocate forwards,
+# and the key the serving telemetry snapshot rides under in a usage
+# POST.
+ENV_POD_NAME = "POD_NAME"
+ENV_POD_NAMESPACE = "POD_NAMESPACE"
+ENV_TRACE_ID = "TPUSHARE_TRACE_ID"
+USAGE_TELEMETRY_KEY = "telemetry"
+
+# The chips Allocate granted; a failed allocation poisons this env with
+# ERR_VISIBLE_DEVICES_FMT, and the payload exits 3 on the prefix.
+ENV_TPU_VISIBLE_CHIPS = "TPU_VISIBLE_CHIPS"
+ERR_VISIBLE_DEVICES_FMT = "no-tpu-has-{amount}{unit}-to-run"
+ERR_VISIBLE_DEVICES_PREFIX = ERR_VISIBLE_DEVICES_FMT.split("{", 1)[0]
+# The allocator cap Allocate may hand a payload (a fraction of the
+# card's memory, 4 decimals), the switch that turns the cap off, and the
+# directory a profiler trace of the payload goes to.
+ENV_XLA_MEM_FRACTION = "XLA_PYTHON_CLIENT_MEM_FRACTION"
+ENV_DISABLE_ISOLATION = "TPUSHARE_DISABLE_ISOLATION"
+ENV_TRACE_DIR = "TPUSHARE_TRACE_DIR"
 
 # Memory accounting units of the env contract's unit-scaled figures.
 MIB = "MiB"

@@ -279,33 +279,39 @@ def ragged_block_k(S: int) -> int:
                      "(ragged_decode needs block-tileable max_seq)")
 
 
-def check_ragged_config(cfg: TransformerConfig, n_rows: int) -> None:
+def check_ragged_config(cfg: TransformerConfig, n_rows: int,
+                        mesh=None) -> None:
     """Fail fast on configs the ragged read cannot serve (the engine
     calls this at construction so the error names the knob); the guards
-    are the registry's decode rows, raising ``KernelUnavailable``."""
+    are the registry's decode rows, raising ``KernelUnavailable`` — a
+    mesh's tp must tile the heads (``mesh:heads-untiled``)."""
     from tpushare_torch.workloads.ops.registry import KIND_DECODE, decide
     decide(KIND_DECODE, seq=n_rows, window=cfg.attn_window,
+           mesh_shape={"tp": mesh.shape.get("tp", 1)}
+           if mesh is not None else None,
            n_heads=cfg.n_heads, n_kv_heads=cfg.kv_heads,
            head_dim=cfg.head_dim, impl="ragged")
 
 
 def make_ragged_attn_core(kf, vf, layer: int, lengths: torch.Tensor,
-                          cfg: TransformerConfig):
+                          cfg: TransformerConfig, mesh=None):
     """Per-layer attention closure for the ragged slot step: write the
     step's K/V into the full stacked (L, B, S, Hkv, hd) cache at
     ``(layer, row, lengths[row])``, then read through the registry's
     ``ragged`` choice — the CUDA kernel on the card, its twin on the CPU
     — so the bytes read scale with each slot's live length. A codec
     cache is written quantized and read by the kernel's int8 rung.
-    Returns attn_core(q, k, v) -> (o, (kf, vf))."""
+    With ``mesh`` the read is the registry's sharded form: heads over
+    tp and slots over dp where they tile, one launch per shard. Returns
+    attn_core(q, k, v) -> (o, (kf, vf))."""
     from tpushare_torch.workloads.ops.registry import (KIND_DECODE,
                                                        select_attention)
     rows = torch.arange(lengths.shape[0], device=lengths.device)
     read = select_attention(
         KIND_DECODE, impl="ragged", seq=kv_data(kf).shape[2],
-        window=cfg.attn_window,
+        window=cfg.attn_window, mesh=mesh,
         n_heads=cfg.n_heads, n_kv_heads=cfg.kv_heads,
-        head_dim=cfg.head_dim).fn
+        head_dim=cfg.head_dim, batch=lengths.shape[0]).fn
 
     def attn_core(q, k, v):
         scatter_token_rows(kf, k, (layer, rows, lengths))
@@ -600,12 +606,13 @@ def ring_generate(params: dict, prompt: torch.Tensor, cfg: TransformerConfig,
 # block-paged pool
 # ---------------------------------------------------------------------------
 
-def check_paged_config(cfg: TransformerConfig,
+def check_paged_config(cfg: TransformerConfig, mesh=None,
                        kv_codec: str = "bf16") -> None:
     """Fail fast on configs the paged engine cannot serve (the engine
     calls this at construction so the error names the knob). The pool's
     codec is the engine's knob: ``cfg.kv_int8`` is the slot cache's
-    layout and is refused here, as in the reference."""
+    layout and is refused here, as in the reference. A serving mesh
+    must be tiled by the model (``parallel/mesh.check_serving_mesh``)."""
     if kv_codec not in consts.KV_CODECS:
         raise ValueError(f"kv_codec {kv_codec!r} not in {consts.KV_CODECS}")
     if cfg.kv_int8:
@@ -620,6 +627,9 @@ def check_paged_config(cfg: TransformerConfig,
         raise ValueError(
             "cfg.ragged_decode routes the SLOT engine's reads; the paged "
             "engine picks its kernel via attn_impl — unset the flag")
+    if mesh is not None:
+        from tpushare_torch.workloads.parallel.mesh import check_serving_mesh
+        check_serving_mesh(cfg, mesh)
 
 
 def init_page_pool(cfg: TransformerConfig, n_pages: int, page_size: int,
@@ -719,6 +729,16 @@ def install_request_pages(kp, vp, pk, pv, page_ids: torch.Tensor):
     dtype checked, before the first byte is written, so a layout
     mismatch raises, and an out-of-memory in the copy leaves the pool
     as it was."""
+    for dst, src in stage_request_pages(kp, vp, pk, pv, page_ids):
+        dst[:, page_ids] = src
+    return kp, vp
+
+
+def stage_request_pages(kp, vp, pk, pv, page_ids: torch.Tensor) -> list:
+    """The checks and staging of :func:`install_request_pages`: every
+    extracted plane checked against its pool plane and copied onto the
+    pool's device, nothing written. Returns (pool plane, staged pages)
+    pairs."""
     pairs = []
     for pool, pages in ((kp, pk), (vp, pv)):
         if isinstance(pool, dict) != isinstance(pages, dict):
@@ -730,9 +750,7 @@ def install_request_pages(kp, vp, pk, pv, page_ids: torch.Tensor):
                     f"handoff pages {tuple(src.shape)} {src.dtype} do not "
                     f"fit the pool's {want} {dst.dtype}")
             pairs.append((dst, src.to(dst.device)))
-    for dst, src in pairs:
-        dst[:, page_ids] = src
-    return kp, vp
+    return pairs
 
 
 def make_paged_attn_core(kp, vp, tables: torch.Tensor, lengths: torch.Tensor,

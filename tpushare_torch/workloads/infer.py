@@ -53,6 +53,25 @@ one) and serves until killed; ``--join ADDR[,ADDR...]`` composes such
 hosts as remote members beside the local engine(s). The router takes
 SIGTERM's drain, and the run reports ``router.fleet_stats()``.
 
+Sharded serving: ``--tp T --pp P`` (implies ``--paged``) serves one
+paged engine over a tp×pp serving mesh of the host's CUDA devices
+(``parallel/mesh.make_serving_mesh``): KV heads over tp, layers over pp
+(``workloads/sharded_pool.py``); not with ``--fleet`` or ``--int8``, as
+in the reference, and a model that does not tile the mesh exits 2 with
+the ``ERR_SERVING_MESH_*`` message.
+
+The pod's side of the device plugin's contract, as the reference
+payload's: a ``TPU_VISIBLE_CHIPS`` poisoned by a failed Allocate exits
+3; the allocator cap (``device.apply_hbm_cap``: Allocate's
+``XLA_PYTHON_CLIENT_MEM_FRACTION``, else the fraction of the card the
+HBM limit buys) is set on every card the run allocates on — each card
+of a ``--tp``/``--pp`` mesh — before the first allocation, unless
+``TPUSHARE_DISABLE_ISOLATION=true``; the usage reporter
+(``usage_report.start_reporter``) posts the allocator's figures and the
+serving telemetry to the node daemon when the env wires it, its drain
+directive drains the serve front (engine or router) and a withdrawn one
+resumes it; a serve run posts one last report at exit.
+
 ``--device cpu`` runs the plain-PyTorch path (tests); the default is the
 card, and a host without CUDA raises. Invalid flag combinations print a
 message and exit 2, as the reference payload does.
@@ -72,7 +91,8 @@ import numpy as np
 import torch
 
 from tpushare_torch import consts
-from tpushare_torch.device import resolve_device
+from tpushare_torch.device import apply_hbm_cap, resolve_device
+from tpushare_torch.workloads import usage_report
 
 # model presets by HBM budget (MiB) — the reference's table
 PRESETS = (
@@ -173,6 +193,13 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="weights / traffic / sampling seed")
     p.add_argument("--hbm-limit-mib", type=int, default=None,
                    help=f"defaults to ${consts.ENV_HBM_LIMIT_MIB}")
+    p.add_argument("--tp", type=int, default=1,
+                   help="serve: tensor-parallel degree of ONE sharded "
+                        "paged engine (KV heads over tp; implies "
+                        "--paged)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="serve: pipeline-parallel degree (layer stages "
+                        "over pp; implies --paged)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "path)")
@@ -234,6 +261,54 @@ def fleet_flags(args: argparse.Namespace) -> list[tuple[str, int]]:
     return remote
 
 
+def mesh_flags(args: argparse.Namespace, devices=None):
+    """The reference payload's ``--tp`` / ``--pp`` guards (each a message
+    and exit 2): one sharded paged engine, not a fleet of co-resident
+    ones, and the plain weight path. Sets ``--paged`` and returns the
+    serving mesh (None for tp = pp = 1) over ``devices``, by default the
+    host's CUDA devices."""
+    if args.tp * args.pp <= 1:
+        return None
+    args.paged = True     # only the paged engine shards tp×pp
+    if args.fleet is not None:
+        _cli_error("--tp/--pp shard ONE engine across chips; --fleet is "
+                   "co-resident single-chip engines — pick one")
+    if args.int8:
+        _cli_error("--tp/--pp use the plain weight path; drop --int8 "
+                   "(int8 WEIGHTS under the manual mesh step are a "
+                   "ROADMAP follow-up; --kv-codec int8 composes fine)")
+    from tpushare_torch.workloads.parallel.mesh import make_serving_mesh
+    try:
+        return make_serving_mesh(args.tp, args.pp, devices=(
+            payload_devices(args) if devices is None else devices))
+    except ValueError as e:
+        _cli_error(f"serving mesh: {e}")
+
+
+def payload_devices(args: argparse.Namespace) -> list[torch.device]:
+    """The devices a run allocates on, in mesh order: ``--device``, or
+    for a ``--tp``/``--pp`` serve the host's first tp*pp CUDA devices
+    (as many as there are: the mesh refuses too few), or on the plain
+    path the one host device named tp*pp times. The allocator cap
+    covers each of them."""
+    dev = resolve_device(args.device)
+    n = args.tp * args.pp if args.mode == "serve" else 1
+    if n <= 1:
+        return [dev]
+    if dev.type != "cuda":
+        return [dev] * n
+    return [torch.device("cuda", i)
+            for i in range(min(n, torch.cuda.device_count()))]
+
+
+def hbm_limit(args: argparse.Namespace) -> int:
+    """The pod's HBM budget in MiB: ``--hbm-limit-mib``, else the env
+    Allocate sets, else 2000."""
+    if args.hbm_limit_mib is not None:
+        return args.hbm_limit_mib
+    return int(os.environ.get(consts.ENV_HBM_LIMIT_MIB, "2000"))
+
+
 def serve_config(args: argparse.Namespace, cfg, limit: int):
     """The serve mode's config and logical max_seq from the flags, with
     the reference payload's rules: ``--window`` sets the model's window;
@@ -275,9 +350,7 @@ def _setup(args: argparse.Namespace):
     ``quant.qmm`` over the int8 mirror under ``--int8``, else None)."""
     from tpushare_torch.workloads.models.transformer import init_params
     device = resolve_device(args.device)
-    limit = args.hbm_limit_mib
-    if limit is None:
-        limit = int(os.environ.get(consts.ENV_HBM_LIMIT_MIB, "2000"))
+    limit = hbm_limit(args)
     cfg = pick_config(limit)
     plen = max_seq = None
     if args.mode == "serve":
@@ -295,20 +368,30 @@ def _setup(args: argparse.Namespace):
     return device, limit, cfg, params, gen, plen, max_seq, mm
 
 
-def run(args: argparse.Namespace) -> dict:
+def run(args: argparse.Namespace, mesh_devices=None) -> dict:
     """Run one payload mode; returns its measurements (and, for serve,
     the engine, the requests and its telemetry snapshot) for callers
-    that check the outcome."""
+    that check the outcome. ``mesh_devices`` names the devices of a
+    ``--tp`` / ``--pp`` serving mesh (default every CUDA device)."""
     from tpushare_torch.workloads.models.transformer import forward
     if args.mode == "serve":
-        setup = serve_engine(args)
+        setup = serve_engine(args, mesh_devices)
         if setup.get("host") is not None:
             return serve_host(setup["host"])
         front = setup["router"] or setup["engine"]
-        with _drain_on_sigterm(front):
-            return serve_traffic(front, args, setup["cfg"],
-                                 setup["device"], setup["plen"],
-                                 setup["max_seq"], setup["n_lanes"])
+        # the control plane's drain channel: a usage POST answered
+        # {"drain": true} (a rebalancer migration) drains the front as
+        # SIGTERM does, and a withdrawn directive resumes it
+        usage_report.set_drain_handler(front.request_drain,
+                                       on_resume=front.cancel_drain)
+        try:
+            with _drain_on_sigterm(front):
+                return serve_traffic(front, args, setup["cfg"],
+                                     setup["device"], setup["plen"],
+                                     setup["max_seq"], setup["n_lanes"])
+        finally:
+            # the handler must not keep the engine alive past its run
+            usage_report.set_drain_handler(None)
     device, limit, cfg, params, gen, _, _, mm = _setup(args)
     if args.mode == "decode":
         if args.int8:
@@ -427,7 +510,7 @@ def draft_for(args: argparse.Namespace, cfg, params: dict, device):
     return dparams, dcfg, args.draft_k
 
 
-def serve_engine(args: argparse.Namespace) -> dict:
+def serve_engine(args: argparse.Namespace, mesh_devices=None) -> dict:
     """Build the serve mode's engine from the flags: the slot engine, or
     the paged one (``--paged`` / ``--kv-codec int8``) with its pool sized
     to the slot engine's KV HBM, admission on unless ``--no-admission``.
@@ -437,6 +520,7 @@ def serve_engine(args: argparse.Namespace) -> dict:
     from tpushare_torch.workloads.serving import (PagedServingEngine,
                                                   ServingEngine)
     remote = fleet_flags(args)
+    mesh = mesh_flags(args, mesh_devices)
     device, limit, cfg, params, _, plen, max_seq, mm = _setup(args)
     bucket = -(-plen // 32) * 32
     draft = draft_for(args, cfg, params, device)
@@ -463,7 +547,7 @@ def serve_engine(args: argparse.Namespace) -> dict:
                 params, cfg, n_lanes=n_lanes, max_seq=max_seq,
                 n_pages=n_pages, page_size=page_size,
                 prompt_buckets=(bucket,), chunk=16, seed=args.seed,
-                top_k=args.top_k, kv_codec=args.kv_codec,
+                top_k=args.top_k, kv_codec=args.kv_codec, mesh=mesh,
                 admission=admission_for(args, params, n_lanes, limit),
                 **{**overload_kw, "draft": draft if with_draft else None})
 
@@ -506,8 +590,22 @@ def serve_engine(args: argparse.Namespace) -> dict:
                   + (", disaggregated (engine 0 = prefill)"
                      if args.disaggregate else ""), flush=True)
         else:
-            eng = member(True)
-            print(f"paged KV pool: {layout}{eng.attn_impl})", flush=True)
+            try:
+                eng = member(True)
+            except ValueError as e:
+                if mesh is None:
+                    raise
+                # the ERR_SERVING_MESH_* contract strings name the knob
+                _cli_error(f"serving mesh: {e}")
+            shard_note = ""
+            if mesh is not None:
+                shard_mib = paging.pool_hbm_mib(
+                    n_pages, page_size, cfg.n_layers, cfg.kv_heads,
+                    cfg.head_dim, args.kv_codec, shards=args.tp * args.pp)
+                shard_note = (f", tp{args.tp}xpp{args.pp} -> "
+                              f"{shard_mib:.0f} MiB pool/chip")
+            print(f"paged KV pool: {layout}{eng.attn_impl}{shard_note})",
+                  flush=True)
     else:
         n_lanes = args.slots
         eng = ServingEngine(params, cfg, n_slots=n_lanes, max_seq=max_seq,
@@ -636,7 +734,21 @@ def serve_traffic(eng, args, cfg, device, plen: int, max_seq: int,
 
 
 def main(argv: list[str] | None = None) -> int:
-    run(parse_args(argv))
+    """The pod's entry point: refuse a poisoned Allocate env (exit 3),
+    cap the allocator at the grant before anything is allocated, start
+    the usage reporter, run the mode; a serve run posts its last report
+    (its final counters) at exit."""
+    args = parse_args(argv)
+    visible = os.environ.get(consts.ENV_TPU_VISIBLE_CHIPS, "<unset>")
+    if visible.startswith(consts.ERR_VISIBLE_DEVICES_PREFIX):
+        # the plugin poisoned the env: fail loudly
+        print(f"allocation failed: {visible}", file=sys.stderr, flush=True)
+        return 3
+    apply_hbm_cap(payload_devices(args), hbm_limit(args))
+    usage_report.start_reporter()
+    run(args)
+    if args.mode == "serve":
+        usage_report.post_now()
     return 0
 
 

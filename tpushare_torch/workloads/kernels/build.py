@@ -75,10 +75,10 @@ _SIGNATURES = {
                       _I, _I, _I, _I, _I, _I, _I, _F, _P]},
     # q, k, v (one layer's (B, S, Hkv, hd) base), ks, vs (int8 scale
     # planes or null), lengths, o, ws (fp32 partials or null), n_chunks,
-    # B, S, H, Hkv, hd, is_bf16, is_int8, scale, stream
+    # B, S, H, Hkv, row_heads, hd, is_bf16, is_int8, scale, stream
     "ragged_decode": {"tpushare_ragged_decode":
                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _I, _I, _I, _F, _P]},
+                       _I, _I, _I, _I, _F, _P]},
     # q (pre-scaled), k, v, o, lse (null = none), the forward schedule
     # (offsets, blocks, kinds), B, S, H, hd, block, is_bf16, stream
     "splash_fwd": {"tpushare_splash_fwd":

@@ -11,7 +11,10 @@
 // arithmetic is the reference's: q read as fp32, the dot product taken
 // first and then scaled by hd^-0.5, an fp32 online softmax, the output
 // rounded once to q's dtype. The caller passes one layer of the stacked
-// (L, B, S, Hkv, hd) cache by its base pointer, so no slice is copied.
+// (L, B, S, Hkv, hd) cache by its base pointer, so no slice is copied;
+// a row of the cache may hold more KV heads than the launch reads
+// (row_heads >= Hkv): a tp shard of a whole slot cache is read in place
+// from its first head's pointer.
 //
 // Bound on this card: bytes. A decode read does ~4 FLOPs per K/V element
 // it loads, far below Hopper's ~295 FLOP/byte balance point, so the floor
@@ -136,8 +139,9 @@ __device__ __forceinline__ void load_f32(const T* p, float out[E]) {
   }
 }
 
-// the launch's arguments: k / v one layer's (B, S, Hkv, HD) base; ks / vs
-// the int8 rung's (B, S, Hkv) scale planes, null for a bf16/fp32 cache;
+// the launch's arguments: k / v one layer's (B, S, Hkv, HD) base, rows
+// row_heads heads apart; ks / vs the int8 rung's (B, S, Hkv) scale planes
+// on the same row pitch, null for a bf16/fp32 cache;
 // ws the partials, acc (B, Hkv, n_chunks, G, HD) then (m, l)
 // (B, Hkv, n_chunks, G, 2), null when n_chunks is 1
 struct Args {
@@ -149,7 +153,7 @@ struct Args {
   const int* lengths;
   void* o;
   float* ws;
-  int B, S, H, Hkv, n_chunks;
+  int B, S, H, Hkv, row_heads, n_chunks;
   float scale;
 };
 
@@ -214,7 +218,7 @@ __global__ void __launch_bounds__(THREADS) ragged_partial_kernel(Args a) {
     for (int u = 0; u < U; ++u) {
       const int i = min(base + u * RPW + rg, n - 1);
       // (slot, row, kv head): the scale's index; x HD the row's
-      const size_t srow = ((size_t)b * a.S + r0 + i) * Hkv + hk;
+      const size_t srow = ((size_t)b * a.S + r0 + i) * a.row_heads + hk;
       const size_t off = srow * HD + sl * E;
       kx[u] = *reinterpret_cast<const Raw*>(k + off);
       vx[u] = *reinterpret_cast<const Raw*>(v + off);
@@ -411,17 +415,21 @@ int dispatch_kv(int is_int8, int G, const Args& a, cudaStream_t st) {
 }  // namespace
 
 // ks / vs: the int8 rung's scale planes (B, S, Hkv) fp32 of the same
-// layer, or null with is_int8 0 (then k / v hold q's dtype); ws: fp32
+// layer, or null with is_int8 0 (then k / v hold q's dtype); row_heads:
+// the KV heads a cache row holds (Hkv for a whole cache, more for a
+// head shard read in place); ws: fp32
 // partials of B * H * n_chunks * (hd + 2) floats, n_chunks = ceil(S /
 // CHUNK), null when n_chunks is 1
 extern "C" int tpushare_ragged_decode(const void* q, const void* k,
                                       const void* v, const void* ks,
                                       const void* vs, const void* lengths,
                                       void* o, void* ws, int n_chunks, int B,
-                                      int S, int H, int Hkv, int hd,
+                                      int S, int H, int Hkv,
+                                      int row_heads, int hd,
                                       int is_bf16, int is_int8, float scale,
                                       void* stream) {
   if (B < 1 || B > 65535 || S < 1 || Hkv < 1 || Hkv > 65535 ||
+      row_heads < Hkv ||
       H % Hkv != 0 || hd != HD || n_chunks != (S + CHUNK - 1) / CHUNK ||
       (n_chunks > 1 && ws == nullptr) ||
       (is_int8 && (ks == nullptr || vs == nullptr)))
@@ -429,7 +437,8 @@ extern "C" int tpushare_ragged_decode(const void* q, const void* k,
   const Args a{q, k, v, static_cast<const float*>(ks),
                static_cast<const float*>(vs),
                static_cast<const int*>(lengths), o,
-               static_cast<float*>(ws), B, S, H, Hkv, n_chunks, scale};
+               static_cast<float*>(ws), B, S, H, Hkv, row_heads, n_chunks,
+               scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) return dispatch_kv<__nv_bfloat16>(is_int8, H / Hkv, a, st);
   return dispatch_kv<float>(is_int8, H / Hkv, a, st);

@@ -21,7 +21,10 @@ length instead.
 A stacked ``(L, B, S, Hkv, hd)`` cache is read at ``layer`` through the
 contiguous view ``k[layer]``: the kernel is handed the view's pointer, so
 no slice is copied (the reference had to thread the stacked cache through
-its scan carry to get the same).
+its scan carry to get the same). A KV-head slice of a cache
+(``k[:, :, h0:h1]``, a tp shard's heads, and any rows of it) is read in
+place too: the kernel takes the heads a cache row holds as its row
+pitch.
 
 An int8 codec cache (``cfg.kv_int8``: ``{"q": int8 (..., hd), "s": fp32
 (...)}`` leaves) is read at int8 width by the kernel's int8 rung, the
@@ -54,6 +57,23 @@ def _layer_views(k, v, layer):
     # imported here: decode.py imports the registry, which imports this
     from tpushare_torch.workloads.decode import kv_view
     return kv_view(k, layer), kv_view(v, layer)
+
+
+def _row_heads(t: torch.Tensor, shape: tuple) -> int | None:
+    """The KV heads a cache row of ``t`` holds: ``t`` of ``shape`` (B, S,
+    Hkv[, hd]) laid out as the KV-head slice of a (B', S, row_heads[,
+    hd]) contiguous cache — ``Hkv`` itself when ``t`` is contiguous; None
+    for any other layout."""
+    if tuple(t.shape) != shape:
+        return None
+    if t.is_contiguous():
+        return shape[2]
+    inner = shape[3] if len(shape) == 4 else 1
+    pitch = t.stride(1) // inner
+    want = (shape[1] * pitch * inner, pitch * inner, inner, 1)[:len(shape)]
+    fits = all(n == 1 or st == w
+               for n, st, w in zip(shape, t.stride(), want))
+    return pitch if fits and pitch >= shape[2] else None
 
 
 def ragged_decode_plain(q: torch.Tensor, k, v, lengths: torch.Tensor, *,
@@ -91,9 +111,10 @@ def ragged_decode_attention(q: torch.Tensor, k, v, lengths: torch.Tensor,
     (B, S, Hkv, hd) caches — in q's dtype, or int8 codec leaves
     ``{"q": int8 (B, S, Hkv, hd), "s": fp32 (B, S, Hkv)}`` — or with
     ``layer`` the full stacked (L, B, ...) caches of which ``k[layer]``
-    is read; lengths (B,) int32 — slot b attends rows [0, lengths[b]]
-    inclusive (the current token's K/V is already written at
-    ``lengths[b]``). Returns (B, H, hd) in q's dtype.
+    is read — contiguous, or a KV-head slice of a contiguous cache (all
+    planes sliced alike); lengths (B,) int32 — slot b attends rows [0,
+    lengths[b]] inclusive (the current token's K/V is already written
+    at ``lengths[b]``). Returns (B, H, hd) in q's dtype.
 
     A CUDA tensor launches the kernel (its int8 rung for codec leaves);
     what it cannot take raises. A CPU tensor gets
@@ -113,12 +134,20 @@ def ragged_decode_attention(q: torch.Tensor, k, v, lengths: torch.Tensor,
     if int8:
         planes += [("k scales", k["s"], (B, S, Hkv), torch.float32),
                    ("v scales", v["s"], (B, S, Hkv), torch.float32)]
+    pitches = set()
     for name, t, shape, dtype in planes:
         if t.device != q.device or t.dtype != dtype:
             raise ValueError(f"{name} must be {dtype} on q's device")
-        if not t.is_contiguous() or t.shape != shape:
+        pitch = _row_heads(t, shape)
+        if pitch is None:
             raise ValueError(f"{name} must be a contiguous {shape} cache "
-                             "(or a stacked cache with layer=)")
+                             "or a KV-head slice of one (or a stacked "
+                             "cache with layer=)")
+        pitches.add(pitch)
+    if len(pitches) != 1:
+        raise ValueError(f"k, v and their scales must share one row pitch, "
+                         f"got {sorted(pitches)} heads")
+    row_heads = pitches.pop()
     if lengths.device != q.device or lengths.dtype != torch.int32 \
             or lengths.shape != (B,):
         raise ValueError("lengths must be (B,) int32 on q's device")
@@ -144,7 +173,8 @@ def ragged_decode_attention(q: torch.Tensor, k, v, lengths: torch.Tensor,
         rc = lib.tpushare_ragged_decode(
             q.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks, vs,
             lengths.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), chunks, B, S, H, Hkv, hd,
+            None if ws is None else ws.data_ptr(), chunks, B, S, H, Hkv,
+            row_heads, hd,
             int(q.dtype == torch.bfloat16), int(int8), hd ** -0.5,
             torch.cuda.current_stream().cuda_stream)
     name = "ragged_decode_int8" if int8 else "ragged_decode"

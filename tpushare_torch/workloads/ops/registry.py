@@ -5,8 +5,11 @@ engine's decode read and the paged decode read.
 Port of ``tpushare/workloads/ops/registry.py`` (``decide``'s prefill,
 decode and paged rows, ``select_attention``, the fallback counters). The
 rows keep the reference's shape gates with ``platform == "cuda"`` where
-the reference says ``"tpu"``; there is no mesh in this slice, so the
-dp/tp/sp rows are absent. Semantics are the reference's:
+the reference says ``"tpu"``. A serving mesh's tp degree rides
+``mesh_shape`` and gates the decode and prefill rows as the reference's
+``mesh:heads-untiled`` rows do; the sequence-parallel rows (``sp``,
+ring attention) come with the sharded training step. Semantics are the
+reference's:
 
 - an explicit implementation that cannot be served raises
   :class:`KernelUnavailable`;
@@ -38,6 +41,18 @@ window runs the kernel's banded grid (``window:flash-banded``). The
 decode rows keep the reference's gates (``RAGGED_HEAD_DIM``,
 ``RAGGED_BLOCK``) so the same configs are refused with the same
 reasons.
+
+The sharded reads (the reference's ``shard_mapped`` kernel forms) are
+the same kernels launched once per shard on the shard's device, their
+outputs concatenated in rank order; per-head softmax makes the
+concatenation bitwise one unsharded launch. A sharded paged engine
+holds each pool shard as its own tensor on its device
+(``workloads/sharded_pool.py``) and reads it through the mesh-less
+paged read. :func:`_build_decode_ragged` with a mesh is the ragged read
+with heads over tp and slots over dp over a slot engine's whole cache:
+a shard on the cache's device reads its heads and slots in place (the
+kernel takes the cache's row pitch), one on another device reads a
+copy of them.
 """
 
 from __future__ import annotations
@@ -45,7 +60,9 @@ from __future__ import annotations
 import dataclasses
 import functools
 import threading
-from typing import Any, Callable
+from typing import Any, Callable, Mapping
+
+import torch
 
 from tpushare_torch import consts
 from tpushare_torch.workloads.ops.attention import (check_window,
@@ -161,15 +178,22 @@ def _splash_servable(seq: int | None, window: int | None,
             and head_dim is not None and head_dim % SPLASH_HEAD_DIM == 0)
 
 
+def _axis(mesh_shape: Mapping[str, int] | None, name: str) -> int:
+    return int(mesh_shape.get(name, 1)) if mesh_shape else 1
+
+
 def decide(kind: str, *, seq: int | None = None, window: int | None = None,
+           mesh_shape: Mapping[str, int] | None = None,
            n_heads: int | None = None, n_kv_heads: int | None = None,
            head_dim: int | None = None, platform: str | None = None,
            impl: str = IMPL_AUTO, codec: str | None = None
            ) -> tuple[str, str]:
     """(impl, reason) for one attention site; raises
     :class:`KernelUnavailable` for explicit impls the table cannot
-    honour. ``platform`` is the tensors' device type ("cuda" / "cpu");
-    ``codec`` the paged pool's storage codec (``consts.KV_CODECS``)."""
+    honour. ``mesh_shape`` is a plain ``{axis: size}`` map (its ``tp``
+    shards heads); ``platform`` is the tensors' device type ("cuda" /
+    "cpu"); ``codec`` the paged pool's storage codec
+    (``consts.KV_CODECS``)."""
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r} not in {KINDS}")
     if impl not in IMPLS + (IMPL_AUTO, IMPL_KERNEL):
@@ -183,6 +207,7 @@ def decide(kind: str, *, seq: int | None = None, window: int | None = None,
                          "follows its leaf type")
     if n_kv_heads is None:
         n_kv_heads = n_heads
+    tp = _axis(mesh_shape, "tp")
 
     if kind == KIND_PAGED:
         available = platform == PLATFORM
@@ -234,6 +259,12 @@ def decide(kind: str, *, seq: int | None = None, window: int | None = None,
                           f"cache rows {seq} not divisible by "
                           f"{RAGGED_BLOCK} (ragged_decode needs "
                           "block-tileable max_seq)")
+        if tp > 1 and n_heads is not None and n_kv_heads is not None \
+                and (n_heads % tp or n_kv_heads % tp):
+            return reject("mesh:heads-untiled",
+                          f"ragged_decode under tp={tp} shards heads: "
+                          f"n_heads {n_heads} and kv_heads {n_kv_heads} "
+                          "must both divide by tp")
         if explicit:
             return IMPL_RAGGED, "explicit:ragged"
         if platform != PLATFORM:
@@ -247,11 +278,19 @@ def decide(kind: str, *, seq: int | None = None, window: int | None = None,
             "'xla'; paged/ragged are decode-side reads")
     if impl == IMPL_XLA:
         return IMPL_XLA, "explicit:xla"
+    heads_tile = (tp == 1 or (n_heads is not None and n_kv_heads is not None
+                              and n_heads % tp == 0 and n_kv_heads % tp == 0))
+    if not heads_tile:
+        if impl == IMPL_AUTO:
+            return IMPL_XLA, "mesh:heads-untiled"
+        raise KernelUnavailable(
+            IMPL_FLASH if impl == IMPL_KERNEL else impl, kind,
+            f"n_heads {n_heads} and kv_heads {n_kv_heads} must divide the "
+            f"tp={tp} head sharding")
     mha = n_heads is None or n_kv_heads == n_heads
     splash_ok = _splash_servable(seq, window, n_heads, n_kv_heads, head_dim)
     if impl == IMPL_SPLASH:
-        # the reference's refusals, in its order and words (no mesh here:
-        # tp is 1)
+        # the reference's refusals, in its order and words
         if not mha:
             raise KernelUnavailable(
                 impl, kind, f"splash_mha is MHA-only: n_kv_heads "
@@ -268,7 +307,7 @@ def decide(kind: str, *, seq: int | None = None, window: int | None = None,
         if not splash_ok:
             raise KernelUnavailable(
                 impl, kind, f"seq {seq} does not tile the splash block "
-                f"grid under tp=1")
+                f"grid under tp={tp}")
     if platform != PLATFORM:
         if impl == IMPL_AUTO:
             return IMPL_XLA, "platform:" + (platform or "none")
@@ -292,22 +331,94 @@ def decide(kind: str, *, seq: int | None = None, window: int | None = None,
 
 
 # ---------------------------------------------------------------------------
+# sharded kernel forms: one launch per shard, outputs in rank order
+# ---------------------------------------------------------------------------
+
+def _shard(leaf, rows: slice, heads: slice, dev: torch.device):
+    """A shard of a ``(B, S, Hkv, ...)`` leaf — its rows and KV heads, a
+    codec leaf's ``q`` and ``s`` planes together — for a read on
+    ``dev``: a view where the leaf already lives there, else a
+    contiguous copy on ``dev``."""
+    if isinstance(leaf, dict):
+        return {name: _shard(plane, rows, heads, dev)
+                for name, plane in leaf.items()}
+    part = leaf[rows, :, heads]
+    return part if part.device == dev else part.to(dev).contiguous()
+
+
+def _kv_heads(leaf) -> int:
+    return (leaf["q"] if isinstance(leaf, dict) else leaf).shape[2]
+
+
+def _build_decode_ragged(mesh: Any, batch: int | None = None,
+                         batch_axis: str = "dp", head_axis: str = "tp"
+                         ) -> Callable[..., Any]:
+    """fn(q1, k, v, lengths, layer=) over the whole stacked ``(L, B, S,
+    Hkv, hd)`` slot caches (dense or ``{q, s}`` codec leaves): with a
+    mesh, heads over tp and slots over dp where the batch tiles it —
+    each (dp, tp) shard's slots and heads are read on its device — in
+    place where the cache lives there, else from a copy —, the ragged
+    read (K4, its int8 rung for codec caches) launches there, and the
+    outputs concatenate in rank order (heads within a dp row, then the
+    rows). A batch dp does not tile is not split. The cache writes stay
+    with the caller."""
+    if mesh is None:
+        return ragged_decode_attention
+    tp = mesh.shape.get(head_axis, 1)
+    dp = mesh.shape.get(batch_axis, 1)
+    bdp = dp if (dp > 1 and batch is not None and batch % dp == 0) else 1
+
+    def meshed(q1, kf, vf, lens, layer=None):
+        from tpushare_torch.workloads.decode import kv_view
+        k, v = ((kf, vf) if layer is None
+                else (kv_view(kf, layer), kv_view(vf, layer)))
+        B, H = q1.shape[:2]
+        bs, hs, ks = B // bdp, H // tp, _kv_heads(k) // tp
+        rows_out = []
+        for d in range(bdp):
+            rows = slice(d * bs, (d + 1) * bs)
+            outs = []
+            for r in range(tp):
+                dev = mesh.device(**{batch_axis: d, head_axis: r})
+                heads = slice(r * ks, (r + 1) * ks)
+                o = ragged_decode_attention(
+                    q1[rows, r * hs:(r + 1) * hs].to(dev).contiguous(),
+                    _shard(k, rows, heads, dev), _shard(v, rows, heads, dev),
+                    lens[rows].to(dev).contiguous())
+                outs.append(o.to(q1.device))
+            rows_out.append(torch.cat(outs, dim=1))
+        return torch.cat(rows_out, dim=0)
+
+    return meshed
+
+
+def _mesh_shape(mesh: Any) -> dict[str, int] | None:
+    """A mesh as the decision table's ``{axis: size}`` map."""
+    return None if mesh is None else dict(mesh.shape)
+
+
+# ---------------------------------------------------------------------------
 # the front door
 # ---------------------------------------------------------------------------
 
 def select_attention(kind: str, *, seq: int | None = None,
-                     window: int | None = None, n_heads: int | None = None,
+                     window: int | None = None, mesh: Any = None,
+                     n_heads: int | None = None,
                      n_kv_heads: int | None = None,
                      head_dim: int | None = None,
                      platform: str | None = None, impl: str = IMPL_AUTO,
-                     causal: bool = True,
+                     batch: int | None = None, causal: bool = True,
                      codec: str | None = None) -> KernelChoice:
     """Run :func:`decide` and return the ready-to-call implementation;
     an ``auto`` degradation to the plain path is recorded against the
     kernel the table would otherwise have taken. A window without causal
-    masking raises, whatever the implementation."""
+    masking raises, whatever the implementation. With ``mesh`` the
+    ragged decode read is the sharded form (:func:`_build_decode_ragged`
+    over ``batch`` slots); a sharded paged engine reads each pool shard
+    through the mesh-less paged read."""
     check_window(causal, window)
-    chosen, reason = decide(kind, seq=seq, window=window, n_heads=n_heads,
+    chosen, reason = decide(kind, seq=seq, window=window,
+                            mesh_shape=_mesh_shape(mesh), n_heads=n_heads,
                             n_kv_heads=n_kv_heads, head_dim=head_dim,
                             platform=platform, impl=impl, codec=codec)
     if chosen == IMPL_XLA and impl == IMPL_AUTO:
@@ -331,7 +442,7 @@ def select_attention(kind: str, *, seq: int | None = None,
         fn = functools.partial(flash_attention_plain, causal=causal,
                                window=window)
     elif kind == KIND_DECODE and chosen == IMPL_RAGGED:
-        fn = ragged_decode_attention
+        fn = _build_decode_ragged(mesh, batch)
     elif kind == KIND_DECODE:
         # imported here: decode.py imports this module (via the model)
         from tpushare_torch.workloads.decode import make_cached_attn_core
@@ -341,5 +452,5 @@ def select_attention(kind: str, *, seq: int | None = None,
     else:
         def fn(q1, kp, vp, tables, kv_lens):
             return xla_paged_read(q1[:, None], kp, vp, tables, kv_lens,
-                                  n_heads, n_kv_heads or n_heads)[:, 0]
+                                  q1.shape[1], _kv_heads(kp))[:, 0]
     return KernelChoice(kind=kind, impl=chosen, reason=reason, fn=fn)

@@ -53,9 +53,18 @@ an int8 pool's ``q`` and ``s`` planes together, a sampling lane's
 generator state with them), ``cancel_request``, ``can_install``,
 ``extract_prefix`` / ``install_prefix_pages`` (replication without a
 prefill) and ``prefill_step`` (a disaggregated prefill member's
-admission-only iteration). Left for a later slice (ROADMAP.md): meshes
-(A.10); the engines raise where the reference would accept one, naming
-the item.
+admission-only iteration).
+
+Meshes (``parallel/mesh.Mesh``): ``PagedServingEngine(mesh=)`` over a
+tp×pp serving mesh splits the pool's KV heads over tp and its layers
+over pp and runs every pool-touching program shard by shard
+(``workloads/sharded_pool.py``: the split model step, per-shard K5
+reads, the GPipe'd chunked prefill, sharded page movers and spec
+verify); host accounting stays in global pages. ``ServingEngine(mesh=)``
+reads its ragged slot caches through the sharded K4 form (heads over
+tp, slots over dp where they tile; each shard read in place where it
+shares the caches' device); every other slot program runs on the
+weights' device, as the reference's GSPMD leaves them replicated.
 
 The reference's jitted programs become eager functions that update the
 pool and the lane state IN PLACE; the host loop keeps the reference's
@@ -91,24 +100,13 @@ from tpushare_torch.workloads.models.transformer import (
     rope_tables)
 from tpushare_torch.workloads.ops.paged_attention import resolve_paged_impl
 from tpushare_torch.workloads.overload import DrainTimeout  # re-export
+from tpushare_torch.workloads.parallel.mesh import serving_degrees
 from tpushare_torch.workloads.telemetry import EngineTelemetry
 
 __all__ = ["init_slots", "admit", "ingest_chunk", "slot_decode_chunk",
            "init_page_state", "paged_decode_chunk", "lane_efficiency",
            "Request", "ServingEngine", "PagedServingEngine",
            "DrainTimeout"]
-
-# ROADMAP items of what the engines do not carry yet, for the refusals
-_UNPORTED = {"mesh": "A.10 (multi-GPU)"}
-
-
-def _refuse_unported(**knobs) -> None:
-    """Raise on the first reference knob that is set but not ported."""
-    for name, value in knobs.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported yet: ROADMAP {_UNPORTED[name]}")
-
 
 def params_device(params: dict) -> torch.device:
     """The device the weights live on (the embedding table, dense or an
@@ -273,7 +271,7 @@ def admit(params: dict, prompt: torch.Tensor, slots: dict, slot: int,
 def _slot_step(params: dict, slots: dict, cfg: TransformerConfig, rope,
                mm=None, top_k: int = 0, use_top_p: bool = False,
                max_len: int | None = None,
-               generators: dict | None = None
+               generators: dict | None = None, mesh=None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """One decode step for every slot, updating ``slots`` in place.
     Active slots advance one token; inactive slots compute dead lanes
@@ -282,7 +280,8 @@ def _slot_step(params: dict, slots: dict, cfg: TransformerConfig, rope,
     else through :func:`decode.make_cached_attn_core` with the per-slot
     position vector. ``max_len`` is the logical sequence bound (rope
     rows); it equals the cache rows except under a ring cache, whose
-    core wraps the writes. Returns (tokens, logprobs)."""
+    core wraps the writes. ``mesh`` shards the ragged read (heads over
+    tp, slots over dp). Returns (tokens, logprobs)."""
     lengths, active = slots["lengths"], slots["active"]
     max_seq = max_len or cache_max_seq(slots)
     cos_t, sin_t = rope
@@ -293,7 +292,7 @@ def _slot_step(params: dict, slots: dict, cfg: TransformerConfig, rope,
     for i in range(cfg.n_layers):
         if cfg.ragged_decode:
             core = make_ragged_attn_core(slots["k"], slots["v"], i, lengths,
-                                         cfg)
+                                         cfg, mesh=mesh)
         else:
             core = make_cached_attn_core(kv_view(slots["k"], i),
                                          kv_view(slots["v"], i), lengths,
@@ -315,7 +314,7 @@ def slot_decode_chunk(params: dict, slots: dict, cfg: TransformerConfig,
                       n_steps: int, mm=None, top_k: int = 0,
                       use_top_p: bool = False,
                       rope_len: int | None = None,
-                      generators: dict | None = None
+                      generators: dict | None = None, mesh=None
                       ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """``n_steps`` decode steps for the whole slot batch (device-async;
     the caller syncs once at harvest). Returns (tokens (n_slots, n_steps)
@@ -328,7 +327,7 @@ def slot_decode_chunk(params: dict, slots: dict, cfg: TransformerConfig,
     for _ in range(n_steps):
         nxt, lp = _slot_step(params, slots, cfg, rope, mm=mm, top_k=top_k,
                              use_top_p=use_top_p, max_len=rope_len,
-                             generators=generators)
+                             generators=generators, mesh=mesh)
         toks.append(nxt)
         lps.append(lp)
     return torch.stack(toks, dim=1), torch.stack(lps, dim=1), slots
@@ -361,24 +360,31 @@ def _paged_step(params: dict, state: dict, cfg: TransformerConfig, rope,
                 mm=None, top_k: int = 0, use_top_p: bool = False,
                 max_len: int | None = None, impl: str = "xla",
                 gather_pages_w: int | None = None,
-                generators: dict | None = None
+                generators: dict | None = None, mesh=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One decode step for every lane over the paged pool: active lanes
     advance one token, inactive lanes compute dead lanes into the trash
-    page and stay put. Updates ``state`` in place; returns (tokens,
-    logprobs)."""
+    page and stay put. Under a serving ``mesh`` the layer stack runs
+    over the sharded pool (``sharded_pool.decode_layers``). Updates
+    ``state`` in place; returns (tokens, logprobs)."""
     lengths, active = state["lengths"], state["active"]
     cos_t, sin_t = rope
     cos = cos_t[lengths][:, None]                  # (B, 1, half) per row
     sin = sin_t[lengths][:, None]
     x = embed_lookup(params["embed"], state["tokens"], cfg.dtype)[:, None]
-    for i in range(cfg.n_layers):
-        core = make_paged_attn_core(kv_view(state["k"], i),
-                                    kv_view(state["v"], i),
-                                    state["tables"], lengths, cfg,
-                                    impl=impl, gather_pages_w=gather_pages_w)
-        x, _ = model_layer(x, layer_params(params, i), cfg, cos, sin, core,
-                           mm=mm)
+    if mesh is not None:
+        from tpushare_torch.workloads.sharded_pool import decode_layers
+        x = decode_layers(params, state, x, cfg, cos, sin, impl, mesh,
+                          gather_pages_w)
+    else:
+        for i in range(cfg.n_layers):
+            core = make_paged_attn_core(kv_view(state["k"], i),
+                                        kv_view(state["v"], i),
+                                        state["tables"], lengths, cfg,
+                                        impl=impl,
+                                        gather_pages_w=gather_pages_w)
+            x, _ = model_layer(x, layer_params(params, i), cfg, cos, sin,
+                               core, mm=mm)
     logits = lm_head(params, x[:, 0])
     nxt, lp = _sample_rows(logits, state["temps"], top_k, state["top_ps"],
                            use_top_p, generators or {})
@@ -395,21 +401,22 @@ def paged_decode_chunk(params: dict, state: dict, cfg: TransformerConfig,
                        use_top_p: bool = False,
                        rope_len: int | None = None, impl: str = "xla",
                        gather_pages_w: int | None = None,
-                       generators: dict | None = None
+                       generators: dict | None = None, mesh=None
                        ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """``n_steps`` decode steps for the whole lane wave (device-async; the
     caller syncs once at harvest). The engine keeps every running lane's
-    table covering ``length + n_steps`` rows before dispatch. Returns
-    (tokens (B, n_steps), logprobs (B, n_steps), state)."""
-    rope_len = rope_len or (state["tables"].shape[1]
-                            * pool_page_size(state["k"]))
+    table covering ``length + n_steps`` rows before dispatch. A serving
+    ``mesh`` takes a sharded state (``sharded_pool.place_state``).
+    Returns (tokens (B, n_steps), logprobs (B, n_steps), state)."""
+    pool = state["k"] if mesh is None else state["k"][0][0]
+    rope_len = rope_len or (state["tables"].shape[1] * pool_page_size(pool))
     rope = rope_tables(cfg, rope_len, state["tables"].device)
     toks, lps = [], []
     for _ in range(n_steps):
         nxt, lp = _paged_step(params, state, cfg, rope, mm=mm, top_k=top_k,
                               use_top_p=use_top_p, max_len=rope_len,
                               impl=impl, gather_pages_w=gather_pages_w,
-                              generators=generators)
+                              generators=generators, mesh=mesh)
         toks.append(nxt)
         lps.append(lp)
     return torch.stack(toks, dim=1), torch.stack(lps, dim=1), state
@@ -511,7 +518,7 @@ def _draft_ingest_chunk(dparams: dict, dstate: dict, lane: int,
 def _spec_paged_round(params: dict, dparams: dict, state: dict,
                       dstate: dict, cfg: TransformerConfig,
                       dcfg: TransformerConfig, k: int, rope_len: int,
-                      gather_pages_w: int | None = None):
+                      gather_pages_w: int | None = None, mesh=None):
     """One batched draft-k / verify-1 round over the paged pools: every
     active lane drafts ``k`` greedy tokens against its draft block-table
     mirror (:func:`decode.spec_draft_scan`), then the target scores all
@@ -524,7 +531,9 @@ def _spec_paged_round(params: dict, dparams: dict, state: dict,
     The caller pre-grew every active lane's tables (target k+1 rows,
     draft k) behind the copy-on-write fence; rows past the accepted
     length are garbage the length mask hides until truncation releases
-    their pages. Writes both pools and both lane states in place.
+    their pages. Writes both pools and both lane states in place. Under
+    a serving ``mesh`` the verify runs over the sharded target pool
+    (``sharded_pool.verify_layers``); the draft is not split.
     Returns (g (B, k+1) target greedy tokens, logp (B, k+1), a (B,)
     accepted counts, state, dstate)."""
     lengths, active = state["lengths"], state["active"]
@@ -539,12 +548,18 @@ def _spec_paged_round(params: dict, dparams: dict, state: dict,
     pos = lengths[:, None] + torch.arange(Q, device=dev)[None, :]
     cos, sin = rope_t[0][pos], rope_t[1][pos]                  # (B, Q, half)
     x = embed_lookup(params["embed"], chunk, cfg.dtype)
-    for i in range(cfg.n_layers):
-        core = make_paged_chunk_core(kv_view(state["k"], i),
-                                     kv_view(state["v"], i), state["tables"],
-                                     lengths, cfg,
-                                     gather_pages_w=gather_pages_w)
-        x, _ = model_layer(x, layer_params(params, i), cfg, cos, sin, core)
+    if mesh is not None:
+        from tpushare_torch.workloads.sharded_pool import verify_layers
+        x = verify_layers(params, state, x, cfg, cos, sin, mesh,
+                          gather_pages_w)
+    else:
+        for i in range(cfg.n_layers):
+            core = make_paged_chunk_core(kv_view(state["k"], i),
+                                         kv_view(state["v"], i),
+                                         state["tables"], lengths, cfg,
+                                         gather_pages_w=gather_pages_w)
+            x, _ = model_layer(x, layer_params(params, i), cfg, cos, sin,
+                               core)
     logits = lm_head(params, x)                                # (B, Q, V)
     g = torch.argmax(logits, dim=-1)
     logp = torch.log_softmax(logits.float(), dim=-1).gather(
@@ -1222,8 +1237,14 @@ class ServingEngine(_EngineCore):
     reference's ``ERR_SPEC_MM``). A ``MoEConfig`` serves its experts
     through ``decode.model_layer``; prefixes and drafts are dense-only.
 
-    The reference's ``mesh`` raises ``NotImplementedError`` naming its
-    ROADMAP item.
+    ``mesh`` (a ``parallel/mesh.Mesh`` with ``tp`` and optionally
+    ``dp`` axes) shards the ragged read under ``cfg.ragged_decode``:
+    each (dp, tp) shard's slots and heads are read by K4 on its device
+    — in place when that is the caches' device, else from a copy — and
+    the outputs concatenated in rank order
+    (``registry._build_decode_ragged``); a mesh whose tp does not tile
+    the heads is refused at construction. The other slot programs run on
+    the weights' device, as the reference's GSPMD keeps them replicated.
     """
 
     def __init__(self, params: dict, cfg: TransformerConfig, n_slots: int,
@@ -1236,7 +1257,6 @@ class ServingEngine(_EngineCore):
                  default_deadline_s: float | None = None,
                  admission: overload.AdmissionController | None = None,
                  faults=None, sync_timeout_s: float | None = None):
-        _refuse_unported(mesh=mesh)
         self._init_core(params, cfg, n_slots, max_seq, prompt_buckets,
                         chunk, mm, seed, top_k, queue_limit, reject_policy,
                         default_deadline_s, admission, faults,
@@ -1255,8 +1275,9 @@ class ServingEngine(_EngineCore):
                     f"({floor}): a wrapped write could alias an in-band "
                     "row")
             self.cache_rows = rows
+        self.mesh = mesh
         if cfg.ragged_decode:
-            check_ragged_config(cfg, self.cache_rows)
+            check_ragged_config(cfg, self.cache_rows, mesh=mesh)
         # which read this engine serves with (the registry forbids a
         # silent swap: an explicit ragged read raises or runs)
         self.attn_impl = "ragged" if cfg.ragged_decode else "xla"
@@ -1494,7 +1515,7 @@ class ServingEngine(_EngineCore):
             self.params, self.slots, self.cfg, n, mm=self.mm,
             top_k=self.top_k,
             use_top_p=self._use_top_p, rope_len=self.max_seq,
-            generators=self._generators), snapshot)
+            generators=self._generators, mesh=self.mesh), snapshot)
         if out is None:
             return None
         toks, lps, self.slots = out
@@ -1709,6 +1730,20 @@ class PagedServingEngine(_EngineCore):
     Overload defense as the slot engine's; the admission controller's
     gate here is pages (``AdmissionController.admit_ok_pages``: the
     forecast against the free pool net of promised growth).
+
+    ``mesh`` (``parallel/mesh.make_serving_mesh(tp, pp)``) with tp*pp > 1
+    shards the engine: the weights are placed by
+    ``mesh.place_serving_params``, the pool splits its KV heads over tp
+    and its layers over pp, and every program that touches the pool runs
+    through ``workloads/sharded_pool.py`` — per-shard K5 reads, the
+    GPipe'd chunked prefill (prefix registrations too), sharded page
+    install / load / copy, the sharded verify of a speculative round
+    (the draft stays whole), handoff records split like the pool.
+    Admission, the allocator, prefixes and rounds keep counting global
+    pages; the telemetry reports the mesh degrees and the pool's bytes
+    per shard, and a handoff only lands in a pool of the same layout,
+    mesh included. int8 weights (``mm``) and MoE configs are refused
+    under a mesh, as in the reference.
     """
 
     # the fleet router catches ``eng._paging.PagePoolExhausted`` around a
@@ -1720,14 +1755,33 @@ class PagedServingEngine(_EngineCore):
                  prompt_buckets: tuple[int, ...] = (32, 128),
                  chunk: int = 8, mm=None, seed: int = 0, top_k: int = 0,
                  attn_impl: str = "auto", kv_codec: str = "bf16",
-                 draft: tuple | None = None,
+                 draft: tuple | None = None, mesh=None,
                  decode_forecast_fraction: float = 1.0,
                  queue_limit: int | None = None,
                  reject_policy: str = overload.REJECT_NEW,
                  default_deadline_s: float | None = None,
                  admission: overload.AdmissionController | None = None,
                  faults=None, sync_timeout_s: float | None = None):
-        check_paged_config(cfg, kv_codec=kv_codec)
+        check_paged_config(cfg, mesh=mesh, kv_codec=kv_codec)
+        self.mesh = mesh
+        self._tp, self._pp = serving_degrees(mesh)
+        self._shards = self._tp * self._pp
+        self._sharded = self._shards > 1
+        if self._sharded:
+            if mm is not None:
+                raise ValueError(
+                    "sharded serving uses the plain weight path "
+                    "(mm=None): int8 WEIGHTS under the fully-manual "
+                    "mesh step are a ROADMAP follow-up")
+            if hasattr(cfg, "n_experts"):
+                raise NotImplementedError(
+                    "sharded serving is dense-only: the manual mesh "
+                    "step has no MoE layer body yet")
+            from tpushare_torch.workloads import sharded_pool
+            from tpushare_torch.workloads.parallel.mesh import (
+                place_serving_params)
+            self._shp = sharded_pool
+            params = place_serving_params(params, mesh)
         self._init_core(params, cfg, n_lanes, max_seq, prompt_buckets,
                         chunk, mm, seed, top_k, queue_limit, reject_policy,
                         default_deadline_s, admission, faults,
@@ -1737,14 +1791,20 @@ class PagedServingEngine(_EngineCore):
         self.attn_impl = resolve_paged_impl(attn_impl, self.device.type,
                                             kv_codec)
         self.alloc = paging.PageAllocator(n_pages, page_size, reserved=1)
-        # the pool's HBM under its codec and one row's bytes: riders on
-        # every telemetry snapshot
+        # the pool's HBM under its codec (all shards), and one row's
+        # bytes and the pool per shard: riders on every telemetry snapshot
         self.pool_mib = paging.pool_hbm_mib(n_pages, page_size, cfg.n_layers,
                                             cfg.kv_heads, cfg.head_dim,
                                             kv_codec)
         self.telemetry.set_kv_codec(kv_codec, paging.kv_bytes_per_token(
-            cfg.n_layers, cfg.kv_heads, cfg.head_dim, kv_codec))
-        self.telemetry.set_pool_shard_mib(self.pool_mib)
+            cfg.n_layers, cfg.kv_heads, cfg.head_dim, kv_codec,
+            shards=self._shards))
+        self.telemetry.set_pool_shard_mib(paging.pool_hbm_mib(
+            n_pages, page_size, cfg.n_layers, cfg.kv_heads, cfg.head_dim,
+            kv_codec, shards=self._shards))
+        if self._sharded:
+            # the mesh degrees ride sharded engines' snapshots only
+            self.telemetry.set_mesh(self._tp, self._pp)
         self.max_pages_per_lane = paging.pages_for_rows(max_seq, page_size)
         self.decode_forecast_fraction = decode_forecast_fraction
         # validate the knob eagerly
@@ -1756,6 +1816,10 @@ class PagedServingEngine(_EngineCore):
                       **init_page_state(cfg, n_lanes,
                                         self.max_pages_per_lane,
                                         self.device)}
+        if self._sharded:
+            # pool leaves split (layers over pp, KV heads over tp); the
+            # lane state stays whole on the mesh's first device
+            self.state = self._shp.place_state(self.state, mesh, kv_codec)
         # forecast charges backing the admission gate
         self._charged_pages: dict[int, int] = {}
         # shared-prefix registry: name -> (token length, pinned page ids),
@@ -1780,7 +1844,9 @@ class PagedServingEngine(_EngineCore):
         self._dprefixes: dict[str, tuple[int, list[int], list[int]]] = {}
         if draft is not None:
             _dparams, dcfg, _dk = draft
-            # the draft pool passes the same config gate as the target's
+            # the draft pool passes the same config gate as the target's;
+            # a sharded engine keeps the draft whole, so it owes the mesh
+            # no tiling
             check_paged_config(dcfg, kv_codec=kv_codec)
             self._dalloc = paging.PageAllocator(n_pages, page_size,
                                                 reserved=1)
@@ -1792,6 +1858,8 @@ class PagedServingEngine(_EngineCore):
                                             device=self.device),
                            "tables": page_state["tables"],
                            "lengths": page_state["lengths"]}
+            if self._sharded:
+                self.dstate = self._shp.replicate(self.dstate, mesh)
             self.telemetry.set_spec_stats(0, 0, 0, 0)
         self._publish_pages()
 
@@ -1807,8 +1875,10 @@ class PagedServingEngine(_EngineCore):
         """Prefill ``tokens`` once into pinned pool pages; every request
         naming this prefix gets those page ids spliced into its block
         table by reference instead of recomputing or copying the prefix.
-        On the card the prefill runs the flash forward (K1). Raises
-        ``PagePoolExhausted`` when the pool cannot hold it."""
+        On the card the prefill runs the flash forward (K1), on a
+        sharded engine at each shard's heads
+        (``sharded_pool.sharded_prefill``). Raises ``PagePoolExhausted``
+        when the pool cannot hold it."""
         plen = self._validate_prefix_registration(name, tokens)
         owner = self._prefix_owner(name)
         ids = self.alloc.ensure(owner, plen)
@@ -1820,11 +1890,18 @@ class PagedServingEngine(_EngineCore):
             if isinstance(cache["k"], dict):
                 raise ValueError(consts.ERR_KV_CODEC_MISMATCH_FMT.format(
                     pool=self.kv_codec, cache="int8 (cfg.kv_int8)"))
-            _, cache = prefill(self.params,
-                               torch.tensor([tokens], device=self.device),
-                               self.cfg, cache, mm=self.mm)
-            _install_pages(self.state["k"], self.state["v"], cache["k"],
-                           cache["v"], self._ids(ids))
+            if self._sharded:
+                sk, sv = self._shp.place_scratch(cache["k"], cache["v"],
+                                                 self.mesh)
+                sk, sv = self._shp.sharded_prefill(
+                    self.params, torch.tensor([tokens], device=self.device),
+                    sk, sv, self.cfg, mesh=self.mesh)
+            else:
+                _, cache = prefill(self.params,
+                                   torch.tensor([tokens], device=self.device),
+                                   self.cfg, cache, mm=self.mm)
+                sk, sv = cache["k"], cache["v"]
+            self._install_scratch(sk, sv, self._ids(ids))
         except Exception:
             self.alloc.release(owner)
             raise
@@ -1885,16 +1962,26 @@ class PagedServingEngine(_EngineCore):
 
     # ---- cross-pool handoff (the fleet's seam) -------------------------
 
+    @staticmethod
+    def _layout_str(codec: str, page_size: int, tp: int = 1,
+                    pp: int = 1) -> str:
+        base = f"{codec}/{page_size}r"
+        if tp * pp > 1:
+            base += f"/tp{tp}xpp{pp}"
+        return base
+
     @property
     def pool_layout(self) -> str:
         """What a byte-exact handoff needs both pools to share: the
-        storage codec and the rows per page."""
-        return f"{self.kv_codec}/{self.alloc.page_size}r"
+        storage codec, the rows per page and a sharded pool's mesh
+        degrees (its records come out split like the pool)."""
+        return self._layout_str(self.kv_codec, self.alloc.page_size,
+                                self._tp, self._pp)
 
     def _check_handoff_layout(self, record: dict) -> None:
-        theirs = f"{record['kv_codec']}/{record['page_size']}r"
-        if record.get("mesh_tp", 1) * record.get("mesh_pp", 1) > 1:
-            theirs += f"/tp{record['mesh_tp']}xpp{record['mesh_pp']}"
+        theirs = self._layout_str(record["kv_codec"], record["page_size"],
+                                  record.get("mesh_tp", 1),
+                                  record.get("mesh_pp", 1))
         if theirs != self.pool_layout:
             raise ValueError(consts.ERR_HANDOFF_POOL_FMT.format(
                 src=theirs, dst=self.pool_layout))
@@ -1911,15 +1998,14 @@ class PagedServingEngine(_EngineCore):
         req = self.running[lane]
         length = self._lengths[lane]
         keep = paging.pages_for_rows(length, self.alloc.page_size)
-        pk, pv = extract_request_pages(
-            self.state["k"], self.state["v"],
+        pk, pv = self._extract_pages(
             self._ids(self.alloc.table(lane)[:keep]))
         gen = self._generators.get(lane)
         return {"req": req, "length": length, "k": pk, "v": pv,
                 "generator": None if gen is None else gen.get_state(),
                 "kv_codec": self.kv_codec,
                 "page_size": self.alloc.page_size,
-                "mesh_tp": 1, "mesh_pp": 1}
+                "mesh_tp": self._tp, "mesh_pp": self._pp}
 
     def detach_request(self, lane: int) -> Request:
         """Release a lane whose request now runs elsewhere (its pages
@@ -2012,8 +2098,7 @@ class PagedServingEngine(_EngineCore):
             return None
         try:
             self._fire_fault("install")
-            install_request_pages(self.state["k"], self.state["v"],
-                                  record["k"], record["v"], self._ids(ids))
+            self._install_record_pages(record, self._ids(ids))
         except Exception as e:
             self.alloc.abort_install(ids)
             if overload.is_resource_exhausted(e):
@@ -2048,11 +2133,10 @@ class PagedServingEngine(_EngineCore):
         if name not in self.prefixes:
             raise ValueError(consts.ERR_PREFIX_UNKNOWN_FMT.format(name=name))
         plen, ids = self.prefixes[name]
-        pk, pv = extract_request_pages(self.state["k"], self.state["v"],
-                                       self._ids(ids))
+        pk, pv = self._extract_pages(self._ids(ids))
         return {"plen": plen, "k": pk, "v": pv, "kv_codec": self.kv_codec,
                 "page_size": self.alloc.page_size,
-                "mesh_tp": 1, "mesh_pp": 1}
+                "mesh_tp": self._tp, "mesh_pp": self._pp}
 
     def install_prefix_pages(self, name: str, tokens: list,
                              record: dict) -> None:
@@ -2070,8 +2154,7 @@ class PagedServingEngine(_EngineCore):
         owner = self._prefix_owner(name)
         ids = self.alloc.begin_install(owner, plen)
         try:
-            install_request_pages(self.state["k"], self.state["v"],
-                                  record["k"], record["v"], self._ids(ids))
+            self._install_record_pages(record, self._ids(ids))
         except Exception:
             self.alloc.abort_install(ids)
             raise
@@ -2096,6 +2179,50 @@ class PagedServingEngine(_EngineCore):
 
     def _ids(self, ids: list[int]) -> torch.Tensor:
         return torch.tensor(ids, dtype=torch.int64, device=self.device)
+
+    # ---- pool data movers: unsharded, or shard by shard ---------------
+
+    def _install_scratch(self, sk, sv, ids: torch.Tensor,
+                         skip_pages: int = 0) -> None:
+        """A finished prefill scratch into pages ``ids`` of the pool."""
+        if self._sharded:
+            self._shp.sharded_install_pages(
+                self.state["k"], self.state["v"], sk, sv, ids,
+                skip_pages=skip_pages, mesh=self.mesh)
+        else:
+            _install_pages(self.state["k"], self.state["v"], sk, sv, ids,
+                           skip_pages=skip_pages)
+
+    def _load_prefix(self, sk, sv, ids: torch.Tensor):
+        """Pool pages ``ids`` gathered into the head of a scratch."""
+        if self._sharded:
+            return self._shp.sharded_load_pool_pages(
+                sk, sv, self.state["k"], self.state["v"], ids,
+                mesh=self.mesh)
+        return load_pool_pages(sk, sv, self.state["k"], self.state["v"],
+                               ids)
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        if self._sharded:
+            self._shp.sharded_copy_pool_page(
+                self.state["k"], self.state["v"], src, dst, mesh=self.mesh)
+        else:
+            copy_pool_page(self.state["k"], self.state["v"], src, dst)
+
+    def _extract_pages(self, ids: torch.Tensor):
+        if self._sharded:
+            return self._shp.sharded_extract_request_pages(
+                self.state["k"], self.state["v"], ids, mesh=self.mesh)
+        return extract_request_pages(self.state["k"], self.state["v"], ids)
+
+    def _install_record_pages(self, record: dict, ids: torch.Tensor) -> None:
+        if self._sharded:
+            self._shp.sharded_install_request_pages(
+                self.state["k"], self.state["v"], record["k"], record["v"],
+                ids, mesh=self.mesh)
+        else:
+            install_request_pages(self.state["k"], self.state["v"],
+                                  record["k"], record["v"], ids)
 
     def _publish_pages(self) -> None:
         snap = self.alloc.snapshot()
@@ -2207,9 +2334,20 @@ class PagedServingEngine(_EngineCore):
             return self._eager_pages(req) <= self.alloc.free_pages()
         return False
 
+    # full-width prefill chunks a sharded engine pipelines per dispatch
+    # (the reference's bound on its unrolled schedule's compile set)
+    _PREFILL_MICRO = 4
+
     def _run_prefill_chunks(self, sk, sv, prompt: list, off: int):
         """Chunked prefill of ``prompt`` into the admission scratch at row
-        ``off``; returns (the final chunk's logits, sk, sv)."""
+        ``off``; returns (the final chunk's logits, sk, sv). A sharded
+        engine stacks the full-width chunks, at most ``_PREFILL_MICRO``
+        a dispatch, and runs them microbatched through the pipeline
+        (``sharded_pool.sharded_prefill_chunks``), then the remainder
+        chunk with the admission logits: the same chunk layout and
+        accounting, token for token."""
+        if self._sharded:
+            return self._run_sharded_prefill(sk, sv, prompt, off)
         logits = None
         for start, piece, padded_len in self._prefill_chunks(len(prompt)):
             arr = torch.zeros((1, padded_len), dtype=torch.int64,
@@ -2221,6 +2359,31 @@ class PagedServingEngine(_EngineCore):
                 mm=self.mm)
             self.stats["prefill_chunks"] += 1
             self.telemetry.prefill_chunk(padded_len)
+        return logits, sk, sv
+
+    def _run_sharded_prefill(self, sk, sv, prompt: list, off: int):
+        chunks = self._prefill_chunks(len(prompt))
+        full, (lstart, lpiece, lpad) = chunks[:-1], chunks[-1]
+        for g0 in range(0, len(full), self._PREFILL_MICRO):
+            grp = full[g0:g0 + self._PREFILL_MICRO]
+            w = grp[0][2]
+            toks = torch.tensor([[prompt[s:s + p]] for s, p, _ in grp],
+                                dtype=torch.int64, device=self.device)
+            sk, sv = self._shp.sharded_prefill_chunks(
+                self.params, toks, sk, sv, off + grp[0][0], w - 1, self.cfg,
+                mesh=self.mesh, with_logits=False)
+            for _s, _p, padded_len in grp:
+                self.stats["prefill_chunks"] += 1
+                self.telemetry.prefill_chunk(padded_len)
+        arr = torch.zeros((1, 1, lpad), dtype=torch.int64,
+                          device=self.device)
+        arr[0, 0, :lpiece] = torch.tensor(prompt[lstart:lstart + lpiece],
+                                          dtype=torch.int64)
+        logits, sk, sv = self._shp.sharded_prefill_chunks(
+            self.params, arr, sk, sv, off + lstart, lpiece - 1, self.cfg,
+            mesh=self.mesh, with_logits=True)
+        self.stats["prefill_chunks"] += 1
+        self.telemetry.prefill_chunk(lpad)
         return logits, sk, sv
 
     def _admit_waiting(self) -> None:
@@ -2263,13 +2426,13 @@ class PagedServingEngine(_EngineCore):
                                                               ps),
                                      device=self.device)
                 sk, sv = scratch["k"], scratch["v"]
+                if self._sharded:
+                    sk, sv = self._shp.place_scratch(sk, sv, self.mesh)
                 if off:
                     # the prefix's K/V by device gather, no recompute: the
                     # suffix chunks attend over these rows as the slot
                     # engine's copied prefix
-                    sk, sv = load_pool_pages(sk, sv, self.state["k"],
-                                             self.state["v"],
-                                             self._ids(p_ids))
+                    sk, sv = self._load_prefix(sk, sv, self._ids(p_ids))
                 self.telemetry.prefill_start(id(req))
                 self._trace_mark(req, "prefill")
                 if req._trace is not None:
@@ -2278,9 +2441,8 @@ class PagedServingEngine(_EngineCore):
                 logits, sk, sv = self._run_prefill_chunks(
                     sk, sv, req.prompt, off)
                 table = self.alloc.table(lane)
-                _install_pages(self.state["k"], self.state["v"], sk, sv,
-                               self._ids(table[n_shared:]),
-                               skip_pages=n_shared)
+                self._install_scratch(sk, sv, self._ids(table[n_shared:]),
+                                      skip_pages=n_shared)
                 _paged_admit_commit(self.state, lane,
                                     self._table_row(self.alloc, lane),
                                     off + plen, logits, req.temperature,
@@ -2465,7 +2627,7 @@ class PagedServingEngine(_EngineCore):
         snapshot = dict(self.running)
         out = self._run_chunk(lambda: _spec_paged_round(
             self.params, dparams, self.state, self.dstate, self.cfg, dcfg,
-            k, self.max_seq, gather_pages_w=w), snapshot)
+            k, self.max_seq, gather_pages_w=w, mesh=self.mesh), snapshot)
         if out is None:
             return True
         g, logp, a, self.state, self.dstate = out
@@ -2532,8 +2694,7 @@ class PagedServingEngine(_EngineCore):
                 if table[idx] in shared:
                     old, new = self.alloc.begin_private_copy(lane, idx)
                     try:
-                        copy_pool_page(self.state["k"], self.state["v"],
-                                       old, new)
+                        self._copy_page(old, new)
                     except BaseException:
                         self.alloc.abort_private_copy(new)
                         raise
@@ -2629,10 +2790,10 @@ class PagedServingEngine(_EngineCore):
         t0 = time.monotonic()
         out = self._run_chunk(lambda: paged_decode_chunk(
             self.params, self.state, self.cfg, n, mm=self.mm,
-            top_k=self.top_k,
-            use_top_p=self._use_top_p, rope_len=self.max_seq,
-            impl=self.attn_impl, gather_pages_w=self._gather_rung(n),
-            generators=self._generators), snapshot)
+            top_k=self.top_k, use_top_p=self._use_top_p,
+            rope_len=self.max_seq, impl=self.attn_impl,
+            gather_pages_w=self._gather_rung(n),
+            generators=self._generators, mesh=self.mesh), snapshot)
         if out is None:
             return None
         toks, lps, self.state = out

@@ -8,8 +8,11 @@ Trains the reference payload's transformer (vocab 512, d_model 128,
 every ``--save-every`` steps, and — what matters to the scheduler —
 RESUMES from the newest checkpoint when restarted, so a pod the
 binpacker evicts and replaces loses at most one save interval. A
-SIGTERM drains between steps: the step in flight finishes and the state
-is checkpointed before the process exits.
+SIGTERM drains between steps: the step in flight finishes, the state is
+checkpointed and one last usage report is posted
+(``usage_report.post_now``, a no-op outside the plugin's wiring) before
+the process exits. ``TPUSHARE_TRACE_DIR`` profiles the training loop
+(``profiling.trace``).
 
 One device only in this slice: ``--dp/--sp/--tp`` above 1 and a
 multi-host pod group exit 2 (the mesh and ring attention are ROADMAP
@@ -29,9 +32,11 @@ import time
 import torch
 
 from tpushare_torch.device import resolve_device
+from tpushare_torch.workloads import usage_report
 from tpushare_torch.workloads.checkpoint import TrainCheckpointer
 from tpushare_torch.workloads.models.transformer import (TransformerConfig,
                                                          init_params)
+from tpushare_torch.workloads.profiling import trace
 from tpushare_torch.workloads.train import (init_state, make_optimizer,
                                             make_train_step)
 
@@ -119,38 +124,38 @@ def main(argv: list[str] | None = None) -> int:
             torch.cuda.synchronize(device)
 
     # graceful SIGTERM drain (pod eviction): the signal lands in a queue
-    # and is checked BETWEEN steps, so the payload finishes its step and
-    # checkpoints instead of dying mid-step and losing a save interval.
-    # The reference also posts a final usage report on this path and
-    # wraps the loop in its env-gated profiler trace; the port's
-    # usage_report and profiling modules are ROADMAP A.12.
+    # and is checked BETWEEN steps, so the payload finishes its step,
+    # checkpoints and posts a final usage report instead of dying
+    # mid-step and losing a save interval
     previous = signal.getsignal(signal.SIGTERM)
     sigq = install_signal_queue((signal.SIGTERM,))
     evicted: int | None = None
     loss = torch.tensor(float("nan"))
     t0 = t_after_first = time.perf_counter()
+    # the env-gated profiler trace (TPUSHARE_TRACE_DIR; unset: no-op)
     try:
-        for i in range(start, args.steps):
-            try:
-                evicted = sigq.get_nowait()
-            except queue.Empty:
-                evicted = None
-            if evicted is not None:
-                print(f"signal {evicted}: graceful drain at step {i} — "
-                      "checkpointing", flush=True)
-                break
-            state, loss = step_fn(state, inputs, targets)
-            if i == start:
-                # the first step builds the kernels; keep it out of the
-                # throughput window
-                sync()
-                t_after_first = time.perf_counter()
-            if ckpt and (i + 1) % args.save_every == 0:
-                ckpt.save(state)
-                print(f"step {i + 1}: loss={float(loss):.4f} "
-                      "(checkpointed)", flush=True)
-            elif (i + 1) % 5 == 0:
-                print(f"step {i + 1}: loss={float(loss):.4f}", flush=True)
+        with trace():
+            for i in range(start, args.steps):
+                try:
+                    evicted = sigq.get_nowait()
+                except queue.Empty:
+                    evicted = None
+                if evicted is not None:
+                    print(f"signal {evicted}: graceful drain at step {i} — "
+                          "checkpointing", flush=True)
+                    break
+                state, loss = step_fn(state, inputs, targets)
+                if i == start:
+                    # the first step builds the kernels; keep it out of the
+                    # throughput window
+                    sync()
+                    t_after_first = time.perf_counter()
+                if ckpt and (i + 1) % args.save_every == 0:
+                    ckpt.save(state)
+                    print(f"step {i + 1}: loss={float(loss):.4f} "
+                          "(checkpointed)", flush=True)
+                elif (i + 1) % 5 == 0:
+                    print(f"step {i + 1}: loss={float(loss):.4f}", flush=True)
     finally:
         signal.signal(signal.SIGTERM, previous)
     loss = float(loss)
@@ -162,6 +167,9 @@ def main(argv: list[str] | None = None) -> int:
         ckpt.save(state)
     if ckpt:
         ckpt.close()
+    if evicted is not None:
+        # the eviction's last word: the node daemon sees the final state
+        usage_report.post_now()
     steps_run = done - start
     steady_steps = max(steps_run - 1, 0)
     tps = (args.batch * args.seq * steady_steps / dt_steady
