@@ -138,6 +138,28 @@ then drives the main paths through their entry points at full width
   used memory), ``payload-drain`` (every POST answered ``{"drain":
   true}``: each of 48 requests ends in one terminal status, and the
   final POST carries the counters);
+- training over a mesh that names the card up to four times (one card
+  measures launches and copies, not links): ``mesh-train-vs-plain``
+  (B.10: K1–K3 once per (dp, tp) shard at ``train``'s shape halved by
+  dp2 x tp2; B.8: K6-fwd, -dq, -dkv once per tp shard at
+  ``train-longctx``'s shape halved by tp2; the shards' outputs and
+  gradients in rank order bitwise one unsharded launch, rank 0's shard
+  against its twin and timed beside its bound, its twin and SDPA),
+  ``train-mesh`` (the training preset at dp2 x tp2, 6 steps: 48 K1, 48
+  K2, 48 K3 a step, replicas bitwise equal, step ms beside ``train``'s
+  and the peak), ``train-longctx-mesh`` (flagship widths at tp2, B=2 x
+  S=4096, 3 steps: 32 of each K6 a step, no flash), ``train-ring`` (the
+  preset at sp2, B=4 x S=2048: the zigzag ring, then the banded ring at
+  window 512, 3 steps each, no kernel launch), ``train-pp`` (pp2 x tp2,
+  4 microbatches, 3 steps: 96 of each flash kernel a step),
+  ``moe-train-ep`` (the MoE width at ep2, then pp2 x ep2), each first
+  loss against the unsharded step's within ``MESH_LOSS_TOL``;
+  ``train-mesh-f32-identity`` (2-layer f32 configs through every mesh
+  form against the unsharded step on the card, losses and gradients
+  within the f32 train tolerances); ``train-payload-mesh`` (the payload
+  as a child over dp2 x tp2 under an HBM grant, SIGTERM-drained after
+  its first step, resumed on dp2 x tp1, its last loss against an
+  uninterrupted run's);
 
 with the launch counts zeroed just before each path runs and read just
 after, so the run shows each path went through its kernels. It prints
@@ -2612,7 +2634,9 @@ def train_path(torch, build, smi):
           peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
           **{f"{k}_per_step": launches[k] / n for k in TRAIN_KERNELS},
           fallbacks=len(fallbacks), card=repr(smi))
-    return launches
+    return launches, {"step_ms": step_s * 1e3,
+                      "peak_mem_gib": torch.cuda.max_memory_allocated()
+                      / 2 ** 30}
 
 
 def train_remat_path(torch, build):
@@ -4750,6 +4774,600 @@ def payload_drain_path(torch):
           seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# training over a mesh: B.10 and B.8 per shard, then the mesh steps. Every
+# mesh names cuda:0 as often as it needs (one card measures launches and
+# copies, not links)
+# ---------------------------------------------------------------------------
+
+# the mesh steps' first loss against the unsharded step's, bf16: the tp
+# partial sums are fp32 sums of bf16 products rounded once, where the
+# unsharded matmul rounds its fp32 accumulator once — a loss of ~10 moves
+# in its 4th digit at most (stated limit; the reading is printed)
+MESH_LOSS_TOL = 1e-3
+# train-payload-mesh: the resumed run's last loss against the
+# uninterrupted run's (bf16 payload model; the resumed steps run on
+# another mesh, so their sums round in another order)
+PAYLOAD_LOSS_TOL = 2e-2
+MESH_KERNELS = TRAIN_KERNELS + SPLASH_KERNELS
+
+
+def cuda_mesh(torch, **kw):
+    from tpushare_torch.workloads.parallel.mesh import make_mesh
+    return make_mesh(devices=[torch.device("cuda", 0)] * math.prod(
+        kw.values()), **kw)
+
+
+def sharded_vs_one(torch, build, one, sharded, q, k, v, do, names):
+    """One unsharded launch per kernel against the per-shard launches of
+    ``sharded`` (outputs and gradients concatenated in rank order):
+    bitwise, with the launch counts of each."""
+    def run(fn):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        build.reset_launches()
+        o = fn(*leaves)
+        grads = torch.autograd.grad(o, leaves, do)
+        torch.cuda.synchronize()
+        return (o, *grads), {n: build.LAUNCHES[n] for n in names}
+    want, n_one = run(one)
+    got, n_shards = run(sharded)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    return same, n_one, n_shards
+
+
+def mesh_kernel_cases(torch, build):
+    """B.10 (K1-K3 per (dp, tp) shard at the ``train`` shape halved by
+    dp2 x tp2) and B.8 (K6-fwd, -dq, -dkv per tp shard at the
+    ``train-longctx`` shape halved by tp2): the rank-order outputs and
+    gradients equal one unsharded launch bit for bit; rank 0's shard is
+    held against its twin and timed beside its bound, its twin and the
+    library call at the shard's shape."""
+    import torch.nn.functional as F
+    from tpushare_torch.workloads.ops import registry
+    from tpushare_torch.workloads.ops.attention import (
+        bwd_delta, flash_attention, flash_attention_bwd_plain,
+        flash_attention_fwd, flash_attention_plain, flash_bwd_dkv,
+        flash_bwd_dq)
+    from tpushare_torch.workloads.ops.splash_attention import (
+        prescale, splash_attention, splash_attention_bwd_plain,
+        splash_attention_plain, splash_bwd_dkv, splash_bwd_dq, splash_fwd)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = {}
+    for form, kind, B, S, H, hd, dp, tp in (
+            ("B.10", "flash", TRAIN_B, TRAIN_S, 16, 96, 2, 2),
+            ("B.8", "splash", LONGCTX_B, LONGCTX_S, 16, 128, 1, 2)):
+        mesh = cuda_mesh(torch, dp=dp, tp=tp)
+        choice = registry.select_attention(
+            "prefill", impl=kind, seq=S, mesh=mesh, n_heads=H, n_kv_heads=H,
+            head_dim=hd, platform="cuda", batch=B)
+        q, k, v, do = bwd_inputs(torch, gen, B, S, H, H, hd, "bfloat16")
+        names = TRAIN_KERNELS if kind == "flash" else SPLASH_KERNELS
+        one = flash_attention if kind == "flash" else splash_attention
+        same, n_one, n_shards = sharded_vs_one(torch, build, one, choice.fn,
+                                               q, k, v, do, names)
+        if not same or set(n_one.values()) != {1} or \
+                set(n_shards.values()) != {dp * tp}:
+            raise RuntimeError(f"{form}: rank-order shards bitwise one "
+                               f"launch: {same}; launches {n_one} / "
+                               f"{n_shards}")
+        # rank 0's shard: its batch rows and heads, contiguous
+        b, h = B // dp, H // tp
+        q0, k0, v0, do0 = (x[:b, :, :h].contiguous() for x in (q, k, v, do))
+        if kind == "splash":
+            q0 = prescale(q0)
+            fwd = lambda: splash_fwd(q0, k0, v0, with_lse=True)  # noqa: E731
+            o0, lse0 = fwd()
+            plain_fwd = lambda: splash_attention_plain(  # noqa: E731
+                q0, k0, v0, with_lse=True)
+            delta = bwd_delta(do0, o0)
+            dq = lambda: splash_bwd_dq(q0, k0, v0, do0, lse0, delta)  # noqa
+            dkv = lambda: splash_bwd_dkv(q0, k0, v0, do0, lse0, delta)  # noqa
+            plain_bwd = lambda: splash_attention_bwd_plain(  # noqa: E731
+                q0, k0, v0, o0, lse0, do0)
+            sdpa_kw = dict(is_causal=True, scale=1.0)
+        else:
+            fwd = lambda: flash_attention_fwd(  # noqa: E731
+                q0, k0, v0, with_lse=True)
+            o0, lse0 = fwd()
+            plain_fwd = lambda: flash_attention_plain(  # noqa: E731
+                q0, k0, v0, with_lse=True)
+            delta = bwd_delta(do0, o0)
+            dq = lambda: flash_bwd_dq(q0, k0, v0, do0, lse0, delta)  # noqa
+            dkv = lambda: flash_bwd_dkv(q0, k0, v0, do0, lse0, delta)  # noqa
+            plain_bwd = lambda: flash_attention_bwd_plain(  # noqa: E731
+                q0, k0, v0, o0, lse0, do0)
+            sdpa_kw = dict(is_causal=True)
+        want_o, _ = plain_fwd()
+        fwd_rel = elem_rel_err(o0, want_o)
+        got_g = (dq(), *dkv())
+        want_g = plain_bwd()
+        bwd_rel = {n: max_err(g, w) / w.float().abs().max().item()
+                   for n, g, w in zip(("dq", "dk", "dv"), got_g, want_g)}
+        if not (fwd_rel <= FWD_TOL["bfloat16"]
+                and max(bwd_rel.values()) <= BWD_TOL["bfloat16"]):
+            raise RuntimeError(f"{form} rank-0 shard vs its twin: forward "
+                               f"{fwd_rel}, backward {bwd_rel}")
+        del want_o, want_g
+        ms = {"fwd": time_ms(fwd), "dq": time_ms(dq), "dkv": time_ms(dkv)}
+        plain_ms = {"fwd": time_ms(plain_fwd, reps=3, warmup=1),
+                    "bwd": time_ms(plain_bwd, reps=3, warmup=1)}
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q0, k0, v0))
+        sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, **sdpa_kw))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), do0.transpose(1, 2), retain_graph=True))
+        x_bytes = 2 * b * S * h * hd
+        stat_bytes = 4 * b * h * S
+        product = 2 * b * h * hd * live_pairs(S, True, None)
+        bounds = {"fwd": bound_ms(4 * x_bytes + stat_bytes, 2 * product,
+                                  "bfloat16"),
+                  "dq": bound_ms(5 * x_bytes + 2 * stat_bytes, 3 * product,
+                                 "bfloat16"),
+                  "dkv": bound_ms(6 * x_bytes + 2 * stat_bytes, 4 * product,
+                                  "bfloat16")}
+        errs = {"fwd": max_err(o0, plain_fwd()[0]),
+                "dq": max_err(got_g[0], plain_bwd()[0]),
+                "dkv": max(max_err(a, b_) for a, b_ in
+                           zip(got_g[1:], plain_bwd()[1:]))}
+        for part, name in zip(("fwd", "dq", "dkv"), names):
+            row = dict(form=form, kernel=name, B=b, S=S, H=h, Hkv=h, hd=hd,
+                       dtype="bfloat16", dp=dp, tp=tp,
+                       shards_bitwise_one_launch=same,
+                       max_abs_err=errs[part], ms=ms[part],
+                       plain_ms=plain_ms["fwd" if part == "fwd" else "bwd"],
+                       bound_ms=bounds[part][0], bound_by=bounds[part][1],
+                       library_ms=sdpa_fwd_ms if part == "fwd"
+                       else sdpa_bwd_ms,
+                       over_bound=ms[part] / bounds[part][0],
+                       fwd_rel_err=fwd_rel, bwd_rel_err=max(bwd_rel.values()))
+            phase("mesh-train-vs-plain", **row)
+            rows[name] = row
+        del q, k, v, do, q0, k0, v0, do0, qt, kt, vt, ot, got_g
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mesh_run(torch, build, step, state, inputs, targets, n):
+    """n steps from counts set to 0: (state, times, losses, launches,
+    fallbacks, peak GiB)."""
+    from tpushare_torch.workloads.ops import registry
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    registry.reset_fallbacks()
+    state, times, losses = run_steps(torch, step, state, inputs, targets, n)
+    return (state, times, losses, dict(build.LAUNCHES),
+            registry.fallback_counts(),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def check_mesh_run(label, launches, want, fallbacks, losses, plain_first,
+                   falling=True):
+    """Launches exactly ``want`` (every other kernel 0), no fallback,
+    finite (falling) losses, the first within MESH_LOSS_TOL of the
+    unsharded step's; returns that distance."""
+    got = {k: launches[k] for k in launches if launches[k] or k in want}
+    if got != {k: v for k, v in want.items()}:
+        raise RuntimeError(f"{label} launches {got} != {want}")
+    if fallbacks:
+        raise RuntimeError(f"{label} fell back: {fallbacks}")
+    if not all(map(math.isfinite, losses)) or \
+            (falling and not losses[-1] < losses[0]):
+        raise RuntimeError(f"{label} losses not finite and falling: "
+                           f"{losses}")
+    rel = abs(losses[0] - plain_first) / abs(plain_first)
+    if not rel <= MESH_LOSS_TOL:
+        raise RuntimeError(f"{label} first loss {losses[0]} vs the "
+                           f"unsharded step's {plain_first}: {rel} > "
+                           f"{MESH_LOSS_TOL}")
+    return rel
+
+
+def replicas_equal(torch, state) -> bool:
+    """Every replica of every block bitwise equal to its group's first."""
+    from tpushare_torch.workloads.parallel.mesh import Sharded
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from leaves(v)
+        elif isinstance(tree, Sharded):
+            yield tree
+    return all(torch.equal(leaf.shards[c], leaf.shards[g[0]])
+               for tree in (state["params"], state["opt"]["mu"],
+                            state["opt"]["nu"])
+               for leaf in leaves(tree) for g in leaf.groups()
+               for c in g[1:])
+
+
+def plain_first_loss(torch, cfg, opt, state, inputs, targets, moe=False):
+    """The unsharded step's loss from a copy of ``state``."""
+    from tpushare_torch.workloads.train import (make_moe_train_step,
+                                                make_train_step)
+    make = make_moe_train_step if moe else make_train_step
+    copy = clone_state(torch, state)
+    _, loss = make(cfg, opt, "cuda")(copy, inputs, targets)
+    loss = loss.item()
+    del copy
+    torch.cuda.empty_cache()
+    return loss
+
+
+def train_mesh_path(torch, build, smi, train_fields):
+    """The training preset at dp2 x tp2 (B=8 x S=1024, 6 steps): 48 K1,
+    48 K2 and 48 K3 a step (12 layers x 4 shards), nothing else, the
+    first loss against the unsharded step's, replicas bitwise equal;
+    step ms beside ``train``'s and the peak with two dp replicas of every
+    leaf and its moments. Returns the launches and (cfg, plain first
+    loss) for ``train-pp``."""
+    from tpushare_torch.workloads.models.transformer import TransformerConfig
+    from tpushare_torch.workloads.train import make_train_step, place_state
+    cfg = TransformerConfig(**TRAIN_PRESET)
+    opt, state, inputs, targets = train_setup(torch, cfg, 6, TRAIN_B,
+                                              TRAIN_S)
+    plain = plain_first_loss(torch, cfg, opt, state, inputs, targets)
+    mesh = cuda_mesh(torch, dp=2, tp=2)
+    placed = place_state(state, mesh)
+    del state
+    torch.cuda.empty_cache()
+    n = 6
+    placed, times, losses, launches, fallbacks, peak = mesh_run(
+        torch, build, make_train_step(cfg, opt, mesh), placed, inputs,
+        targets, n)
+    per = cfg.n_layers * 4
+    rel = check_mesh_run("train-mesh", launches,
+                         {k: n * per for k in TRAIN_KERNELS}, fallbacks,
+                         losses, plain)
+    if not replicas_equal(torch, placed):
+        raise RuntimeError("train-mesh: dp replicas differ after the steps")
+    step_s = statistics.median(times[1:])
+    phase("train-mesh", mesh="dp2xtp2", batch=TRAIN_B, seq=TRAIN_S,
+          steps=n, first_loss=losses[0], plain_first_loss=plain,
+          first_loss_rel_err=rel, loss_tol=MESH_LOSS_TOL,
+          last_loss=losses[-1], step_ms=step_s * 1e3,
+          train_step_ms=train_fields["step_ms"],
+          first_step_ms=times[0] * 1e3,
+          tokens_per_s=TRAIN_B * TRAIN_S / step_s, peak_mem_gib=peak,
+          train_peak_mem_gib=train_fields["peak_mem_gib"],
+          replicas_bitwise_equal=True,
+          **{f"{k}_per_step": launches[k] / n for k in TRAIN_KERNELS},
+          card=repr(smi))
+    del placed
+    torch.cuda.empty_cache()
+    return launches, plain
+
+
+def train_longctx_mesh_path(torch, build, infer, smi):
+    """Flagship widths at tp2 (B=2 x S=4096, 3 steps): 32 of each splash
+    kernel a step (16 layers x 2 shards, the registry's long-context row
+    decided on the shard's 8 heads), no flash launch."""
+    from tpushare_torch.workloads.models.transformer import TransformerConfig
+    from tpushare_torch.workloads.train import make_train_step, place_state
+    cfg = TransformerConfig(**{**infer.PRESETS[-1][1], "max_seq": LONGCTX_S})
+    opt, state, inputs, targets = train_setup(torch, cfg, 11, LONGCTX_B,
+                                              LONGCTX_S)
+    plain = plain_first_loss(torch, cfg, opt, state, inputs, targets)
+    mesh = cuda_mesh(torch, dp=1, tp=2)
+    placed = place_state(state, mesh)
+    del state
+    torch.cuda.empty_cache()
+    n = 3
+    placed, times, losses, launches, fallbacks, peak = mesh_run(
+        torch, build, make_train_step(cfg, opt, mesh), placed, inputs,
+        targets, n)
+    rel = check_mesh_run("train-longctx-mesh", launches,
+                         {k: n * cfg.n_layers * 2 for k in SPLASH_KERNELS},
+                         fallbacks, losses, plain, falling=False)
+    step_s = statistics.median(times[1:])
+    phase("train-longctx-mesh", mesh="tp2", batch=LONGCTX_B, seq=LONGCTX_S,
+          steps=n, first_loss=losses[0], plain_first_loss=plain,
+          first_loss_rel_err=rel, last_loss=losses[-1],
+          step_ms=step_s * 1e3, first_step_ms=times[0] * 1e3,
+          tokens_per_s=LONGCTX_B * LONGCTX_S / step_s, peak_mem_gib=peak,
+          **{f"{k}_per_step": launches[k] / n for k in SPLASH_KERNELS},
+          flash_launches=sum(launches[k] for k in TRAIN_KERNELS),
+          card=repr(smi))
+    del placed
+    torch.cuda.empty_cache()
+    return launches
+
+
+RING_B, RING_S, RING_WINDOW = 4, 2048, 512
+
+
+def train_ring_path(torch, build, smi):
+    """The training preset at sp2 (B=4 x S=2048): 3 steps of the zigzag
+    ring, then 3 of the banded ring at window 512 — the merges are plain
+    PyTorch (the reference's ring is einsums), so no kernel launches;
+    each first loss against the unsharded step's (flash, banded under
+    the window)."""
+    from tpushare_torch.workloads.models.transformer import TransformerConfig
+    from tpushare_torch.workloads.train import make_train_step, place_state
+    fields = {}
+    for label, window in (("zigzag", None), ("banded", RING_WINDOW)):
+        cfg = TransformerConfig(**{**TRAIN_PRESET, "max_seq": RING_S,
+                                   "attn_window": window})
+        opt, state, inputs, targets = train_setup(torch, cfg, 13, RING_B,
+                                                  RING_S)
+        plain = plain_first_loss(torch, cfg, opt, state, inputs, targets)
+        mesh = cuda_mesh(torch, dp=1, tp=1, sp=2)
+        placed = place_state(state, mesh)
+        del state
+        n = 3
+        placed, times, losses, launches, fallbacks, peak = mesh_run(
+            torch, build, make_train_step(cfg, opt, mesh,
+                                          ring_attention=True),
+            placed, inputs, targets, n)
+        rel = check_mesh_run(f"train-ring {label}", launches, {}, fallbacks,
+                             losses, plain, falling=False)
+        fields.update({f"{label}_first_loss": losses[0],
+                       f"{label}_plain_first_loss": plain,
+                       f"{label}_first_loss_rel_err": rel,
+                       f"{label}_last_loss": losses[-1],
+                       f"{label}_step_ms":
+                           statistics.median(times[1:]) * 1e3,
+                       f"{label}_peak_mem_gib": peak})
+        del placed
+        torch.cuda.empty_cache()
+    phase("train-ring", mesh="sp2", batch=RING_B, seq=RING_S, steps=3,
+          window=RING_WINDOW, kernel_launches=0, **fields, card=repr(smi))
+
+
+def train_pp_path(torch, build, smi, plain):
+    """The training preset at pp2 x tp2, n_micro 4 (B=8 x S=1024, 3
+    steps): each stage runs its 6 layers on 2 tp shards for 4
+    microbatches, so 96 K1, 96 K2 and 96 K3 a step; the first loss
+    against the unsharded step's (``train-mesh``'s reading)."""
+    from tpushare_torch.workloads.models.transformer import TransformerConfig
+    from tpushare_torch.workloads.parallel.pipeline import (
+        make_pp_train_step, place_pp_state)
+    cfg = TransformerConfig(**TRAIN_PRESET)
+    opt, state, inputs, targets = train_setup(torch, cfg, 6, TRAIN_B,
+                                              TRAIN_S)
+    mesh = cuda_mesh(torch, dp=1, tp=2, pp=2)
+    placed = place_pp_state(state, mesh)
+    del state
+    n, n_micro = 3, 4
+    placed, times, losses, launches, fallbacks, peak = mesh_run(
+        torch, build, make_pp_train_step(cfg, opt, mesh, n_micro=n_micro),
+        placed, inputs, targets, n)
+    per = cfg.n_layers * 2 * n_micro
+    rel = check_mesh_run("train-pp", launches,
+                         {k: n * per for k in TRAIN_KERNELS}, fallbacks,
+                         losses, plain)
+    step_s = statistics.median(times[1:])
+    phase("train-pp", mesh="pp2xtp2", n_micro=n_micro, batch=TRAIN_B,
+          seq=TRAIN_S, steps=n, first_loss=losses[0],
+          plain_first_loss=plain, first_loss_rel_err=rel,
+          last_loss=losses[-1], step_ms=step_s * 1e3,
+          tokens_per_s=TRAIN_B * TRAIN_S / step_s, peak_mem_gib=peak,
+          **{f"{k}_per_step": launches[k] / n for k in TRAIN_KERNELS},
+          card=repr(smi))
+    del placed
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_train_ep_path(torch, build, smi):
+    """The MoE width at ep2, then pp2 x ep2 (n_micro 2), 3 steps each, B=4
+    x S=512: attention on the home device (8 K1 / K2 / K3 a step; 16 over
+    two microbatches), each ep rank's 4 experts on its device; first
+    losses against the unsharded MoE step's."""
+    from tpushare_torch.workloads.parallel.pipeline import (
+        make_moe_pp_train_step, place_moe_pp_state)
+    from tpushare_torch.workloads.train import (init_state,
+                                                make_moe_train_step,
+                                                make_optimizer,
+                                                place_moe_state)
+    cfg, params = moe_setup(torch)
+    opt = make_optimizer()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    inputs = torch.randint(0, cfg.vocab, (MOE_B, MOE_S), generator=gen,
+                           device="cuda")
+    targets = torch.roll(inputs, -1, dims=1)
+    state = init_state(params, opt)
+    plain = plain_first_loss(torch, cfg, opt, state, inputs, targets,
+                             moe=True)
+    fields, all_launches = {}, {}
+    for label, kw, n_micro in (("ep2", dict(dp=1, tp=1, ep=2), None),
+                               ("pp2xep2", dict(dp=1, tp=1, ep=2, pp=2), 2)):
+        mesh = cuda_mesh(torch, **kw)
+        if n_micro is None:
+            placed = place_moe_state(state, mesh)
+            step = make_moe_train_step(cfg, opt, mesh)
+        else:
+            placed = place_moe_pp_state(state, mesh)
+            step = make_moe_pp_train_step(cfg, opt, mesh, n_micro=n_micro)
+        n = 3
+        placed, times, losses, launches, fallbacks, peak = mesh_run(
+            torch, build, step, placed, inputs, targets, n)
+        want = {k: n * cfg.n_layers * (n_micro or 1) for k in TRAIN_KERNELS}
+        if n_micro is None:
+            rel = check_mesh_run(f"moe-train-ep {label}", launches, want,
+                                 fallbacks, losses, plain)
+        else:
+            # two microbatches' router auxes averaged: the first loss
+            # moves from the full batch's by that term (reported)
+            check_mesh_run(f"moe-train-ep {label}", launches, want,
+                           fallbacks, losses, losses[0], falling=False)
+            rel = abs(losses[0] - plain) / plain
+        fields.update({f"{label}_first_loss": losses[0],
+                       f"{label}_first_loss_rel_err": rel,
+                       f"{label}_last_loss": losses[-1],
+                       f"{label}_step_ms":
+                           statistics.median(times[1:]) * 1e3,
+                       f"{label}_peak_mem_gib": peak,
+                       f"{label}_flash_fwd_per_step":
+                           launches["flash_fwd"] / n})
+        for k, v in launches.items():
+            all_launches[k] = all_launches.get(k, 0) + v
+        del placed, step
+        torch.cuda.empty_cache()
+    phase("moe-train-ep", batch=MOE_B, seq=MOE_S, steps=3,
+          plain_first_loss=plain, **fields, card=repr(smi))
+    del state, params
+    torch.cuda.empty_cache()
+    return all_launches
+
+
+def grads_rel_err(torch, mesh_grads, plain_grads) -> float:
+    """Largest |mesh - plain| as a share of the leaf's largest |plain|,
+    over every leaf, the mesh's gathered from its blocks."""
+    from tpushare_torch.workloads.train import tree_leaves, tree_map_whole
+    whole = tree_map_whole(mesh_grads)
+    return max(max_err(a, b) / b.abs().max().item()
+               for a, b in zip(tree_leaves(whole), tree_leaves(plain_grads)))
+
+
+def train_mesh_f32_identity(torch, build):
+    """2-layer f32 configs through every mesh form of this slice against
+    the unsharded step on the card (both on the kernel path): loss within
+    F32_LOSS_TOL (relative), every gradient within F32_GRAD_TOL of its
+    leaf's scale; each form's kernels launched (none for the rings)."""
+    from tpushare_torch.workloads.models.moe import MoEConfig, moe_loss_fn
+    from tpushare_torch.workloads.models.transformer import (
+        TransformerConfig, loss_fn)
+    from tpushare_torch.workloads.parallel.pipeline import (
+        moe_pp_param_specs, pp_grad_fn, pp_param_specs)
+    from tpushare_torch.workloads.parallel.mesh import (moe_param_specs,
+                                                        param_specs,
+                                                        place_tree)
+    from tpushare_torch.workloads.train import loss_and_grads, mesh_grad_fn
+    dense = TransformerConfig(vocab=512, d_model=384, n_heads=4,
+                              n_kv_heads=2, n_layers=2, d_ff=768,
+                              max_seq=256, dtype=torch.float32)
+    longctx = TransformerConfig(vocab=512, d_model=512, n_heads=4,
+                                n_layers=2, d_ff=1024, max_seq=LONGCTX_S,
+                                dtype=torch.float32)
+    moe = MoEConfig(**{**MOE_F32, "max_seq": 256, "capacity_factor": 1.0},
+                    dtype=torch.float32)
+    forms = [  # (label, cfg, B, S, mesh kw, grad kind, kernels launched)
+        ("dp2xtp2", dense, 4, 256, dict(dp=2, tp=2), "mesh", TRAIN_KERNELS),
+        ("tp2-splash", longctx, 1, LONGCTX_S, dict(dp=1, tp=2), "mesh",
+         SPLASH_KERNELS),
+        ("sp2-zigzag", dense, 4, 256, dict(dp=1, tp=1, sp=2), "ring", ()),
+        ("sp2-banded", dataclasses.replace(dense, attn_window=64), 4, 256,
+         dict(dp=1, tp=1, sp=2), "ring", ()),
+        ("pp2xtp2", dense, 4, 256, dict(dp=1, tp=2, pp=2), "pp",
+         TRAIN_KERNELS),
+        ("ep2-moe", moe, 4, 256, dict(dp=1, tp=1, ep=2), "moe",
+         TRAIN_KERNELS),
+        ("pp2xep2-moe", moe, 4, 256, dict(dp=1, tp=1, ep=2, pp=2), "moe-pp",
+         TRAIN_KERNELS),
+    ]
+    fields = {}
+    for label, cfg, B, S, kw, kind, kernels in forms:
+        is_moe = kind.startswith("moe")
+        _, state, inputs, targets = train_setup(torch, cfg, 21, B, S)
+        params = state["params"]
+        p_loss, p_grads = loss_and_grads(params, inputs, targets, cfg,
+                                         moe_loss_fn if is_moe else loss_fn)
+        mesh = cuda_mesh(torch, **kw)
+        specs = {"mesh": param_specs, "ring": param_specs,
+                 "pp": pp_param_specs, "moe": moe_param_specs,
+                 "moe-pp": moe_pp_param_specs}[kind]()
+        placed = place_tree(params, specs, mesh)
+        if kind in ("pp", "moe-pp"):
+            grad_fn = pp_grad_fn(cfg, mesh, n_micro=1 if is_moe else 2,
+                                 moe=is_moe)
+        else:
+            grad_fn = mesh_grad_fn(cfg, mesh, ring_attention=kind == "ring",
+                                   moe=is_moe)
+        build.reset_launches()
+        m_loss, m_grads = grad_fn(placed, inputs, targets)
+        launched = {k: build.LAUNCHES[k] for k in MESH_KERNELS}
+        loss_err = abs(m_loss.item() - p_loss.item()) / abs(p_loss.item())
+        grad_err = grads_rel_err(torch, m_grads, p_grads)
+        fields.update({f"{label}_loss_rel_err": loss_err,
+                       f"{label}_grad_rel_err": grad_err})
+        ok_launch = (all(launched[k] > 0 for k in kernels)
+                     and not any(launched[k] for k in MESH_KERNELS
+                                 if k not in kernels))
+        if not (loss_err <= F32_LOSS_TOL and grad_err <= F32_GRAD_TOL
+                and ok_launch):
+            raise RuntimeError(f"mesh-f32 {label}: loss {loss_err}, grads "
+                               f"{grad_err}, launches {launched}")
+        del state, params, placed, p_grads, m_grads
+        torch.cuda.empty_cache()
+    phase("train-mesh-f32-identity", forms=len(forms),
+          loss_tol=F32_LOSS_TOL, grad_tol=F32_GRAD_TOL, **fields)
+
+
+def payload_mesh_child(args, env):
+    return subprocess.Popen(
+        [sys.executable, "-m", "tpushare_torch.workloads.train_payload",
+         *args], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def train_payload_mesh_path(torch):
+    """The payload as a pod runs it, over dp2 x tp2 on cuda:0 named four
+    times under an HBM grant: stopped by SIGTERM after its first step, it
+    drains and checkpoints; a restart on dp2 x tp1 resumes and trains to
+    step 6; its last loss is held against an uninterrupted dp2 x tp2
+    run's."""
+    import os
+    import re
+    import signal
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(REPO),
+               TPUSHARE_HBM_LIMIT_MIB="16384")
+    for key in ("XLA_PYTHON_CLIENT_MEM_FRACTION",
+                "TPUSHARE_DISABLE_ISOLATION", "TPU_VISIBLE_CHIPS"):
+        env.pop(key, None)
+    common = ["--steps", "6", "--save-every", "1", "--batch", "8",
+              "--seq", "64"]
+    four = ["--dp", "2", "--tp", "2", "--mesh-devices",
+            ",".join(["cuda:0"] * 4)]
+    two = ["--dp", "2", "--tp", "1", "--mesh-devices", "cuda:0,cuda:0"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, ref = os.path.join(tmp, "ck"), os.path.join(tmp, "ref")
+        child = payload_mesh_child(common + four + ["--checkpoint-dir", ck],
+                                   env)
+        lines = []
+        try:
+            for line in child.stdout:
+                lines.append(line)
+                if line.startswith("step 1:"):
+                    child.send_signal(signal.SIGTERM)
+                    break
+            out = "".join(lines) + finish(child, "the interrupted payload")
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        m = re.search(r"graceful drain at step (\d+)", out)
+        if not m or "mesh: {'dp': 2, 'sp': 1, 'tp': 2" not in out or \
+                "allocator cap:" not in out:
+            raise RuntimeError(f"the payload did not drain on its mesh: "
+                               f"{out[-2000:]}")
+        drained = int(m.group(1))
+        resumed = finish(payload_mesh_child(
+            common + two + ["--checkpoint-dir", ck], env),
+            "the resumed payload")
+        whole = finish(payload_mesh_child(
+            common + four + ["--checkpoint-dir", ref], env),
+            "the uninterrupted payload")
+    if f"resumed from step {drained}" not in resumed:
+        raise RuntimeError(f"no resume from step {drained}: "
+                           f"{resumed[-2000:]}")
+
+    def last_loss(out):
+        return float(re.findall(r"final loss=([0-9.]+)", out)[-1])
+    got, want = last_loss(resumed), last_loss(whole)
+    rel = abs(got - want) / abs(want)
+    if not rel <= PAYLOAD_LOSS_TOL:
+        raise RuntimeError(f"resumed last loss {got} vs uninterrupted "
+                           f"{want}: {rel} > {PAYLOAD_LOSS_TOL}")
+    phase("train-payload-mesh", mesh="dp2xtp2", drained_at=drained,
+          resumed_on="dp2xtp1", last_loss=got, uninterrupted_last_loss=want,
+          loss_rel_err=rel, loss_tol=PAYLOAD_LOSS_TOL,
+          seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4788,6 +5406,7 @@ def main() -> int:
     ragged_int8_rows = ragged_int8_cases(torch)
     torch.cuda.empty_cache()
     mesh_rows = shard_read_cases(torch)
+    mesh_train_rows = mesh_kernel_cases(torch, build)
     paths = {}
     paths["forward"], bf16_params, _ = forward_path(torch, build, infer)
     paths["forward-w8"] = forward_w8_path(torch, build, infer, bf16_params)
@@ -4866,7 +5485,7 @@ def main() -> int:
     fleet_f32_identity(torch, build)
     spec_f32_identity(torch, build)
     mesh_f32_identity(torch, build)
-    paths["train"] = train_path(torch, build, smi)
+    paths["train"], train_fields = train_path(torch, build, smi)
     torch.cuda.empty_cache()
     paths["lora-train"] = lora_train_path(torch, build, smi)
     torch.cuda.empty_cache()
@@ -4885,6 +5504,18 @@ def main() -> int:
     del moe_params
     torch.cuda.empty_cache()
     train_f32_parity(torch, build, moe=True)
+    # training over a mesh: B.10 and B.8 per shard, ring, GPipe, ep
+    mesh_t0 = time.perf_counter()
+    paths["train-mesh"], mesh_plain = train_mesh_path(torch, build, smi,
+                                                      train_fields)
+    paths["train-longctx-mesh"] = train_longctx_mesh_path(torch, build,
+                                                          infer, smi)
+    train_ring_path(torch, build, smi)
+    paths["train-pp"] = train_pp_path(torch, build, smi, mesh_plain)
+    paths["moe-train-ep"] = moe_train_ep_path(torch, build, smi)
+    train_mesh_f32_identity(torch, build)
+    train_payload_mesh_path(torch)
+    phase("mesh-train-phases", seconds=time.perf_counter() - mesh_t0)
     # last: a serve-traffic run right after the profiler read lower
     serve_spec_cost(torch, infer)
 
@@ -5012,6 +5643,41 @@ def main() -> int:
                                    "bound_ms", "bound_by", "library_ms")},
             "shape": {k: row[k] for k in ("B", "S", "H", "Hkv", "hd", "ps",
                                           "P", "dtype", "tp") if k in row}})
+    # B.10 and B.8: the training kernels launched once per (dp, tp)
+    # shard, timed and bounded at rank 0's shard, counted on the mesh
+    # training paths
+    for name, form, source, replaces, mesh_paths_of in (
+            ("flash_fwd", "B.10", "flash_fwd.cu",
+             "tpushare/workloads/ops/attention.py:634",
+             ("train-mesh", "train-pp", "moe-train-ep")),
+            ("flash_bwd_dq", "B.10", "flash_bwd.cu",
+             "tpushare/workloads/ops/attention.py:634",
+             ("train-mesh", "train-pp", "moe-train-ep")),
+            ("flash_bwd_dkv", "B.10", "flash_bwd.cu",
+             "tpushare/workloads/ops/attention.py:634",
+             ("train-mesh", "train-pp", "moe-train-ep")),
+            ("splash_fwd", "B.8", "splash_fwd.cu",
+             "tpushare/workloads/ops/registry.py:494",
+             ("train-longctx-mesh",)),
+            ("splash_bwd_dq", "B.8", "splash_bwd.cu",
+             "tpushare/workloads/ops/registry.py:494",
+             ("train-longctx-mesh",)),
+            ("splash_bwd_dkv", "B.8", "splash_bwd.cu",
+             "tpushare/workloads/ops/registry.py:494",
+             ("train-longctx-mesh",))):
+        row = mesh_train_rows[name]
+        counts = {p: paths[p][name] for p in mesh_paths_of if paths[p][name]}
+        kernels.append({
+            "name": f"{name}_{'dp_tp' if form == 'B.10' else 'tp'}_shard",
+            "route": "cuda",
+            "source": f"tpushare_torch/workloads/kernels/{source}",
+            "replaces": replaces, "form": form,
+            "checked_in": "mesh-train-vs-plain, train-mesh-f32-identity",
+            "launches": sum(counts.values()), "launches_by_path": counts,
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+            "shape": {k: row[k] for k in ("B", "S", "H", "Hkv", "hd",
+                                          "dtype", "dp", "tp")}})
     line_of = {line["name"]: line for line in kernels}
     fields = ("B", "S", "H", "Hkv", "hd", "dtype", "max_abs_err", "ms",
               "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -373,5 +373,7 @@ def test_three_moe_train_steps_match_the_reference():
                       > TOL * (1 + np.abs(want))).sum())
         n_all += want.size
     assert n_off <= PARAM_SHARE * n_all
-    with pytest.raises(NotImplementedError, match="A.10"):
-        train.make_moe_train_step(CFG, topt, ["cpu", "cpu"])
+    from tpushare_torch.workloads.parallel.mesh import make_mesh as tmake
+    ep3 = tmake(dp=1, tp=1, ep=3, devices=["cpu"] * 3)
+    with pytest.raises(ValueError, match="not divisible by ep 3"):
+        train.make_moe_train_step(CFG, topt, ep3)

@@ -276,12 +276,21 @@ def test_remat_equals_no_remat():
 
 
 def test_multi_device_and_ring_attention_raise():
+    """Ring attention without an sp axis > 1, and a mesh the model does
+    not tile, are refused with the reference's words."""
+    from tpushare_torch.workloads.parallel import mesh as tmesh
     _, tcfg = configs("float32")
     opt = train.make_optimizer()
-    with pytest.raises(NotImplementedError, match="A.10"):
-        train.make_train_step(tcfg, opt, ["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(ValueError, match="needs an sp axis > 1"):
         train.make_train_step(tcfg, opt, "cpu", ring_attention=True)
+    dp2 = tmesh.make_mesh(dp=2, tp=1, devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="needs an sp axis > 1"):
+        train.make_train_step(tcfg, opt, dp2, ring_attention=True)
+    tp3 = tmesh.make_mesh(dp=1, tp=3, devices=["cpu"] * 3)
+    with pytest.raises(ValueError, match="n_heads 4 not divisible by tp 3"):
+        train.make_train_step(tcfg, opt, tp3)
+    with pytest.raises(ValueError, match="make_mesh"):
+        train.make_train_step(tcfg, opt, ["cpu", "cpu"])
 
 
 def test_checkpointer_round_trip_keeps_the_newest(tmp_path):
@@ -331,17 +340,22 @@ def test_payload_resumes_from_its_checkpoint(tmp_path, capsys):
     assert loss[1] < loss[0]
 
 
-@pytest.mark.parametrize("argv,env", [
-    (["--dp", "2"], {}), (["--sp", "2"], {}), (["--tp", "2"], {}),
-    ([], {train_payload.ENV_GROUP_SIZE: "2"}),
+@pytest.mark.parametrize("argv,env,said", [
+    (["--dp", "3"], {}, "batch 8 not divisible by dp 3"),
+    (["--sp", "3"], {}, "seq 64 must divide into 6 ring blocks"),
+    (["--tp", "3"], {}, "n_heads 8 not divisible by tp 3"),
+    ([], {train_payload.ENV_GROUP_SIZE: "2"}, "A.10"),
 ])
-def test_payload_refuses_a_mesh(argv, env, capsys, monkeypatch):
+def test_payload_refuses_a_mesh(argv, env, said, capsys, monkeypatch):
+    """A mesh the payload's model or batch does not tile exits 2 with
+    the reason; a multi-host pod group is still refused (ROADMAP A.10's
+    multihost remainder)."""
     for name, value in env.items():
         monkeypatch.setenv(name, value)
     with pytest.raises(SystemExit) as exc:
         train_payload.main(argv + ["--device", "cpu"])
     assert exc.value.code == 2
-    assert "A.10" in capsys.readouterr().err
+    assert said in capsys.readouterr().err
 
 
 def test_train_loop_is_n_steps_on_one_batch():

@@ -5,8 +5,11 @@
 Checkpointing belongs to the workload: a training pod that the binpacker
 evicts and replaces must resume from its last save. The interface is the
 reference's (``save``, ``latest_step``, ``restore``, ``close``, the last
-``max_to_keep`` saves kept), except that ``restore`` always loads the
-newest save. The format is the port's own: one
+``max_to_keep`` saves kept). A state trained over a mesh is saved as
+whole tensors, gathered from its shards, and ``restore`` places a save
+onto the device or mesh it is given — so a checkpoint saved on one mesh
+restores onto another, as the reference's orbax target does. The
+format is the port's own: one
 ``torch.save`` file per step, ``step_<n>.pt``, holding
 ``{"params", "opt", "step"}``, written to a temporary name and moved into
 place with ``os.replace`` so a pod killed mid-save never leaves a torn
@@ -29,7 +32,8 @@ import torch
 from tpushare_torch.device import resolve_device
 from tpushare_torch.workloads.models.transformer import (TransformerConfig,
                                                          param_shapes)
-from tpushare_torch.workloads.train import tree_map
+from tpushare_torch.workloads.parallel.mesh import Mesh
+from tpushare_torch.workloads.train import gather_state, place_state, tree_map
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -98,20 +102,29 @@ class TrainCheckpointer(_StepFiles):
     """Save/restore the train state, keeping the last ``max_to_keep``."""
 
     def save(self, state: dict) -> int:
+        """Save ``state`` — on one device, or placed on a mesh, whose
+        shards are gathered into whole tensors first."""
+        state = gather_state(state)
         return self._write({"params": state["params"], "opt": state["opt"],
                             "step": int(state["step"])})
 
     def restore(self, cfg: TransformerConfig,
-                device: str | torch.device = "cuda") -> dict:
-        """Load the newest saved state onto ``device`` and check it
-        against ``cfg``: every parameter and moment must have the
-        config's shape and dtype."""
-        step, state = self._load(None, device)
+                where: str | torch.device | Mesh = "cuda",
+                step: int | None = None) -> dict:
+        """Load the state saved at ``step`` (default the newest), check
+        it against ``cfg`` — every parameter and moment must have the
+        config's shape and dtype — and put it on ``where``: a device,
+        or a :class:`Mesh`, whose shards it is placed into
+        (``train.place_state``)."""
+        mesh = where if isinstance(where, Mesh) else None
+        step, state = self._load(step, "cpu" if mesh else where)
         shapes = param_shapes(cfg)
         for name in ("params", "mu", "nu"):
             tree = state["params"] if name == "params" else state["opt"][name]
             _check_layout(step, name, tree, shapes, cfg.dtype,
                           f"the config {cfg}")
+        if mesh is not None:
+            state = place_state(state, mesh)
         return state
 
 

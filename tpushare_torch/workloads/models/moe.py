@@ -17,9 +17,15 @@ cumsum runs over the sequence for the first choice of every token, then
 the second (``j = 0 .. K-1``), with the kept counts carried between
 them, so the same tokens drop under capacity pressure.
 
-The expert-parallel (``ep``) mesh is ROADMAP A.10; the attention of a
-MoE layer is the dense model's, so on the card it runs the flash
-kernels (forward, and its backward in training).
+Expert parallelism (``moe_ffn(..., experts=...)``): under an ep mesh
+the expert weights live split as ``parallel/mesh.moe_param_specs`` says
+(experts over ep, their ff dim over tp). The dispatch runs on the
+router's device; each ep rank computes its E/ep experts' (E/ep, B, C, D)
+buffers on its devices (a tp split of the ff dim summed in rank order in
+fp32), the buffers come back in rank order, and the combine runs the
+unsharded einsum over them. The attention of a MoE layer is the dense
+model's, so on the card it runs the flash kernels (forward, and its
+backward in training).
 """
 
 from __future__ import annotations
@@ -103,11 +109,13 @@ def init_moe_params(generator: torch.Generator, cfg: MoEConfig,
 
 
 def build_dispatch_combine(h: torch.Tensor, router: torch.Tensor,
-                           cfg: MoEConfig, C: int):
+                           cfg: MoEConfig, C: int, with_stats: bool = False):
     """The routing: top-k over the router softmax (fp32), capacity slots
     by cumsum. Returns (dispatch, combine — (B, S, E, C) fp32 one-hot /
     gate-weighted — and the load-balancing aux scalar, Switch eq. 4:
-    E * sum_e importance_e * load_e, load from the first choice only)."""
+    E * sum_e importance_e * load_e, load from the first choice only).
+    ``with_stats`` adds the (importance, load) pair, (E,) each, that a
+    batch split over dp averages before the product."""
     E, K = cfg.n_experts, cfg.expert_top_k
     logits = h.float() @ router                                # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
@@ -132,21 +140,53 @@ def build_dispatch_combine(h: torch.Tensor, router: torch.Tensor,
     importance = probs.mean(dim=(0, 1))                        # (E,)
     load = F.one_hot(gate_idx[..., 0], E).float().mean(dim=(0, 1))
     aux = E * torch.sum(importance * load)
+    if with_stats:
+        return dispatch, combine, aux, (importance, load)
     return dispatch, combine, aux
 
 
+def _experts(xin: torch.Tensor, w: dict) -> torch.Tensor:
+    """The expert SwiGLUs over (E, B, C, D) buffers."""
+    h1 = torch.einsum("ebcd,edf->ebcf", xin, w["w1"])
+    h3 = torch.einsum("ebcd,edf->ebcf", xin, w["w3"])
+    return torch.einsum("ebcf,efd->ebcd", F.silu(h1) * h3, w["w2"])
+
+
 def moe_ffn(h: torch.Tensor, lp: dict, cfg: MoEConfig,
-            capacity: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+            capacity: int | None = None,
+            experts: list | None = None, with_stats: bool = False):
     """Top-k routed expert SwiGLU, h (B, S, D) -> (out (B, S, D), aux).
-    ``capacity`` overrides the max_seq-sized default."""
+    ``capacity`` overrides the max_seq-sized default.
+
+    ``experts`` is the ep form: ``experts[e][t]`` the ``{w1, w3, w2}``
+    blocks of ep rank e's E/ep experts and tp rank t's ff columns, each
+    on its device. Rank e's buffers go to its devices and come back in
+    rank order; the tp partials are summed in rank order in fp32. The
+    router, dispatch and combine stay on ``h``'s device. ``with_stats``
+    appends the routing's (importance, load)."""
     C = capacity if capacity is not None else cfg.expert_capacity
-    dispatch, combine, aux = build_dispatch_combine(h, lp["router"], cfg, C)
+    if with_stats:
+        dispatch, combine, aux, stats = build_dispatch_combine(
+            h, lp["router"], cfg, C, with_stats=True)
+    else:
+        dispatch, combine, aux = build_dispatch_combine(h, lp["router"],
+                                                        cfg, C)
     xin = torch.einsum("bsec,bsd->ebcd", dispatch.to(h.dtype), h)
-    h1 = torch.einsum("ebcd,edf->ebcf", xin, lp["w1"])
-    h3 = torch.einsum("ebcd,edf->ebcf", xin, lp["w3"])
-    y = torch.einsum("ebcf,efd->ebcd", F.silu(h1) * h3, lp["w2"])
+    if experts is None:
+        y = _experts(xin, lp)
+    else:
+        from tpushare_torch.workloads.parallel.mesh import Reduce
+        el = cfg.n_experts // len(experts)
+        blocks = []
+        for e, ranks in enumerate(experts):
+            parts = [_experts(xin[e * el:(e + 1) * el].to(w["w1"].device), w)
+                     for w in ranks]
+            y_e = parts[0] if len(parts) == 1 else Reduce.apply(
+                parts[0].device, parts[0].dtype, *parts)
+            blocks.append(y_e.to(h.device))
+        y = torch.cat(blocks, dim=0)
     out = torch.einsum("bsec,ebcd->bsd", combine.to(h.dtype), y)
-    return out, aux
+    return (out, aux, stats) if with_stats else (out, aux)
 
 
 def moe_layer_block(x: torch.Tensor, lp: dict, cfg: MoEConfig,

@@ -21,6 +21,14 @@ The kernels live in ``kernels/flash_fwd.cu`` and ``kernels/flash_bwd.cu``.
 
 LSE and delta are fp32 ``(B, H, S)`` arrays; q/o/dO are ``(B, S, H, hd)``
 and k/v ``(B, S, Hkv, hd)``, the model's layout, on both paths.
+
+Over a training mesh (B.10, the reference's ``make_sharded_flash``):
+:class:`ShardedAttention` runs a single-device attention once per (dp,
+tp) shard on the shard's device — batch over dp, heads over tp, GQA's
+K/V heads over the same axis — forward and, through autograd, backward;
+causal attention is parallel over both, so no shard reads another's
+data. :func:`make_mesh_attention` is the step's policy over the
+registry, with the reference's ``use_flash`` / ``attn_impl`` modes.
 """
 
 from __future__ import annotations
@@ -286,3 +294,122 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window)
     return flash_attention_fwd(q, k, v, causal=causal, window=window)
+
+
+# ---------------------------------------------------------------------------
+# over a training mesh (B.10)
+# ---------------------------------------------------------------------------
+
+class ShardedAttention:
+    """A single-device attention ``base(q, k, v)`` once per (dp, tp)
+    shard of a mesh.
+
+    ``attn.shards(qs, ks, vs)`` is the training step's form: dicts of
+    per-shard (B/dp, S, H/tp | Hkv/tp, hd) tensors, each on its device,
+    one ``base`` call (one kernel launch on a card) per key, outputs
+    keyed the same. ``attn(q, k, v)`` takes GLOBAL tensors: each (dp,
+    tp) block is copied to its grid device, attended there, and the
+    outputs come back concatenated in rank order on q's device — per-head
+    softmax makes that bitwise one unsharded launch."""
+
+    def __init__(self, base, mesh, batch_axis: str = "dp",
+                 head_axis: str = "tp") -> None:
+        self.base = base
+        self.mesh = mesh
+        self.batch_axis, self.head_axis = batch_axis, head_axis
+
+    def shards(self, qs: dict, ks: dict, vs: dict) -> dict:
+        return {key: self.base(qs[key], ks[key], vs[key]) for key in qs}
+
+    def __call__(self, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+        dp = self.mesh.shape.get(self.batch_axis, 1)
+        tp = self.mesh.shape.get(self.head_axis, 1)
+        bs, hs, ks = q.shape[0] // dp, q.shape[2] // tp, k.shape[2] // tp
+        rows = []
+        for d in range(dp):
+            outs = []
+            for t in range(tp):
+                dev = self.mesh.device(**{self.batch_axis: d,
+                                          self.head_axis: t})
+
+                def part(x, w, d=d, t=t, dev=dev):
+                    return x[d * bs:(d + 1) * bs, :,
+                             t * w:(t + 1) * w].to(dev).contiguous()
+                o = self.base(part(q, hs), part(k, ks), part(v, ks))
+                outs.append(o.to(q.device))
+            rows.append(torch.cat(outs, dim=2))
+        return torch.cat(rows, dim=0)
+
+
+def make_sharded_flash(mesh, *, causal: bool = True, batch_axis="dp",
+                       head_axis="tp", window: int | None = None):
+    """Flash attention over a mesh through the registry (impl='flash'):
+    ``flash_attn(q, k, v)`` on GLOBAL (B, S, H|Hkv, hd) tensors, one
+    forward launch per (dp, tp) shard and, when a gradient is taken, one
+    dQ and one dK/dV launch per shard. An impossible mesh raises the
+    registry's :class:`KernelUnavailable`."""
+    from tpushare_torch.workloads.ops.registry import (KIND_PREFILL,
+                                                       select_attention)
+
+    def flash_attn(q, k, v):
+        choice = select_attention(
+            KIND_PREFILL, impl="flash", seq=q.shape[1], window=window,
+            mesh=mesh, n_heads=q.shape[2], n_kv_heads=k.shape[2],
+            head_dim=q.shape[3], platform=q.device.type, causal=causal,
+            batch=q.shape[0], batch_axis=batch_axis, head_axis=head_axis)
+        return choice.fn(q, k, v)
+
+    return flash_attn
+
+
+def make_mesh_attention(cfg, mesh, *, batch_axis="dp", head_axis="tp"):
+    """The attention policy of a step over a mesh, through the registry's
+    table: flash, splash (long context) or the plain path per shape.
+
+    ``cfg.use_flash`` maps onto the registry's modes, as the
+    reference's: ``True`` (impl='kernel') requires a kernel — an
+    untiled shape raises :class:`KernelUnavailable`, and so does an sp >
+    1 mesh, at once; ``None`` ('auto') takes the kernel where every
+    shape tiles and counts the fallback otherwise; ``False`` runs the
+    plain path. ``cfg.attn_impl`` pins one implementation by name.
+
+    Returns ``attn(qs, ks, vs)`` over one dp group's shards (dicts keyed
+    by shard, each tensor on its device — the step's form): the
+    decision is taken on the global shape (local heads x tp, local
+    batch x dp), then every shard runs it."""
+    from tpushare_torch.workloads.ops.registry import (KIND_PREFILL,
+                                                       KernelUnavailable,
+                                                       select_attention)
+    sp = mesh.shape.get("sp", 1)
+    window = getattr(cfg, "attn_window", None)
+    if cfg.use_flash and sp > 1:
+        raise KernelUnavailable(
+            "flash", "prefill",
+            f"use_flash=True under an sp={sp} mesh: sequence-sharded "
+            "causal attention is ring attention's job "
+            "(ring_attention=True), not the (dp, tp) shard_map flash "
+            "wrapper's")
+    impl = getattr(cfg, "attn_impl", None) or (
+        "kernel" if cfg.use_flash
+        else "xla" if cfg.use_flash is False else "auto")
+    tp = mesh.shape.get(head_axis, 1)
+    dp = mesh.shape.get(batch_axis, 1)
+
+    def attn(qs: dict, ks: dict, vs: dict) -> dict:
+        q, k = next(iter(qs.values())), next(iter(ks.values()))
+        choice = select_attention(
+            KIND_PREFILL, impl=impl, seq=q.shape[1] * sp, window=window,
+            mesh=mesh, n_heads=q.shape[2] * tp, n_kv_heads=k.shape[2] * tp,
+            head_dim=q.shape[3], platform=q.device.type,
+            batch=q.shape[0] * dp, batch_axis=batch_axis,
+            head_axis=head_axis)
+        if sp > 1:
+            # the plain path over a sequence split without the ring:
+            # every rank attends over the gathered K/V
+            from tpushare_torch.workloads.ops.ring_attention import (
+                gathered_attention)
+            return gathered_attention(qs, ks, vs, window)
+        return choice.fn.shards(qs, ks, vs)
+
+    return attn

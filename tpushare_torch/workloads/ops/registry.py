@@ -7,8 +7,11 @@ decode and paged rows, ``select_attention``, the fallback counters). The
 rows keep the reference's shape gates with ``platform == "cuda"`` where
 the reference says ``"tpu"``. A serving mesh's tp degree rides
 ``mesh_shape`` and gates the decode and prefill rows as the reference's
-``mesh:heads-untiled`` rows do; the sequence-parallel rows (``sp``,
-ring attention) come with the sharded training step. Semantics are the
+``mesh:heads-untiled`` rows do; a training mesh's sp axis takes the
+reference's ``mesh:sp-ring-domain`` row (sequence-sharded attention is
+ring attention's), its dp axis the ``batch:untiled`` row, and the ring
+kind (``KIND_RING``) its one row, ``ring:spmd-merge``: the ring's merge
+is plain PyTorch, as the reference's is XLA einsums. Semantics are the
 reference's:
 
 - an explicit implementation that cannot be served raises
@@ -42,11 +45,16 @@ decode rows keep the reference's gates (``RAGGED_HEAD_DIM``,
 ``RAGGED_BLOCK``) so the same configs are refused with the same
 reasons.
 
-The sharded reads (the reference's ``shard_mapped`` kernel forms) are
+The sharded forms (the reference's ``shard_mapped`` kernel forms) are
 the same kernels launched once per shard on the shard's device, their
 outputs concatenated in rank order; per-head softmax makes the
-concatenation bitwise one unsharded launch. A sharded paged engine
-holds each pool shard as its own tensor on its device
+concatenation bitwise one unsharded launch. The training mesh's
+prefill forms — :func:`_build_prefill_flash` (B.10: the flash forward
+and its dQ / dK/dV backward per (dp, tp) shard) and
+:func:`_build_prefill_splash` (B.8: the splash forward and backward per
+shard) — are ``ops/attention.ShardedAttention`` objects over the
+single-device kernels. A sharded paged engine holds each pool shard as
+its own tensor on its device
 (``workloads/sharded_pool.py``) and reads it through the mesh-less
 paged read. :func:`_build_decode_ragged` with a mesh is the ragged read
 with heads over tp and slots over dp over a slot engine's whole cache:
@@ -65,7 +73,8 @@ from typing import Any, Callable, Mapping
 import torch
 
 from tpushare_torch import consts
-from tpushare_torch.workloads.ops.attention import (check_window,
+from tpushare_torch.workloads.ops.attention import (ShardedAttention,
+                                                    check_window,
                                                     flash_attention,
                                                     flash_attention_plain)
 from tpushare_torch.workloads.ops.paged_attention import (paged_decode,
@@ -88,7 +97,8 @@ IMPL_KERNEL = "kernel"
 KIND_PREFILL = "prefill"
 KIND_DECODE = "decode"    # single-token read over the contiguous slot cache
 KIND_PAGED = "paged"
-KINDS = (KIND_PREFILL, KIND_DECODE, KIND_PAGED)
+KIND_RING = "ring"        # sequence-parallel ring attention over sp
+KINDS = (KIND_PREFILL, KIND_DECODE, KIND_PAGED, KIND_RING)
 
 SPLASH_MIN_SEQ = 4096
 SPLASH_HEAD_DIM = 128
@@ -186,14 +196,14 @@ def decide(kind: str, *, seq: int | None = None, window: int | None = None,
            mesh_shape: Mapping[str, int] | None = None,
            n_heads: int | None = None, n_kv_heads: int | None = None,
            head_dim: int | None = None, platform: str | None = None,
-           impl: str = IMPL_AUTO, codec: str | None = None
-           ) -> tuple[str, str]:
+           impl: str = IMPL_AUTO, codec: str | None = None,
+           batch: int | None = None) -> tuple[str, str]:
     """(impl, reason) for one attention site; raises
     :class:`KernelUnavailable` for explicit impls the table cannot
     honour. ``mesh_shape`` is a plain ``{axis: size}`` map (its ``tp``
-    shards heads); ``platform`` is the tensors' device type ("cuda" /
-    "cpu"); ``codec`` the paged pool's storage codec
-    (``consts.KV_CODECS``)."""
+    shards heads, ``dp`` the ``batch`` rows, ``sp`` the sequence);
+    ``platform`` is the tensors' device type ("cuda" / "cpu"); ``codec``
+    the paged pool's storage codec (``consts.KV_CODECS``)."""
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r} not in {KINDS}")
     if impl not in IMPLS + (IMPL_AUTO, IMPL_KERNEL):
@@ -208,6 +218,23 @@ def decide(kind: str, *, seq: int | None = None, window: int | None = None,
     if n_kv_heads is None:
         n_kv_heads = n_heads
     tp = _axis(mesh_shape, "tp")
+    sp = _axis(mesh_shape, "sp")
+    dp = _axis(mesh_shape, "dp")
+
+    if kind == KIND_RING:
+        # the ring's merge is plain PyTorch by design, as the
+        # reference's is XLA einsums; only the sp axis is required
+        if impl not in (IMPL_AUTO, IMPL_KERNEL, IMPL_XLA):
+            raise KernelUnavailable(
+                impl, kind, "ring attention has no Pallas kernel form; its "
+                "blockwise merge is XLA einsums under the sp shard_map")
+        if mesh_shape is None:
+            raise KernelUnavailable(
+                IMPL_XLA, kind, "sequence-parallel ring attention needs a "
+                "mesh carrying the sp axis",
+                advice="no impl choice can serve ring without one — fix "
+                "the mesh")
+        return IMPL_XLA, "ring:spmd-merge"
 
     if kind == KIND_PAGED:
         available = platform == PLATFORM
@@ -280,6 +307,17 @@ def decide(kind: str, *, seq: int | None = None, window: int | None = None,
         return IMPL_XLA, "explicit:xla"
     heads_tile = (tp == 1 or (n_heads is not None and n_kv_heads is not None
                               and n_heads % tp == 0 and n_kv_heads % tp == 0))
+    batch_tiles = dp == 1 or batch is None or batch % dp == 0
+    if sp > 1:
+        # sequence sharding is ring attention's domain: the prefill
+        # forms split batch and heads, never the sequence
+        if impl == IMPL_AUTO:
+            return IMPL_XLA, "mesh:sp-ring-domain"
+        raise KernelUnavailable(
+            IMPL_FLASH if impl == IMPL_KERNEL else impl, kind,
+            f"sequence-sharded causal attention under sp={sp} is ring "
+            "attention's job (kind='ring'), not the (dp, tp) prefill "
+            "wrappers'")
     if not heads_tile:
         if impl == IMPL_AUTO:
             return IMPL_XLA, "mesh:heads-untiled"
@@ -289,6 +327,9 @@ def decide(kind: str, *, seq: int | None = None, window: int | None = None,
             f"tp={tp} head sharding")
     mha = n_heads is None or n_kv_heads == n_heads
     splash_ok = _splash_servable(seq, window, n_heads, n_kv_heads, head_dim)
+    if impl in (IMPL_SPLASH, IMPL_FLASH) and not batch_tiles:
+        raise KernelUnavailable(
+            impl, kind, f"batch {batch} does not divide the dp={dp} sharding")
     if impl == IMPL_SPLASH:
         # the reference's refusals, in its order and words
         if not mha:
@@ -319,6 +360,12 @@ def decide(kind: str, *, seq: int | None = None, window: int | None = None,
         return IMPL_SPLASH, "explicit:splash"
     if impl == IMPL_FLASH:
         return IMPL_FLASH, "explicit:flash"
+    if not batch_tiles:
+        if impl == IMPL_KERNEL:
+            raise KernelUnavailable(
+                IMPL_FLASH, kind,
+                f"batch {batch} does not divide the dp={dp} sharding")
+        return IMPL_XLA, "batch:untiled"
     # auto/kernel: the flash kernel serves any S, GQA, head_dim and
     # window; splash takes the long MHA rows it can serve
     if window is not None:
@@ -392,9 +439,51 @@ def _build_decode_ragged(mesh: Any, batch: int | None = None,
     return meshed
 
 
-def _mesh_shape(mesh: Any) -> dict[str, int] | None:
-    """A mesh as the decision table's ``{axis: size}`` map."""
-    return None if mesh is None else dict(mesh.shape)
+def _mesh_shape(mesh: Any, batch_axis: str = "dp", head_axis: str = "tp",
+                seq_axis: str = "sp") -> dict[str, int] | None:
+    """A mesh as the decision table's ``{axis: size}`` map, its batch,
+    head and sequence axes named dp, tp and sp."""
+    if mesh is None:
+        return None
+    shape = dict(mesh.shape)
+    for name, axis in (("dp", batch_axis), ("tp", head_axis),
+                       ("sp", seq_axis)):
+        shape[name] = int(mesh.shape.get(axis, 1))
+    return shape
+
+
+def _build_prefill_flash(window: int | None, causal: bool, mesh: Any,
+                         batch_axis: str = "dp", head_axis: str = "tp"
+                         ) -> Callable[..., Any]:
+    """B.10: the flash forward and its dQ / dK/dV backward once per
+    (dp, tp) shard on the shard's device — batch over dp, heads (and
+    GQA's K/V heads) over tp, the sequence whole; causal attention is
+    parallel over both, so no shard reads another's data."""
+    base = functools.partial(flash_attention, causal=causal, window=window)
+    if mesh is None:
+        return base
+    return ShardedAttention(base, mesh, batch_axis, head_axis)
+
+
+def _build_prefill_splash(mesh: Any, batch_axis: str = "dp",
+                          head_axis: str = "tp") -> Callable[..., Any]:
+    """B.8: the splash forward and its dQ / dK/dV backward once per (dp,
+    tp) shard over the shard's (B/dp, H/tp) heads — the reference's
+    ``make_splash_mha(head_shards=tp)`` under ``shard_map``."""
+    if mesh is None:
+        return splash_attention
+    return ShardedAttention(splash_attention, mesh, batch_axis, head_axis)
+
+
+def _build_prefill_xla(window: int | None, causal: bool, mesh: Any,
+                       batch_axis: str = "dp", head_axis: str = "tp"
+                       ) -> Callable[..., Any]:
+    """The plain path; on a mesh the same einsums per (dp, tp) shard."""
+    base = functools.partial(flash_attention_plain, causal=causal,
+                             window=window)
+    if mesh is None:
+        return base
+    return ShardedAttention(base, mesh, batch_axis, head_axis)
 
 
 # ---------------------------------------------------------------------------
@@ -408,19 +497,41 @@ def select_attention(kind: str, *, seq: int | None = None,
                      head_dim: int | None = None,
                      platform: str | None = None, impl: str = IMPL_AUTO,
                      batch: int | None = None, causal: bool = True,
-                     codec: str | None = None) -> KernelChoice:
+                     codec: str | None = None, batch_axis: str = "dp",
+                     head_axis: str = "tp", seq_axis: str = "sp",
+                     zigzag: bool = False, reorder: bool = True
+                     ) -> KernelChoice:
     """Run :func:`decide` and return the ready-to-call implementation;
     an ``auto`` degradation to the plain path is recorded against the
     kernel the table would otherwise have taken. A window without causal
     masking raises, whatever the implementation. With ``mesh`` the
-    ragged decode read is the sharded form (:func:`_build_decode_ragged`
-    over ``batch`` slots); a sharded paged engine reads each pool shard
-    through the mesh-less paged read."""
+    prefill forms run once per (dp, tp) shard (B.10, B.8), the ragged
+    decode read is the sharded form (:func:`_build_decode_ragged` over
+    ``batch`` slots), and the ring kind builds the ring over the mesh's
+    ``seq_axis`` (``zigzag`` / ``reorder`` / ``window`` its schedule); a
+    sharded paged engine reads each pool shard through the mesh-less
+    paged read."""
     check_window(causal, window)
     chosen, reason = decide(kind, seq=seq, window=window,
-                            mesh_shape=_mesh_shape(mesh), n_heads=n_heads,
-                            n_kv_heads=n_kv_heads, head_dim=head_dim,
-                            platform=platform, impl=impl, codec=codec)
+                            mesh_shape=_mesh_shape(mesh, batch_axis,
+                                                   head_axis, seq_axis),
+                            n_heads=n_heads, n_kv_heads=n_kv_heads,
+                            head_dim=head_dim, platform=platform, impl=impl,
+                            codec=codec, batch=batch)
+    if kind == KIND_RING:
+        if seq_axis not in mesh.shape:
+            raise KernelUnavailable(
+                IMPL_XLA, kind, f"mesh axes {tuple(mesh.shape)} carry no "
+                f"{seq_axis!r} axis for sequence-parallel ring attention",
+                advice="no impl choice can serve ring without one — fix "
+                "the mesh")
+        from tpushare_torch.workloads.ops.ring_attention import (
+            build_ring_attention)
+        fn = build_ring_attention(
+            mesh, axis_name=seq_axis, batch_axis=batch_axis,
+            head_axis=head_axis, causal=causal, zigzag=zigzag,
+            reorder=reorder, window=window)
+        return KernelChoice(kind=kind, impl=chosen, reason=reason, fn=fn)
     if chosen == IMPL_XLA and impl == IMPL_AUTO:
         # charged to the kernel the table would have picked for this
         # shape: splash only where splash could serve it
@@ -435,12 +546,12 @@ def select_attention(kind: str, *, seq: int | None = None,
         if not causal:
             raise ValueError("the splash kernels serve causal attention "
                              "only")
-        fn = splash_attention
+        fn = _build_prefill_splash(mesh, batch_axis, head_axis)
     elif kind == KIND_PREFILL and chosen == IMPL_FLASH:
-        fn = functools.partial(flash_attention, causal=causal, window=window)
+        fn = _build_prefill_flash(window, causal, mesh, batch_axis,
+                                  head_axis)
     elif kind == KIND_PREFILL:
-        fn = functools.partial(flash_attention_plain, causal=causal,
-                               window=window)
+        fn = _build_prefill_xla(window, causal, mesh, batch_axis, head_axis)
     elif kind == KIND_DECODE and chosen == IMPL_RAGGED:
         fn = _build_decode_ragged(mesh, batch)
     elif kind == KIND_DECODE:

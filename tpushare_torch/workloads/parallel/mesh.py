@@ -1,18 +1,35 @@
-"""Serving meshes — the serving half of ``tpushare/workloads/parallel/
-mesh.py`` (``make_serving_mesh``, ``serving_degrees``,
+"""Meshes of the port — ``tpushare/workloads/parallel/mesh.py``: the
+training mesh (``make_mesh``, ``param_specs``, ``moe_param_specs``,
+``data_spec``, ``place_params``, ``place_data``, ``assert_divisible``)
+and the serving half (``make_serving_mesh``, ``serving_degrees``,
 ``check_serving_mesh``, ``place_serving_params``).
 
-The reference's sharded engine is one controller over a device grid:
-XLA runs each shard's program on its chip and inserts the collectives.
-The port keeps the one controller: :class:`Mesh` names the axes of an
-explicit grid of ``torch.device``s, every shard's tensors live on their
-grid device, and the collectives are explicit copies and ``torch.cat``s
-in rank order (``workloads/sharded_pool.py``). No process group is
-involved. A grid may name one device several times — how a 2×2 mesh
-runs on one card or on the CPU; NCCL, which refuses two ranks on one
-GPU, is not needed.
+The reference is one controller over a device grid: XLA runs each
+shard's program on its chip and inserts the collectives. The port keeps
+the one controller: :class:`Mesh` names the axes of an explicit grid of
+``torch.device``s, every shard's tensors live on their grid device, and
+the collectives are explicit copies and sums in rank order. No process
+group is involved. A grid may name one device several times — how a
+2×2 mesh runs on one card or on the CPU; NCCL, which refuses two ranks
+on one GPU, is not needed.
 
-The layout is the reference's exactness-preserving one
+**Training.** ``make_mesh`` builds the reference's five-axis
+``("dp", "sp", "tp", "ep", "pp")`` grid. ``place_params`` splits each
+leaf per its spec — the reference's megatron layout: ``wq`` / ``wk`` /
+``wv`` / ``w1`` / ``w3`` by column over tp, ``wo`` / ``w2`` by row,
+``embed`` and ``out`` over tp on their second axis, the norms whole —
+into a :class:`Sharded` leaf that holds one tensor per grid coordinate:
+every replica (a coordinate that differs only along an axis the spec
+does not split) is its own copy on its own device, as every device of
+a JAX mesh holds its own. The training step keeps the replicas bitwise
+equal: each takes the same gradient, summed over the replicas in rank
+order in fp32 (:func:`sum_replica_grads`), and the same AdamW update.
+:class:`Reduce` and :class:`Broadcast` are the two collectives of the
+step's forward: a fp32 sum of per-rank partials in rank order (the
+reference's ``psum`` over tp), and its adjoint, one tensor copied to
+every rank, whose backward sums the ranks' gradients in rank order.
+
+**Serving.** The layout is the reference's exactness-preserving one
 (``mesh.py:118-142``): the layer stack splits into pp stages; the
 column projections ``wq`` / ``wk`` / ``wv`` / ``w1`` / ``w3`` split
 their output columns over tp (head by head, hidden column by hidden
@@ -32,6 +49,9 @@ import numpy as np
 import torch
 
 from tpushare_torch import consts
+
+# the training mesh's axes, in the reference's order
+AXES = ("dp", "sp", "tp", "ep", "pp")
 
 # the column projections a serving mesh splits over tp; every other
 # layer leaf stays whole
@@ -56,6 +76,14 @@ class Mesh:
         self.devices = grid
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, grid.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def coords(self):
+        """Every grid coordinate, in rank order (the last axis fastest)."""
+        return list(np.ndindex(self.devices.shape))
 
     def device(self, **coords: int) -> torch.device:
         """The device at the given axis coordinates (absent axes 0)."""
@@ -148,3 +176,319 @@ def place_serving_params(params: dict, mesh: Mesh) -> dict:
             "norm_f": put(params["norm_f"], home),
             "out": put(params["out"], home),
             "stages": stages}
+
+
+# ---------------------------------------------------------------------------
+# training meshes (dp, sp, tp, ep, pp)
+# ---------------------------------------------------------------------------
+
+def make_mesh(n_devices: int | None = None, dp: int | None = None,
+              tp: int | None = None, sp: int = 1, ep: int = 1, pp: int = 1,
+              devices=None) -> Mesh:
+    """A ``(dp, sp, tp, ep, pp)`` mesh over the first ``n_devices``
+    devices — the reference's factorization: pp = ep = sp = 1 unless
+    given, tp the largest of 1, 2, 4 that divides what is left, dp the
+    rest. ``devices=None`` takes every CUDA device of the host; an
+    explicit list may repeat a device (a 2×2 mesh on one card)."""
+    devs = list(devices if devices is not None else
+                [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())])
+    n = n_devices if n_devices is not None else len(devs)
+    if n > len(devs):
+        raise ValueError(f"asked for {n} devices, have {len(devs)}")
+    if n % (sp * ep * pp):
+        raise ValueError(
+            f"n={n} devices not divisible by sp*ep*pp={sp}*{ep}*{pp}")
+    if tp is None:
+        tp = max(d for d in (1, 2, 4) if n % (d * sp * ep * pp) == 0)
+    if dp is None:
+        dp = n // (tp * sp * ep * pp)
+    if dp * tp * sp * ep * pp != n:
+        raise ValueError(f"dp*sp*tp*ep*pp = {dp}*{sp}*{tp}*{ep}*{pp} != {n} "
+                         "devices")
+    flat = np.empty(n, dtype=object)
+    for i, d in enumerate(devs[:n]):
+        flat[i] = torch.device(d)
+    return Mesh(flat.reshape(dp, sp, tp, ep, pp), AXES)
+
+
+def param_specs() -> dict:
+    """Per leaf of ``init_params``' dict, the mesh axis that splits each
+    dimension (None: whole) — the reference's megatron layout: column
+    projections split their output columns over tp, ``wo`` / ``w2``
+    their input rows, ``embed`` and ``out`` their second axis; the
+    stacked-layer axis stays whole (``pipeline.pp_param_specs`` splits
+    it over pp)."""
+    return {
+        "embed": (None, "tp"),
+        "layers": {
+            "wq": (None, None, "tp"),
+            "wk": (None, None, "tp"),
+            "wv": (None, None, "tp"),
+            "wo": (None, "tp", None),
+            "w1": (None, None, "tp"),
+            "w3": (None, None, "tp"),
+            "w2": (None, "tp", None),
+            "ln1": (None, None),
+            "ln2": (None, None),
+        },
+        "norm_f": (None,),
+        "out": (None, "tp"),
+    }
+
+
+def moe_param_specs() -> dict:
+    """``init_moe_params``' layout: attention as the dense model's, the
+    experts over ep (their ff dim over tp), the router whole."""
+    specs = param_specs()
+    specs["layers"] = {
+        **{k: v for k, v in specs["layers"].items()
+           if k not in ("w1", "w2", "w3")},
+        "router": (None, None, None),
+        "w1": (None, "ep", None, "tp"),
+        "w3": (None, "ep", None, "tp"),
+        "w2": (None, "ep", "tp", None),
+    }
+    return specs
+
+
+def data_spec() -> tuple:
+    """Tokens (B, S): batch over dp, sequence over sp."""
+    return ("dp", "sp")
+
+
+def _shard_index(mesh: Mesh, spec: tuple, shape: tuple,
+                 coord: tuple) -> tuple:
+    """The block of a ``shape`` array that grid coordinate ``coord``
+    holds under ``spec``."""
+    idx = []
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            idx.append(slice(None))
+            continue
+        k, n = mesh.shape[axis], shape[dim]
+        if n % k:
+            raise ValueError(f"dimension {dim} of size {n} does not split "
+                             f"over {axis}={k}")
+        r = coord[mesh.axis_names.index(axis)]
+        idx.append(slice(r * (n // k), (r + 1) * (n // k)))
+    return tuple(idx)
+
+
+class Sharded:
+    """One array laid out on a mesh: ``spec`` names, per dimension, the
+    axis that splits it, and ``shards`` maps every grid coordinate (in
+    ``mesh.coords()`` order) to that coordinate's block, a tensor of its
+    own on the coordinate's device. Coordinates that differ only along
+    axes the spec does not split are replicas of one block."""
+
+    def __init__(self, mesh: Mesh, spec: tuple, shape: tuple,
+                 shards: dict) -> None:
+        self.mesh = mesh
+        self.spec = tuple(spec)
+        self.shape = tuple(shape)
+        self.shards = shards
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return next(iter(self.shards.values())).dtype
+
+    def at(self, **coords: int) -> torch.Tensor:
+        """The block at the given axis coordinates (absent axes 0)."""
+        return self.shards[tuple(coords.get(a, 0)
+                                 for a in self.mesh.axis_names)]
+
+    def index(self, coord: tuple) -> tuple:
+        return _shard_index(self.mesh, self.spec, self.shape, coord)
+
+    def groups(self) -> list[list[tuple]]:
+        """The replica groups: the coordinates holding each block, in
+        rank order, blocks in rank order."""
+        split = [i for i, a in enumerate(self.mesh.axis_names)
+                 if a in self.spec]
+        keyed: dict[tuple, list] = {}
+        for c in self.shards:
+            keyed.setdefault(tuple(c[i] for i in split), []).append(c)
+        return list(keyed.values())
+
+    def full(self, device=None) -> torch.Tensor:
+        """The whole array on ``device`` (default the first grid
+        device), from the first replica of every block."""
+        dev = torch.device(device) if device is not None else \
+            self.mesh.devices.flat[0]
+        out = torch.empty(self.shape, dtype=self.dtype, device=dev)
+        for group in self.groups():
+            out[self.index(group[0])] = self.shards[group[0]].to(dev)
+        return out
+
+    def map(self, fn, *rest: "Sharded") -> "Sharded":
+        """``fn`` over every block (and the same block of ``rest``)."""
+        return Sharded(self.mesh, self.spec, self.shape,
+                       {c: fn(t, *(r.shards[c] for r in rest))
+                        for c, t in self.shards.items()})
+
+    def __repr__(self) -> str:
+        return (f"Sharded(shape={self.shape}, spec={self.spec}, "
+                f"dtype={self.dtype}, mesh={self.mesh.shape})")
+
+
+def shard_tensor(t, spec: tuple, mesh: Mesh) -> Sharded:
+    """``t`` (a tensor, or a :class:`Sharded` on any mesh) split per
+    ``spec`` onto ``mesh``: every coordinate gets a contiguous copy of
+    its block on its device."""
+    if isinstance(t, Sharded):
+        t = t.full()
+    shards = {}
+    for c in mesh.coords():
+        part = t[_shard_index(mesh, spec, tuple(t.shape), c)]
+        shards[c] = torch.empty(part.shape, dtype=t.dtype,
+                                device=mesh.devices[c]).copy_(part)
+    return Sharded(mesh, spec, tuple(t.shape), shards)
+
+
+def _codec_specs(params, specs):
+    """``specs`` expanded to int8 codec leaves (``{q, s}``): ``q`` keeps
+    the dense weight's spec; ``s`` (per output channel, in-dim of size 1)
+    keeps only a split of the last axis, and a per-row scale (``s`` of
+    width 1, the embedding's) none — the reference's
+    ``_codec_shardings``."""
+    if isinstance(params, dict) and not isinstance(specs, dict):
+        s = params["s"]
+        sspec = (None,) * (len(specs) - 1) + (specs[-1],)
+        if s.shape[-1] == 1:
+            sspec = (None,) * s.dim()
+        return {"q": specs, "s": sspec}
+    if isinstance(params, dict):
+        return {k: _codec_specs(v, specs[k]) for k, v in params.items()}
+    return specs
+
+
+def place_tree(tree, specs, mesh: Mesh):
+    """Every tensor of ``tree`` split per the same-shaped ``specs`` tree
+    (int8 codec leaves expanded as :func:`_codec_specs` says)."""
+    specs = _codec_specs(tree, specs)
+
+    def rec(node, spec):
+        if isinstance(node, dict):
+            return {k: rec(v, spec[k]) for k, v in node.items()}
+        return shard_tensor(node, spec, mesh)
+    return rec(tree, specs)
+
+
+def place_params(params: dict, mesh: Mesh) -> dict:
+    """The parameter dict on ``mesh`` as :func:`param_specs` says, int8
+    ``{q, s}`` leaves included (scales follow their output channels)."""
+    return place_tree(params, param_specs(), mesh)
+
+
+def place_data(tokens: torch.Tensor, mesh: Mesh) -> Sharded:
+    """Tokens (B, S) on ``mesh``: batch over dp, sequence over sp."""
+    return shard_tensor(tokens, data_spec(), mesh)
+
+
+def assert_divisible(cfg, mesh: Mesh) -> None:
+    """Fail fast when the model does not tile onto the mesh — the
+    reference's checks and words."""
+    tp = mesh.shape["tp"]
+    if cfg.n_heads % tp:
+        raise ValueError(f"n_heads {cfg.n_heads} not divisible by tp {tp}")
+    kv_heads = getattr(cfg, "kv_heads", cfg.n_heads)
+    if kv_heads % tp:
+        raise ValueError(f"n_kv_heads {kv_heads} not divisible by tp {tp}"
+                         " (wk/wv are column-sharded per KV head)")
+    if cfg.d_ff % tp:
+        raise ValueError(f"d_ff {cfg.d_ff} not divisible by tp {tp}")
+    ep = mesh.shape.get("ep", 1)
+    n_experts = getattr(cfg, "n_experts", 1)
+    if ep > 1 and n_experts % ep:
+        raise ValueError(f"n_experts {n_experts} not divisible by ep {ep}")
+
+
+# ---------------------------------------------------------------------------
+# the step's collectives: fixed order, fp32 sums
+# ---------------------------------------------------------------------------
+
+def fp32_sum(parts, device) -> torch.Tensor:
+    """The fp32 sum of ``parts`` in their order, on ``device``."""
+    acc = parts[0].to(device=device, dtype=torch.float32)
+    for p in parts[1:]:
+        acc = acc + p.to(device=device, dtype=torch.float32)
+    return acc
+
+
+class Reduce(torch.autograd.Function):
+    """``Reduce.apply(device, dtype, *parts)``: the per-rank partials
+    summed in rank order in fp32 on ``device``, cast to ``dtype`` — the
+    reference's ``psum`` over tp. The backward copies the gradient to
+    every rank."""
+
+    @staticmethod
+    def forward(ctx, device, dtype, *parts):
+        ctx.meta = [(p.device, p.dtype) for p in parts]
+        return fp32_sum(parts, device).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None, *(g.to(device=d, dtype=dt, copy=True)
+                              for d, dt in ctx.meta))
+
+
+class Broadcast(torch.autograd.Function):
+    """``Broadcast.apply(x, *devices)``: a copy of ``x`` on every device,
+    one per rank. The backward sums the ranks' gradients in rank order in
+    fp32 and casts to ``x``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, x, *devices):
+        ctx.src = (x.device, x.dtype)
+        ctx.n = len(devices)
+        return tuple(x.to(d, copy=True) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        dev, dtype = ctx.src
+        return (fp32_sum(grads, dev).to(dtype), *([None] * ctx.n))
+
+
+def all_reduce(parts: list) -> list:
+    """The rank-order fp32 sum of ``parts``, one copy on each part's
+    device (Reduce to rank 0, then Broadcast); one part passes
+    through."""
+    if len(parts) == 1:
+        return list(parts)
+    total = Reduce.apply(parts[0].device, parts[0].dtype, *parts)
+    return list(Broadcast.apply(total, *(p.device for p in parts)))
+
+
+def all_gather(parts: list, dim: int) -> list:
+    """``parts`` concatenated along ``dim`` in rank order, one copy on
+    each part's device; the backward sums the copies' gradients in rank
+    order (fp32) before slicing each rank's block back."""
+    if len(parts) == 1:
+        return list(parts)
+    home = parts[0].device
+    whole = torch.cat([p.to(home) for p in parts], dim=dim)
+    return list(Broadcast.apply(whole, *(p.device for p in parts)))
+
+
+def sum_replica_grads(leaf: Sharded, grads: dict) -> dict:
+    """The gradient of every block of ``leaf``: its replicas' gradients
+    (``grads[coord]``, None where a replica took no part) summed in rank
+    order in fp32 — the reference's dp / tp / sp all-reduce of a
+    replicated leaf — and a copy of the sum on every replica's device,
+    so every replica takes the same update."""
+    out = {}
+    for group in leaf.groups():
+        present = [grads[c] for c in group if grads.get(c) is not None]
+        first = leaf.shards[group[0]]
+        if not present:
+            total = torch.zeros_like(first)
+        elif len(present) == 1:
+            total = present[0]
+        else:
+            total = fp32_sum(present, first.device).to(first.dtype)
+        for c in group:
+            dev = leaf.shards[c].device
+            out[c] = total if total.device == dev and c == group[0] \
+                else total.to(dev, copy=True)
+    return {c: out[c] for c in leaf.shards}

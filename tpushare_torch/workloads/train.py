@@ -1,12 +1,25 @@
-"""Training step of the port: AdamW over the transformer on one device —
-the counterpart of ``tpushare/workloads/train.py``.
+"""Training step of the port: AdamW over the transformer, on one device
+or over a mesh — the counterpart of ``tpushare/workloads/train.py``.
 
 The reference jits loss, backward and the optax update into one
-donating program over a mesh. Here the step runs eagerly on one device:
-autograd through :func:`transformer.loss_fn` (on the card the attention
-backward is the dQ and dK/dV kernels), then :class:`AdamW` updates the
-parameters and moments **in place** (the counterpart of donation: one
-copy of params + optimizer state on the device).
+donating program over a mesh. Here the step runs eagerly: autograd
+through the loss (on the card the attention backward is the dQ and
+dK/dV kernels), then :class:`AdamW` updates the parameters and moments
+**in place** (the counterpart of donation: one copy of params +
+optimizer state per device).
+
+Over a mesh (``parallel/mesh.make_mesh``; the state placed by
+:func:`place_state`) the step runs the sharded forward of
+``parallel/pipeline.group_loss`` for each dp rank's batch shard —
+megatron tp with fp32 rank-order partial sums, a vocab-split cross
+entropy, ring attention over sp (``ring_attention=True``: the zigzag
+reorder of inputs, targets and RoPE positions once a step, or the
+banded ring in the natural order under a window), the kernels once per
+(dp, tp) shard otherwise (B.10 / B.8, ``ops/attention.
+make_mesh_attention``) — takes each dp rank's gradients with autograd,
+sums every replicated leaf's gradient over its replicas in rank order
+in fp32 (the dp all-reduce, and the tp / sp ones of the norms), and
+updates every shard in place: replicas stay bitwise equal.
 
 :class:`AdamW` is optax's ``adamw`` (optionally chained after
 ``clip_by_global_norm``, with the warmup + cosine schedule), written out
@@ -22,10 +35,8 @@ optax.
 
 :func:`make_moe_train_step` is the same step over the MoE model
 (``models/moe.moe_loss_fn``: cross entropy plus ``router_aux_coef`` x
-the load-balancing term) on one device.
-
-There is no mesh in this slice: ring attention, expert parallelism and
-more than one device are ROADMAP A.10.
+the load-balancing term), on one device or over a (dp, tp, ep) mesh:
+the experts split over ep (``models/moe.moe_ffn``'s ep form).
 """
 
 from __future__ import annotations
@@ -38,26 +49,51 @@ import torch
 from tpushare_torch.device import resolve_device
 from tpushare_torch.workloads.models.transformer import (TransformerConfig,
                                                          loss_fn)
+from tpushare_torch.workloads.parallel.mesh import (Mesh, Sharded,
+                                                    assert_divisible,
+                                                    fp32_sum,
+                                                    moe_param_specs,
+                                                    param_specs, place_tree,
+                                                    shard_tensor,
+                                                    sum_replica_grads)
 
 B1, B2, EPS = 0.9, 0.95, 1e-8
 
 
 def tree_leaves(tree) -> Iterator[torch.Tensor]:
-    """The tensors of a nested dict, in insertion order."""
+    """The tensors of a nested dict, in insertion order; a
+    :class:`Sharded` leaf gives its blocks in grid order."""
     if isinstance(tree, dict):
         for v in tree.values():
             yield from tree_leaves(v)
+    elif isinstance(tree, Sharded):
+        yield from tree.shards.values()
     else:
         yield tree
 
 
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of one or more nested dicts of one
-    structure."""
+    structure (over every block of a :class:`Sharded` leaf)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, Sharded):
+        return tree.map(fn, *rest)
     return fn(tree, *rest)
+
+
+def _norm_terms(tree) -> Iterator[torch.Tensor]:
+    """Every tensor of the tree once: one replica of each
+    :class:`Sharded` block."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _norm_terms(v)
+    elif isinstance(tree, Sharded):
+        for group in tree.groups():
+            yield tree.shards[group[0]]
+    else:
+        yield tree
 
 
 def _rounded(x: float, dtype: torch.dtype) -> float:
@@ -109,9 +145,14 @@ class AdamW:
     def update(self, grads: dict, state: dict, params: dict) -> None:
         gs = list(tree_leaves(grads))
         if self.clip_norm is not None:
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in gs))
+            # the global norm of the logical gradient: a replicated
+            # block counts once, every term summed on one device
+            terms = list(_norm_terms(grads))
+            dev = terms[0].device
+            norm = torch.sqrt(sum(torch.sum(g * g).to(dev) for g in terms))
             keep = norm < self.clip_norm
-            gs = [torch.where(keep, g, (g / norm.to(g.dtype))
+            gs = [torch.where(keep.to(g.device), g,
+                              (g / norm.to(g.device, g.dtype))
                               * _rounded(self.clip_norm, g.dtype))
                   for g in gs]
         lr = self.lr_at(state["count"])
@@ -162,14 +203,173 @@ def init_state(params: dict, optimizer: AdamW) -> dict:
 
 
 def _one_device(device) -> torch.device:
-    """The step's device; a mesh of several is ROADMAP A.10."""
+    """The step's device: a device or a one-device list (a mesh is
+    passed as a :class:`Mesh`)."""
     if isinstance(device, Sequence) and not isinstance(device, str):
         if len(device) != 1:
-            raise NotImplementedError(
-                f"training over {len(device)} devices needs the mesh, "
-                "which is not ported yet (ROADMAP A.10)")
+            raise ValueError(
+                f"a list of {len(device)} devices: train over them through "
+                "a mesh (parallel.mesh.make_mesh) and place_state")
         device = device[0]
     return resolve_device(device)
+
+
+# ---------------------------------------------------------------------------
+# the state over a mesh
+# ---------------------------------------------------------------------------
+
+def _structure(tree):
+    if isinstance(tree, dict):
+        return {k: _structure(v) for k, v in tree.items()}
+    return None
+
+
+def _opt_shardings(opt_state, params: dict, shard_tree: dict | None = None):
+    """The spec tree of an optimizer state, derived structurally: a
+    subtree shaped exactly like the params (AdamW's mu and nu) takes the
+    params' specs; every other leaf (the count) is replicated (None).
+    Shape-based matching would be wrong: wq and wo share a shape but not
+    a spec."""
+    specs = shard_tree if shard_tree is not None else param_specs()
+    want = _structure(params)
+
+    def rec(node):
+        if isinstance(node, dict) and _structure(node) == want:
+            return specs
+        if isinstance(node, dict):
+            return {k: rec(v) for k, v in node.items()}
+        return None
+    return rec(opt_state)
+
+
+def place_state(state: dict, mesh: Mesh, shard_tree: dict | None = None
+                ) -> dict:
+    """The train state on ``mesh``: params split per ``shard_tree``
+    (default ``param_specs``; MoE and pipeline rules pass theirs), the
+    moments mirroring them, the count and step as they are. Values are
+    kept, so this also places a restored checkpoint — or a state placed
+    on another mesh."""
+    specs = shard_tree if shard_tree is not None else param_specs()
+
+    def put(node, spec):
+        if isinstance(node, dict):
+            return {k: put(v, spec[k] if isinstance(spec, dict) else None)
+                    for k, v in node.items()}
+        if isinstance(node, (torch.Tensor, Sharded)):
+            if spec is None:
+                spec = (None,) * len(node.shape)
+            return shard_tensor(node, spec, mesh)
+        return node
+    return {"params": place_tree(state["params"], specs, mesh),
+            "opt": put(state["opt"],
+                       _opt_shardings(state["opt"], state["params"], specs)),
+            "step": int(state["step"])}
+
+
+def place_moe_state(state: dict, mesh: Mesh) -> dict:
+    """:func:`place_state` with the MoE rules (experts over ep, their ff
+    dim over tp, the router whole)."""
+    return place_state(state, mesh, shard_tree=moe_param_specs())
+
+
+def gather_state(state: dict) -> dict:
+    """A placed state as whole tensors (the first replica of every
+    block, on the mesh's first device)."""
+    return {"params": tree_map_whole(state["params"]),
+            "opt": tree_map_whole(state["opt"]), "step": int(state["step"])}
+
+
+def tree_map_whole(tree):
+    if isinstance(tree, dict):
+        return {k: tree_map_whole(v) for k, v in tree.items()}
+    return tree.full() if isinstance(tree, Sharded) else tree
+
+
+def _dp_view(params: dict, d: int | None, flat: list) -> dict:
+    """``params`` with dp rank ``d``'s blocks (every block for None)
+    swapped for detached autograd leaves sharing their storage; ``flat``
+    collects (leaf, coord, tensor)."""
+    if isinstance(params, dict):
+        return {k: _dp_view(v, d, flat) for k, v in params.items()}
+    shards = dict(params.shards)
+    for c, t in params.shards.items():
+        if d is None or c[0] == d:
+            shards[c] = t.detach().requires_grad_()
+            flat.append((params, c, shards[c]))
+    return Sharded(params.mesh, params.spec, params.shape, shards)
+
+
+def _rebuild(tree, grads: dict):
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, grads) for k, v in tree.items()}
+    return Sharded(tree.mesh, tree.spec, tree.shape,
+                   sum_replica_grads(tree, grads.get(id(tree), {})))
+
+
+def mesh_loss_and_grads(params: dict, inputs: torch.Tensor,
+                        targets: torch.Tensor, mesh: Mesh, group_loss,
+                        accum_steps: int = 1, joint=None
+                        ) -> tuple[torch.Tensor, dict]:
+    """(loss, grads) over a placed state: for each of ``accum_steps``
+    equal microbatches and each dp rank's equal batch shard of it,
+    ``group_loss(view, d, inputs, targets)`` and its gradients (one
+    autograd pass per dp rank, so one rank's activations live at a
+    time); fp32 accumulators over microbatches; then every block's
+    gradient summed over its replicas in rank order
+    (:func:`mesh.sum_replica_grads`). The loss is the rank-order mean.
+    ``joint(view, inputs, targets)`` instead takes every dp rank's loss
+    at once, in one autograd pass (the MoE step's global aux)."""
+    if isinstance(inputs, Sharded):
+        inputs = inputs.full()
+    if isinstance(targets, Sharded):
+        targets = targets.full()
+    dp = mesh.shape["dp"]
+    B = inputs.shape[0]
+    if B % (accum_steps * dp):
+        raise ValueError(f"batch {B} not divisible by accum_steps*dp "
+                         f"{accum_steps}*{dp}")
+    mb = B // accum_steps
+    bs = mb // dp
+    acc: dict[int, dict] = {}
+    losses = []
+    for a in range(accum_steps):
+        dl = []
+        for d in range(1 if joint else dp):
+            flat: list = []
+            view = _dp_view(params, None if joint else d, flat)
+            with torch.enable_grad():
+                if joint:
+                    rows = slice(a * mb, (a + 1) * mb)
+                    loss = joint(view, inputs[rows], targets[rows])
+                else:
+                    rows = slice(a * mb + d * bs, a * mb + (d + 1) * bs)
+                    loss = group_loss(view, d, inputs[rows], targets[rows])
+            gs = torch.autograd.grad(loss / dp if dp > 1 and not joint
+                                     else loss,
+                                     [t for _, _, t in flat],
+                                     allow_unused=True)
+            for (leaf, c, _), g in zip(flat, gs):
+                if g is None:
+                    continue
+                per = acc.setdefault(id(leaf), {})
+                if accum_steps == 1:
+                    per[c] = g
+                else:
+                    per[c] = per[c] + g.float() if c in per else g.float()
+            dl.append(loss.detach())
+            del view, flat, gs, loss
+        losses.append(dl[0] if len(dl) == 1
+                      else fp32_sum(dl, dl[0].device) / dp)
+    loss = losses[0]
+    if accum_steps > 1:
+        loss = fp32_sum(losses, loss.device) / accum_steps
+        for lid, per in acc.items():
+            for c, g in per.items():
+                per[c] = g / accum_steps
+    grads = _rebuild(params, acc)
+    if accum_steps > 1:
+        grads = tree_map(lambda g, p: g.to(p.dtype), grads, params)
+    return loss, grads
 
 
 def loss_and_grads(params: dict, inputs: torch.Tensor,
@@ -193,15 +393,22 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW,
     updates ``state`` in place and returns it with the step's mean loss
     (a 0-d fp32 tensor on the device). ``accum_steps > 1`` runs that many
     microbatches with fp32 gradient accumulators before the one update.
-    ``device`` is the card by default; a list of more than one device,
-    or ``ring_attention=True``, raises (ROADMAP A.10)."""
-    if ring_attention:
-        raise NotImplementedError(
-            "ring attention (sequence-parallel over a mesh) is not ported "
-            "yet (ROADMAP A.10)")
-    dev = _one_device(device)
+
+    ``device`` is the card by default, any device, or a one-device list;
+    a :class:`Mesh` trains over it (the state from :func:`place_state`),
+    the module docstring says how. ``ring_attention=True`` swaps the
+    attention for the ring over the mesh's sp axis (sp > 1): the token
+    stream is zigzag-reordered once a step (inputs, targets and RoPE
+    positions together; the mean cross entropy does not care), or, with
+    a window, the banded ring keeps the natural order."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if isinstance(device, Mesh):
+        return _mesh_step(cfg, optimizer, device, ring_attention,
+                          accum_steps)
+    if ring_attention:
+        raise ValueError("ring_attention needs an sp axis > 1")
+    dev = _one_device(device)
 
     def body(state: dict, inputs: torch.Tensor, targets: torch.Tensor):
         params = state["params"]
@@ -237,15 +444,99 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW,
     return body
 
 
+def _mesh_attention(cfg, mesh: Mesh, ring_attention: bool):
+    """The attention of a step over ``mesh``: the ring (zigzag, or
+    banded under a window), the kernels per (dp, tp) shard, or None for
+    a one-device mesh (the single-device registry per shard)."""
+    if ring_attention:
+        if mesh.shape["sp"] < 2:
+            raise ValueError("ring_attention needs an sp axis > 1")
+        from tpushare_torch.workloads.ops.ring_attention import (
+            make_ring_attention)
+        if cfg.attn_window is not None:
+            ring = make_ring_attention(mesh, causal=True,
+                                       window=cfg.attn_window)
+        else:
+            ring = make_ring_attention(mesh, causal=True, zigzag=True,
+                                       reorder=False)
+        return ring.shards
+    if mesh.size > 1:
+        from tpushare_torch.workloads.ops.attention import (
+            make_mesh_attention)
+        return make_mesh_attention(cfg, mesh)
+    return None
+
+
+def mesh_grad_fn(cfg, mesh: Mesh, ring_attention: bool = False,
+                 accum_steps: int = 1, moe: bool = False):
+    """``grad_fn(params, inputs, targets) -> (loss, grads)`` of the step
+    over ``mesh`` (placed params; grads as :class:`Sharded` leaves, every
+    replica holding its block's summed gradient) — the step's body before
+    the update."""
+    from tpushare_torch.workloads.parallel.pipeline import (group_loss,
+                                                            moe_dp_loss)
+    assert_divisible(cfg, mesh)
+    attn = _mesh_attention(cfg, mesh, ring_attention)
+    sp = mesh.shape["sp"]
+    zigzag = ring_attention and cfg.attn_window is None
+
+    def grad_fn(params: dict, inputs, targets):
+        if isinstance(inputs, Sharded):
+            inputs, targets = inputs.full(), targets.full()
+        S = inputs.shape[1]
+        if S % sp:
+            raise ValueError(f"sequence {S} not divisible by sp {sp}")
+        positions = None
+        if zigzag:
+            from tpushare_torch.workloads.ops.ring_attention import (
+                zigzag_split)
+            inputs = zigzag_split(inputs, sp, axis=1)
+            targets = zigzag_split(targets, sp, axis=1)
+            positions = zigzag_split(torch.arange(S), sp, axis=0)
+
+        def one(params, d, i, t):
+            return group_loss(params, d, i, t, cfg, mesh, attn=attn,
+                              positions=positions)
+
+        def joint(params, i, t):
+            return moe_dp_loss(params, i, t, cfg, mesh, attn=attn)
+        return mesh_loss_and_grads(params, inputs, targets, mesh, one,
+                                   accum_steps, joint=joint if moe else None)
+
+    return grad_fn
+
+
+def _mesh_step(cfg, optimizer: AdamW, mesh: Mesh, ring_attention: bool,
+               accum_steps: int, moe: bool = False):
+    grad_fn = mesh_grad_fn(cfg, mesh, ring_attention, accum_steps, moe)
+
+    def step(state: dict, inputs: torch.Tensor, targets: torch.Tensor):
+        loss, grads = grad_fn(state["params"], inputs, targets)
+        optimizer.update(grads, state["opt"], state["params"])
+        state["step"] += 1
+        return state, loss
+
+    return step
+
+
 def make_moe_train_step(cfg, optimizer: AdamW, device="cuda"):
     """Returns ``step(state, inputs, targets) -> (state, loss)`` over the
     MoE model (``init_state(init_moe_params(...), optimizer)``): the
     gradient of ``moe_loss_fn`` (on the card the attention runs the
     flash forward with LSE and its dQ / dK/dV backward), then one AdamW
-    update in place — the reference's ``make_moe_train_step`` on one
-    device. A list of more than one device raises (ROADMAP A.10: the
-    ``ep`` mesh)."""
+    update in place — the reference's ``make_moe_train_step``. A
+    :class:`Mesh` trains over (dp, tp, ep) shards (:func:`place_moe_state`):
+    the experts over ep as ``moe_ffn``'s ep form runs them. A mesh with
+    sp > 1 is refused: routing slots tokens by a cumsum over the whole
+    sequence."""
     from tpushare_torch.workloads.models.moe import moe_loss_fn
+    if isinstance(device, Mesh):
+        if device.shape["sp"] > 1:
+            raise ValueError(
+                f"the MoE step composes dp, tp and ep (mesh has sp="
+                f"{device.shape['sp']}): routing slots tokens by a cumsum "
+                "over the whole sequence")
+        return _mesh_step(cfg, optimizer, device, False, 1, moe=True)
     dev = _one_device(device)
 
     def step(state: dict, inputs: torch.Tensor, targets: torch.Tensor):
@@ -262,7 +553,8 @@ def make_train_loop(cfg: TransformerConfig, optimizer: AdamW, device,
                     n_steps: int, ring_attention: bool = False,
                     accum_steps: int = 1):
     """Returns ``loop(state, inputs, targets) -> (state, losses)``:
-    ``n_steps`` optimizer steps on the same batch, losses (n_steps,)."""
+    ``n_steps`` optimizer steps on the same batch, losses (n_steps,);
+    ``device`` as :func:`make_train_step` takes it, a mesh included."""
     body = make_train_step(cfg, optimizer, device, ring_attention,
                            accum_steps)
 

@@ -14,10 +14,19 @@ checkpointed and one last usage report is posted
 the process exits. ``TPUSHARE_TRACE_DIR`` profiles the training loop
 (``profiling.trace``).
 
-One device only in this slice: ``--dp/--sp/--tp`` above 1 and a
-multi-host pod group exit 2 (the mesh and ring attention are ROADMAP
-A.10). ``--device cpu`` runs the plain-PyTorch path; the default is the
-card, and a host without CUDA raises.
+``--dp/--sp/--tp`` train over a mesh (``parallel/mesh.make_mesh``),
+with ring attention when sp > 1, as the reference's payload; it prints
+the reference's ``mesh:`` line. The mesh spans the host's first
+dp*sp*tp CUDA devices, ``--mesh-devices`` (a comma-separated list,
+which may name one card several times), or ``main``'s ``mesh_devices``;
+a mesh the model does not tile exits 2. A checkpoint saved on one mesh
+resumes on another. Under the plugin's grant (``TPUSHARE_HBM_LIMIT_MIB``
+or ``XLA_PYTHON_CLIENT_MEM_FRACTION`` set) the allocator is capped on
+every card of the mesh (``device.apply_hbm_cap``) and the usage
+reporter runs. A multi-host pod group exits 2: multi-host training
+(ROADMAP A.10's multihost remainder) is not ported yet. ``--device
+cpu`` runs the plain-PyTorch path; the default is the card, and a host
+without CUDA raises.
 """
 
 from __future__ import annotations
@@ -31,14 +40,17 @@ import time
 
 import torch
 
-from tpushare_torch.device import resolve_device
+from tpushare_torch import consts
+from tpushare_torch.device import apply_hbm_cap, resolve_device
 from tpushare_torch.workloads import usage_report
 from tpushare_torch.workloads.checkpoint import TrainCheckpointer
 from tpushare_torch.workloads.models.transformer import (TransformerConfig,
                                                          init_params)
+from tpushare_torch.workloads.parallel.mesh import (assert_divisible,
+                                                    make_mesh)
 from tpushare_torch.workloads.profiling import trace
 from tpushare_torch.workloads.train import (init_state, make_optimizer,
-                                            make_train_step)
+                                            make_train_step, place_state)
 
 # the multi-host pod-group envs the device plugin's Allocate injects
 # (the port's copy of the reference's consts)
@@ -72,26 +84,79 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "path)")
+    p.add_argument("--mesh-devices", default=None,
+                   help="comma-separated devices of the mesh, in mesh "
+                        "order (may repeat a device)")
     args = p.parse_args(argv)
-    mesh = {"dp": args.dp or 1, "sp": args.sp, "tp": args.tp or 1}
-    if any(n > 1 for n in mesh.values()):
-        p.error(f"mesh {mesh}: training over more than one device is not "
-                "ported yet (ROADMAP A.10); run with one device")
     group = os.environ.get(ENV_GROUP_SIZE, "")
     if group not in ("", "0", "1"):
         p.error(f"{ENV_GROUP_SIZE}={group}: multi-host training is not "
-                "ported yet (ROADMAP A.10)")
+                "ported yet (ROADMAP A.10, its multihost remainder)")
+    args.error = p.error
     return args
 
 
-def main(argv: list[str] | None = None) -> int:
+def payload_config(seq: int) -> TransformerConfig:
+    """The reference payload's model."""
+    return TransformerConfig(vocab=512, d_model=128, n_heads=8, n_layers=4,
+                             d_ff=256, max_seq=seq)
+
+
+def payload_mesh(args: argparse.Namespace, cfg, mesh_devices=None):
+    """The mesh of ``--dp/--sp/--tp`` (None when none is given): over
+    ``mesh_devices``, ``--mesh-devices``, or the first dp*sp*tp devices
+    (the one CPU device named that often under ``--device cpu``). A
+    mesh that cannot be built or tiled exits 2."""
+    if mesh_devices is None and args.mesh_devices:
+        mesh_devices = [torch.device(d) for d in
+                        args.mesh_devices.split(",")]
+    if mesh_devices is None and args.dp is None and args.tp is None \
+            and args.sp == 1:
+        return None
+    dp, tp = args.dp, args.tp
+    if mesh_devices is None:
+        dp, tp = dp or 1, tp or 1
+        n = dp * args.sp * tp
+        dev = resolve_device(args.device)
+        mesh_devices = ([dev] * n if dev.type != "cuda" else
+                        [torch.device("cuda", i) for i in
+                         range(min(n, torch.cuda.device_count()))])
+    try:
+        mesh = make_mesh(dp=dp, sp=args.sp, tp=tp, devices=mesh_devices)
+        assert_divisible(cfg, mesh)
+        if args.batch % mesh.shape["dp"]:
+            raise ValueError(f"batch {args.batch} not divisible by dp "
+                             f"{mesh.shape['dp']}")
+        if args.sp > 1 and args.seq % (2 * args.sp):
+            raise ValueError(f"seq {args.seq} must divide into "
+                             f"{2 * args.sp} ring blocks")
+    except ValueError as e:
+        args.error(f"mesh: {e}")
+    return mesh
+
+
+def main(argv: list[str] | None = None, mesh_devices=None) -> int:
+    """Train, checkpoint, resume; ``mesh_devices`` names the mesh's
+    devices (in mesh order, repeats allowed) as ``infer.run`` takes
+    them."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
-    cfg = TransformerConfig(vocab=512, d_model=128, n_heads=8, n_layers=4,
-                            d_ff=256, max_seq=args.seq)
+    cfg = payload_config(args.seq)
+    mesh = payload_mesh(args, cfg, mesh_devices)
+    device = (mesh.devices.flat[0] if mesh is not None
+              else resolve_device(args.device))
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"device: {device} ({name}), one device, no mesh", flush=True)
+    if mesh is None:
+        print(f"device: {device} ({name}), one device, no mesh", flush=True)
+    else:
+        print(f"mesh: {dict(mesh.shape)} on {mesh.size} "
+              f"{device.type} devices ({name})", flush=True)
+    if os.environ.get(consts.ENV_HBM_LIMIT_MIB) or \
+            os.environ.get(consts.ENV_XLA_MEM_FRACTION):
+        apply_hbm_cap(list(mesh.devices.flat) if mesh is not None
+                      else device,
+                      float(os.environ.get(consts.ENV_HBM_LIMIT_MIB, 0)))
+    reporter = usage_report.start_reporter()
     optimizer = make_optimizer(lr=args.lr)
 
     ckpt = None
@@ -99,13 +164,17 @@ def main(argv: list[str] | None = None) -> int:
     if args.checkpoint_dir:
         ckpt = TrainCheckpointer(args.checkpoint_dir)
         if ckpt.latest_step() is not None:
-            state = ckpt.restore(cfg, device)
+            state = ckpt.restore(cfg, mesh if mesh is not None else device)
             print(f"resumed from step {int(state['step'])}", flush=True)
     if state is None:
         gen = torch.Generator(device=device).manual_seed(0)
         state = init_state(init_params(gen, cfg, device), optimizer)
+        if mesh is not None:
+            state = place_state(state, mesh)
 
-    step_fn = make_train_step(cfg, optimizer, device)
+    step_fn = make_train_step(
+        cfg, optimizer, mesh if mesh is not None else device,
+        ring_attention=mesh is not None and mesh.shape["sp"] > 1)
     gen = torch.Generator(device=device).manual_seed(1)
     inputs = torch.randint(0, cfg.vocab, (args.batch, args.seq),
                            generator=gen, device=device)
@@ -167,6 +236,8 @@ def main(argv: list[str] | None = None) -> int:
         ckpt.save(state)
     if ckpt:
         ckpt.close()
+    if reporter is not None:
+        reporter.set()
     if evicted is not None:
         # the eviction's last word: the node daemon sees the final state
         usage_report.post_now()
