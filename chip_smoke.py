@@ -160,6 +160,23 @@ then drives the main paths through their entry points at full width
   as a child over dp2 x tp2 under an HBM grant, SIGTERM-drained after
   its first step, resumed on dp2 x tp1, its last loss against an
   uninterrupted run's);
+- training over a pod group, two child processes on the card brought up
+  from the Allocate-shaped group envs, ``gloo`` over loopback between
+  them: ``train-multihost`` (``train-mesh``'s run with dp2 across the
+  processes and tp2 inside each, 3 steps: 24 of each K1–K3 a step on
+  each rank, the ranks' losses bitwise equal, the first within
+  ``MESH_LOSS_TOL`` of ``train-mesh``'s; step ms, gathered MiB a step,
+  each rank's peak), ``multihost-f32-identity`` (2-layer f32 configs
+  through dp x tp, pp x tp and MoE dp x ep with dp or pp across the
+  processes, against the one-process run of the same global mesh:
+  losses within ``MULTIHOST_LOSS_TOL``, params within
+  ``MULTIHOST_PARAM_TOL`` of scale), ``train-payload-multihost`` (the
+  training payload as a rank pair under an HBM grant: both ranks print
+  ``distributed: rank r/2`` and the same final loss), ``cuda-backend``
+  (the device backend the daemon's launcher advertises, NVML over
+  ``ctypes``: one chip of NVML's MiB, its device nodes present, as many
+  MiB devices, no health event in 2 s, ``close()`` within 2 s, and an
+  enumerating child process with no CUDA context);
 
 with the launch counts zeroed just before each path runs and read just
 after, so the run shows each path went through its kernels. It prints
@@ -4275,6 +4292,19 @@ def shard_read_cases(torch):
             checked = dict(max_abs_err=max_err(got, want), rel_err=rel,
                            rel_tol=FWD_TOL[dtype])
         ms, plain_ms = time_ms(kernel), time_ms(plain)
+        library_ms = None
+        if not int8:
+            # SDPA with a boolean mask over the shard's heads, as
+            # ragged-vs-plain times the unsharded read (no PyTorch call
+            # reads int8 rows with per-row scales)
+            import torch.nn.functional as F
+            mask = (torch.arange(S, device="cuda")[None, :]
+                    <= lens[:, None])[:, None, None, :]
+            qt, kt, vt = sq[:, :, None, :], sk.transpose(1, 2), \
+                sv.transpose(1, 2)
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=ks != hs))
+            del qt, kt, vt, mask
         live = int((lens.long() + 1).clamp(max=S).sum().item())
         elem = sq.element_size()
         kv_bytes = (int8_rows_bytes(live, ks, RAGGED_HD) if int8
@@ -4284,7 +4314,7 @@ def shard_read_cases(torch):
         row = dict(case="serve-tp2", form="B.11", B=B, S=S, H=hs, Hkv=ks,
                    hd=RAGGED_HD, dtype=dtype, tp=MESH_TP,
                    rank_order_bitwise=True, **checked, ms=ms,
-                   plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                   plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
                    bound_by=by)
         phase("mesh-vs-plain", kernel=name, **row)
         rows[name] = row
@@ -5000,8 +5030,9 @@ def train_mesh_path(torch, build, smi, train_fields):
     48 K2 and 48 K3 a step (12 layers x 4 shards), nothing else, the
     first loss against the unsharded step's, replicas bitwise equal;
     step ms beside ``train``'s and the peak with two dp replicas of every
-    leaf and its moments. Returns the launches and (cfg, plain first
-    loss) for ``train-pp``."""
+    leaf and its moments. Returns the launches, the unsharded first loss
+    for ``train-pp`` and the first loss and step ms for
+    ``train-multihost``."""
     from tpushare_torch.workloads.models.transformer import TransformerConfig
     from tpushare_torch.workloads.train import make_train_step, place_state
     cfg = TransformerConfig(**TRAIN_PRESET)
@@ -5023,6 +5054,7 @@ def train_mesh_path(torch, build, smi, train_fields):
     if not replicas_equal(torch, placed):
         raise RuntimeError("train-mesh: dp replicas differ after the steps")
     step_s = statistics.median(times[1:])
+    fields = {"first_loss": losses[0], "step_ms": step_s * 1e3}
     phase("train-mesh", mesh="dp2xtp2", batch=TRAIN_B, seq=TRAIN_S,
           steps=n, first_loss=losses[0], plain_first_loss=plain,
           first_loss_rel_err=rel, loss_tol=MESH_LOSS_TOL,
@@ -5036,7 +5068,7 @@ def train_mesh_path(torch, build, smi, train_fields):
           card=repr(smi))
     del placed
     torch.cuda.empty_cache()
-    return launches, plain
+    return launches, plain, fields
 
 
 def train_longctx_mesh_path(torch, build, infer, smi):
@@ -5368,6 +5400,452 @@ def train_payload_mesh_path(torch):
           seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# training over a pod group: two processes on the card, gloo between them
+# (A.10's multihost remainder), and the device backend behind the daemon
+# ---------------------------------------------------------------------------
+
+MULTIHOST_STEPS = 3
+# the f32 forms across two processes against the one-process step over
+# the same global mesh (the gathers are exact: what differs is at most
+# a library's choice of algorithm in another process)
+MULTIHOST_LOSS_TOL = 1e-5
+MULTIHOST_PARAM_TOL = 1e-4
+MULTIHOST_F32_STEPS = 2
+MULTIHOST_RANK = ("import sys; sys.path.insert(0, {repo!r}); "
+                  "import chip_smoke; chip_smoke.multihost_rank({kind!r})")
+# the f32 forms: (label, global mesh, DCN axis, kind)
+MULTIHOST_F32_FORMS = (
+    ("dp2xtp2", dict(dp=2, tp=2), "dp", "dense"),
+    ("pp2xtp2", dict(dp=1, tp=2, pp=2), "pp", "pp"),
+    ("moe-dp2xep2", dict(dp=2, ep=2, tp=1), "dp", "moe"),
+)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def rank_pair(argv, extra_env=None, timeout_s: float = 300.0) -> list:
+    """Both ranks of a two-process group on the card, under the
+    Allocate-shaped group envs (``TPUSHARE_GROUP_RANK`` / ``_SIZE`` /
+    ``TPUSHARE_COORDINATOR`` on 127.0.0.1): their outputs by rank once
+    both exited 0. A rank that exits non-zero fails the phase at once
+    (its peer is killed); no failure is caught or retried."""
+    import os
+    import tempfile
+    port = free_port()
+    procs, logs = [], []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=str(REPO),
+                   TPUSHARE_COORDINATOR=f"127.0.0.1:{port}",
+                   TPUSHARE_GROUP_SIZE="2", TPUSHARE_GROUP_RANK=str(rank))
+        for key in ("XLA_PYTHON_CLIENT_MEM_FRACTION",
+                    "TPUSHARE_DISABLE_ISOLATION", "MASTER_ADDR",
+                    "MASTER_PORT"):
+            env.pop(key, None)
+        for key, value in (extra_env or {}).items():
+            if value is None:
+                env.pop(key, None)       # unset in the child
+            else:
+                env[key] = value
+        log = tempfile.TemporaryFile(mode="w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(argv, cwd=REPO, env=env, stdout=log,
+                                      stderr=subprocess.STDOUT, text=True))
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs)
+                   if p.poll() not in (None, 0)]
+            if bad or time.perf_counter() - t0 > timeout_s:
+                outs = []
+                for log in logs:
+                    log.seek(0)
+                    outs.append(log.read()[-3000:])
+                raise RuntimeError(
+                    f"rank(s) {bad or 'both'} of {argv[:3]} "
+                    f"{'failed' if bad else 'timed out'}: {outs}")
+            time.sleep(0.2)
+        outs = []
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            log.seek(0)
+            out = log.read()
+            if p.returncode != 0:
+                raise RuntimeError(f"rank {rank} exited {p.returncode}: "
+                                   f"{out[-3000:]}")
+            outs.append(out)
+        return outs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+
+
+def rank_json(out: str) -> list:
+    """The JSON lines a rank printed."""
+    return [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+
+
+def multihost_rank(kind: str) -> None:
+    """One rank of the multihost phases (a child process): the process
+    group from the Allocate-shaped envs, then ``kind`` (``train``: the
+    training preset at dp2 x tp2 with this rank naming cuda:0 twice;
+    ``f32``: the f32 forms, its gathered states saved to
+    ``TPUSHARE_SMOKE_OUT`` by rank 0). Prints one JSON line per run."""
+    import os
+    import torch
+    from tpushare_torch.workloads.kernels import build
+    from tpushare_torch.workloads.ops import registry
+    from tpushare_torch.workloads.parallel import mesh as tmesh
+    from tpushare_torch.workloads.parallel import multihost
+    from tpushare_torch.workloads.train import gather_state
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not multihost.init_from_env():
+        raise SystemExit("multihost_rank: no TPUSHARE_GROUP_* envs")
+    rank = multihost.process_index()
+    runs = ([("train", None, "dp", "train")] if kind == "train"
+            else MULTIHOST_F32_FORMS)
+    for label, mesh_kw, dcn, form in runs:
+        cfg, state, inputs, targets, step, place = multihost_form(
+            torch, form, mesh_kw)
+        mesh = multihost.make_multihost_mesh(
+            **(mesh_kw or dict(dp=2, tp=2)), dcn_axis=dcn,
+            devices=[torch.device("cuda", 0)] * 2)
+        placed = place(state, mesh)
+        del state
+        torch.cuda.empty_cache()
+        B = inputs.shape[0]
+        rows = (slice(rank * B // 2, (rank + 1) * B // 2) if dcn == "dp"
+                else slice(None))
+        inputs = multihost.shard_host_batch(inputs[rows], mesh)
+        targets = multihost.shard_host_batch(targets[rows], mesh)
+        step = step(cfg, mesh)
+        n = MULTIHOST_STEPS if form == "train" else MULTIHOST_F32_STEPS
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        registry.reset_fallbacks()
+        tmesh.reset_exchanged()
+        placed, times, losses = run_steps(torch, step, placed, inputs,
+                                          targets, n)
+        launches = dict(build.LAUNCHES)
+        moved = dict(tmesh.EXCHANGED)
+        out = dict(label=label, rank=rank, losses=losses,
+                   losses_hex=[x.hex() for x in losses],
+                   step_ms=[t * 1e3 for t in times], launches=launches,
+                   fallbacks=registry.fallback_counts(),
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   gathered_mib_per_step=moved["received_bytes"] / n / 2 ** 20,
+                   sent_mib_per_step=moved["sent_bytes"] / n / 2 ** 20,
+                   gathers_per_step=moved["calls"] / n,
+                   gather_ms_per_step=moved["seconds"] / n * 1e3)
+        if form != "train":
+            whole = gather_state(placed)["params"]
+            if rank == 0:
+                torch.save(whole, os.path.join(
+                    os.environ["TPUSHARE_SMOKE_OUT"], f"{label}.pt"))
+            del whole
+        print(json.dumps(out), flush=True)
+        del placed, inputs, targets
+        torch.cuda.empty_cache()
+
+
+def multihost_form(torch, form: str, mesh_kw):
+    """(cfg, state, inputs, targets, make_step(cfg, mesh), place) of a
+    multihost run, the state and batch from the same seed as the one-
+    process run it is held against."""
+    from tpushare_torch.workloads.models.moe import MoEConfig
+    from tpushare_torch.workloads.models.transformer import TransformerConfig
+    from tpushare_torch.workloads.parallel import pipeline
+    from tpushare_torch.workloads.train import (make_moe_train_step,
+                                                make_train_step,
+                                                place_moe_state, place_state)
+    if form == "train":
+        cfg = TransformerConfig(**TRAIN_PRESET)
+        opt, state, inputs, targets = train_setup(torch, cfg, 6, TRAIN_B,
+                                                  TRAIN_S)
+        return (cfg, state, inputs, targets,
+                lambda cfg, mesh: make_train_step(cfg, opt, mesh),
+                place_state)
+    if form == "moe":
+        cfg = MoEConfig(**{**MOE_F32, "max_seq": 256,
+                           "capacity_factor": 1.0}, dtype=torch.float32)
+    else:
+        cfg = TransformerConfig(vocab=512, d_model=384, n_heads=4,
+                                n_kv_heads=2, n_layers=2, d_ff=768,
+                                max_seq=256, dtype=torch.float32)
+    opt, state, inputs, targets = train_setup(torch, cfg, 21, 4, 256)
+    if form == "pp":
+        return (cfg, state, inputs, targets,
+                lambda cfg, mesh: pipeline.make_pp_train_step(
+                    cfg, opt, mesh, n_micro=2),
+                pipeline.place_pp_state)
+    if form == "moe":
+        return (cfg, state, inputs, targets,
+                lambda cfg, mesh: make_moe_train_step(cfg, opt, mesh),
+                place_moe_state)
+    return (cfg, state, inputs, targets,
+            lambda cfg, mesh: make_train_step(cfg, opt, mesh), place_state)
+
+
+def multihost_cmd(kind: str) -> list:
+    return [sys.executable, "-c", MULTIHOST_RANK.format(repo=str(REPO),
+                                                        kind=kind)]
+
+
+def train_multihost_path(torch, smi, mesh_fields):
+    """``train-mesh``'s run across two processes: the training preset at
+    dp2 (across the processes, gloo over loopback) x tp2 (inside each,
+    cuda:0 named twice), B=8 x S=1024, 3 steps. Each rank launches
+    24 K1, 24 K2 and 24 K3 a step (48 of each summed, as ``train-mesh``),
+    nothing else; both ranks' losses are equal bit for bit, the first
+    within MESH_LOSS_TOL of the one-process ``train-mesh`` run's. Returns
+    the launches summed over the ranks."""
+    outs = [rank_json(out)[0] for out in rank_pair(multihost_cmd("train"))]
+    per = TRAIN_PRESET["n_layers"] * 2     # layers x the rank's tp shards
+    n = MULTIHOST_STEPS
+    for o in outs:
+        got = {k: v for k, v in o["launches"].items() if v}
+        if got != {k: n * per for k in TRAIN_KERNELS}:
+            raise RuntimeError(f"train-multihost rank {o['rank']} "
+                               f"launches {got}")
+        if o["fallbacks"]:
+            raise RuntimeError(f"train-multihost fell back: {o['fallbacks']}")
+    if outs[0]["losses_hex"] != outs[1]["losses_hex"]:
+        raise RuntimeError(f"train-multihost ranks' losses differ: "
+                           f"{outs[0]['losses']} / {outs[1]['losses']}")
+    losses = outs[0]["losses"]
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"train-multihost losses not finite and falling: "
+                           f"{losses}")
+    rel = abs(losses[0] - mesh_fields["first_loss"]) / \
+        abs(mesh_fields["first_loss"])
+    if not rel <= MESH_LOSS_TOL:
+        raise RuntimeError(f"train-multihost first loss {losses[0]} vs "
+                           f"train-mesh's {mesh_fields['first_loss']}: "
+                           f"{rel} > {MESH_LOSS_TOL}")
+    step_ms = [statistics.median(o["step_ms"][1:]) for o in outs]
+    phase("train-multihost", mesh="dp2(processes)xtp2", processes=2,
+          transport="gloo", batch=TRAIN_B, seq=TRAIN_S, steps=n,
+          first_loss=losses[0], last_loss=losses[-1],
+          ranks_bitwise_equal=True,
+          train_mesh_first_loss=mesh_fields["first_loss"],
+          first_loss_rel_err=rel, loss_tol=MESH_LOSS_TOL,
+          step_ms_by_rank=step_ms, train_mesh_step_ms=mesh_fields["step_ms"],
+          first_step_ms_by_rank=[o["step_ms"][0] for o in outs],
+          gathered_mib_per_step=outs[0]["gathered_mib_per_step"],
+          sent_mib_per_step=outs[0]["sent_mib_per_step"],
+          gathers_per_step=outs[0]["gathers_per_step"],
+          gather_ms_per_step_by_rank=[o["gather_ms_per_step"] for o in outs],
+          peak_mem_gib_by_rank=[o["peak_mem_gib"] for o in outs],
+          **{f"{k}_per_step_per_rank": per for k in TRAIN_KERNELS},
+          card=repr(smi))
+    return {k: sum(o["launches"][k] for o in outs)
+            for k in outs[0]["launches"]}
+
+
+def multihost_f32_identity(torch, build):
+    """Three 2-layer f32 forms trained 2 steps as two processes on the
+    card — dp (across them) x tp2, pp (across them) x tp2 and MoE dp
+    (across them) x ep2 — against the one-process run of the same
+    global mesh on the card: the ranks' losses bitwise equal, within
+    MULTIHOST_LOSS_TOL of the one-process losses, and every parameter
+    within MULTIHOST_PARAM_TOL of its leaf's scale; the kernels
+    launched on both sides."""
+    import tempfile
+    from tpushare_torch.workloads.train import gather_state, tree_leaves
+    from tpushare_torch.workloads.parallel.mesh import make_mesh
+    fields = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [rank_json(out) for out in rank_pair(
+            multihost_cmd("f32"), {"TPUSHARE_SMOKE_OUT": tmp})]
+        for i, (label, mesh_kw, _, form) in enumerate(MULTIHOST_F32_FORMS):
+            r0, r1 = outs[0][i], outs[1][i]
+            if r0["losses_hex"] != r1["losses_hex"]:
+                raise RuntimeError(f"multihost-f32 {label}: ranks differ "
+                                   f"{r0['losses']} / {r1['losses']}")
+            if not any(r0["launches"].get(k) for k in TRAIN_KERNELS):
+                raise RuntimeError(f"multihost-f32 {label}: no kernel "
+                                   f"launched {r0['launches']}")
+            cfg, state, inputs, targets, step, place = multihost_form(
+                torch, form, mesh_kw)
+            n = math.prod(mesh_kw.values())
+            mesh = make_mesh(devices=[torch.device("cuda", 0)] * n,
+                             **mesh_kw)
+            placed = place(state, mesh)
+            build.reset_launches()
+            placed, _, losses = run_steps(torch, step(cfg, mesh), placed,
+                                          inputs, targets,
+                                          MULTIHOST_F32_STEPS)
+            launched = {k: build.LAUNCHES[k] for k in TRAIN_KERNELS}
+            loss_err = max(abs(a - b) / abs(b)
+                           for a, b in zip(r0["losses"], losses))
+            got = torch.load(f"{tmp}/{label}.pt", map_location="cuda")
+            want = gather_state(placed)["params"]
+            param_err = max(max_err(a, b) / b.abs().max().item()
+                            for a, b in zip(tree_leaves(got),
+                                            tree_leaves(want)))
+            fields.update({f"{label}_loss_rel_err": loss_err,
+                           f"{label}_param_rel_err": param_err,
+                           f"{label}_gathered_mib_per_step":
+                               r0["gathered_mib_per_step"],
+                           f"{label}_launches_per_rank": r0["launches"],
+                           f"{label}_one_process_launches": launched})
+            if not (loss_err <= MULTIHOST_LOSS_TOL
+                    and param_err <= MULTIHOST_PARAM_TOL
+                    and all(launched.values())):
+                raise RuntimeError(f"multihost-f32 {label}: loss {loss_err}, "
+                                   f"params {param_err}, launches "
+                                   f"{launched}")
+            del state, placed, got, want
+            torch.cuda.empty_cache()
+    phase("multihost-f32-identity", forms=len(MULTIHOST_F32_FORMS),
+          processes=2, steps=MULTIHOST_F32_STEPS,
+          loss_tol=MULTIHOST_LOSS_TOL, param_tol=MULTIHOST_PARAM_TOL,
+          ranks_bitwise_equal=True, **fields)
+
+
+def train_payload_multihost_path(torch):
+    """``python -m tpushare_torch.workloads.train_payload`` as a rank
+    pair under the Allocate-shaped group envs, an HBM grant and a
+    granted ``TPU_VISIBLE_CHIPS=0`` (which the payload turns into
+    ``CUDA_VISIBLE_DEVICES``): dp2 across the ranks x tp2 inside each
+    (cuda:0 named twice). Both ranks print ``distributed: rank r/2``,
+    their allocator cap and the same final loss."""
+    import re
+    t0 = time.perf_counter()
+    outs = rank_pair(
+        [sys.executable, "-m", "tpushare_torch.workloads.train_payload",
+         "--steps", "6", "--batch", "8", "--seq", "64", "--dp", "2",
+         "--tp", "2", "--mesh-devices", "cuda:0,cuda:0"],
+        {"TPUSHARE_HBM_LIMIT_MIB": "16384", "TPU_VISIBLE_CHIPS": "0",
+         "CUDA_VISIBLE_DEVICES": None})
+    finals = []
+    for rank, out in enumerate(outs):
+        if f"distributed: rank {rank}/2" not in out or \
+                "allocator cap:" not in out or \
+                "mesh: {'dp': 2, 'sp': 1, 'tp': 2" not in out:
+            raise RuntimeError(f"train-payload-multihost rank {rank}: "
+                               f"{out[-2000:]}")
+        finals.append(re.findall(r"final loss=([0-9.]+)", out)[-1])
+    if finals[0] != finals[1]:
+        raise RuntimeError(f"train-payload-multihost final losses differ: "
+                           f"{finals}")
+    phase("train-payload-multihost", processes=2, mesh="dp2(processes)xtp2",
+          steps=6, final_loss=float(finals[0]), ranks_equal=True,
+          seconds=time.perf_counter() - t0)
+
+
+CUDA_BACKEND_CHILD = (
+    "import os, sys; sys.path.insert(0, {repo!r}); "
+    "from tpushare_torch.tpu.native import NvmlBackend; "
+    "b = NvmlBackend(); print('ready', os.getpid(), len(b.devices()), "
+    "'torch' in sys.modules, flush=True); sys.stdin.readline(); b.close()")
+# a CUDA context holds hundreds of MiB of the card; the enumerating
+# child may move the card's used memory by less than this
+CONTEXT_FREE_MIB = 64
+
+
+def smi_compute_pids() -> list[int]:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=30).stdout
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def cuda_backend_path(torch):
+    """The port's device backend (``tpushare_torch.tpu.native``) on the
+    card, as the launcher hands it to the daemon: one chip whose MiB are
+    NVML's total (the CUDA total beside it), every device node it would
+    mount present, as many MiB fake devices as ``hbm_mib``, no health
+    event in 2 s, ``close()`` within 2 s; and a child process that
+    enumerates holds no CUDA context (its pid is absent from
+    ``nvidia-smi --query-compute-apps``, and the card's used memory
+    does not grow by a context's worth while it holds NVML open) and
+    imports no torch."""
+    import os
+    import queue
+    from tpushare_torch.tpu.device import fake_device_ids
+    from tpushare_torch.tpu.native import Nvml, NvmlBackend
+    t0 = time.perf_counter()
+    backend = NvmlBackend()
+    events = backend.subscribe_health()
+    try:
+        chips = backend.devices()
+        nvml = Nvml()
+        total = nvml.memory_total(nvml.handle(0))
+        if len(chips) != torch.cuda.device_count() or len(chips) != 1:
+            raise RuntimeError(f"cuda-backend: {len(chips)} chips")
+        chip = chips[0]
+        cuda_mib = torch.cuda.get_device_properties(0).total_memory // 2 ** 20
+        missing = [p for p in chip.dev_paths if not os.path.exists(p)]
+        n_fake = len(fake_device_ids(chip))
+        time.sleep(2.0)
+        seen = []
+        while True:
+            try:
+                seen.append(events.get_nowait())
+            except queue.Empty:
+                break
+    finally:
+        c0 = time.perf_counter()
+        backend.close()
+        close_s = time.perf_counter() - c0
+    if chip.hbm_mib != total // 2 ** 20 or missing or \
+            n_fake != chip.hbm_mib or seen or close_s > 2.0:
+        raise RuntimeError(f"cuda-backend: hbm_mib {chip.hbm_mib} vs NVML "
+                           f"{total // 2 ** 20}, missing {missing}, fake "
+                           f"{n_fake}, events {seen}, close {close_s} s")
+    torch.cuda.synchronize()
+    used_mib = smi_memory_mib()
+    child = subprocess.Popen(
+        [sys.executable, "-c", CUDA_BACKEND_CHILD.format(repo=str(REPO))],
+        cwd=REPO, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        line = child.stdout.readline().split()
+        if not line or line[0] != "ready":
+            raise RuntimeError(f"cuda-backend child: {line} "
+                               f"{child.stdout.read()[-2000:]}")
+        pid, n_child, child_torch = int(line[1]), int(line[2]), line[3]
+        pids = smi_compute_pids()
+        grew_mib = smi_memory_mib() - used_mib
+        child.stdin.write("\n")
+        child.stdin.flush()
+        finish(child, "the enumerating child", 30)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    # no CUDA context: absent from nvidia-smi's compute processes, and
+    # the card's used memory as it was before the child enumerated
+    if pid in pids or n_child != 1 or child_torch != "False" or \
+            grew_mib >= CONTEXT_FREE_MIB:
+        raise RuntimeError(f"cuda-backend child {pid}: in nvidia-smi's "
+                           f"compute apps {pids}, {n_child} chips, torch "
+                           f"imported {child_torch}, the card's used "
+                           f"memory grew {grew_mib} MiB")
+    phase("cuda-backend", chips=len(chips), chip_id=chip.chip_id,
+          generation=chip.generation, index=chip.index, minor=chip.minor,
+          pci_bdf=chip.pci_bdf, hbm_mib=chip.hbm_mib,
+          nvml_total_mib=total // 2 ** 20, cuda_total_mib=cuda_mib,
+          dev_paths=list(chip.dev_paths), fake_devices_mib=n_fake,
+          health_events_2s=len(seen), close_s=close_s,
+          child_pid=pid, child_context=False, child_imports_torch=False,
+          child_card_used_grew_mib=grew_mib,
+          smi_compute_pids=pids, smi_lists_this_process=os.getpid() in pids,
+          seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5506,8 +5984,8 @@ def main() -> int:
     train_f32_parity(torch, build, moe=True)
     # training over a mesh: B.10 and B.8 per shard, ring, GPipe, ep
     mesh_t0 = time.perf_counter()
-    paths["train-mesh"], mesh_plain = train_mesh_path(torch, build, smi,
-                                                      train_fields)
+    paths["train-mesh"], mesh_plain, mesh_fields = train_mesh_path(
+        torch, build, smi, train_fields)
     paths["train-longctx-mesh"] = train_longctx_mesh_path(torch, build,
                                                           infer, smi)
     train_ring_path(torch, build, smi)
@@ -5516,6 +5994,15 @@ def main() -> int:
     train_mesh_f32_identity(torch, build)
     train_payload_mesh_path(torch)
     phase("mesh-train-phases", seconds=time.perf_counter() - mesh_t0)
+    # training over a pod group (two processes on the card, gloo between
+    # them) and the device backend the daemon advertises
+    torch.cuda.empty_cache()
+    multihost_t0 = time.perf_counter()
+    paths["train-multihost"] = train_multihost_path(torch, smi, mesh_fields)
+    multihost_f32_identity(torch, build)
+    train_payload_multihost_path(torch)
+    cuda_backend_path(torch)
+    phase("multihost-phases", seconds=time.perf_counter() - multihost_t0)
     # last: a serve-traffic run right after the profiler read lower
     serve_spec_cost(torch, infer)
 
@@ -5649,13 +6136,13 @@ def main() -> int:
     for name, form, source, replaces, mesh_paths_of in (
             ("flash_fwd", "B.10", "flash_fwd.cu",
              "tpushare/workloads/ops/attention.py:634",
-             ("train-mesh", "train-pp", "moe-train-ep")),
+             ("train-mesh", "train-pp", "moe-train-ep", "train-multihost")),
             ("flash_bwd_dq", "B.10", "flash_bwd.cu",
              "tpushare/workloads/ops/attention.py:634",
-             ("train-mesh", "train-pp", "moe-train-ep")),
+             ("train-mesh", "train-pp", "moe-train-ep", "train-multihost")),
             ("flash_bwd_dkv", "B.10", "flash_bwd.cu",
              "tpushare/workloads/ops/attention.py:634",
-             ("train-mesh", "train-pp", "moe-train-ep")),
+             ("train-mesh", "train-pp", "moe-train-ep", "train-multihost")),
             ("splash_fwd", "B.8", "splash_fwd.cu",
              "tpushare/workloads/ops/registry.py:494",
              ("train-longctx-mesh",)),
@@ -5672,7 +6159,9 @@ def main() -> int:
             "route": "cuda",
             "source": f"tpushare_torch/workloads/kernels/{source}",
             "replaces": replaces, "form": form,
-            "checked_in": "mesh-train-vs-plain, train-mesh-f32-identity",
+            "checked_in": "mesh-train-vs-plain, train-mesh-f32-identity"
+                          + (", multihost-f32-identity" if form == "B.10"
+                             else ""),
             "launches": sum(counts.values()), "launches_by_path": counts,
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},

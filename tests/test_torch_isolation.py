@@ -1,7 +1,8 @@
 """Isolation and device rules of the PyTorch port.
 
 - importing every module of ``tpushare_torch`` loads neither ``jax`` nor
-  any ``tpushare.`` module (checked in a fresh interpreter);
+  any ``tpushare.`` module (checked in a fresh interpreter), and the
+  device backend's modules load no ``torch`` either;
 - without CUDA the entry points raise unless the caller passes
   ``device="cpu"``;
 - a CPU tensor never reaches the kernel loader: the wrappers hand it to
@@ -44,6 +45,25 @@ def test_import_loads_no_jax_and_no_reference_module():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
     assert "tpushare_torch.workloads.serving" in modules
+    assert "tpushare_torch.workloads.parallel.multihost" in modules
+    assert "tpushare_torch.tpu.native" in modules
+
+
+def test_device_backend_modules_import_neither_torch_nor_jax():
+    """The daemon's image needs neither framework: the CUDA backend's
+    modules (NVML over ctypes) load no ``torch``, no ``jax`` and no
+    ``tpushare`` module."""
+    modules = [f"tpushare_torch.tpu.{m}" for m in
+               ("backend", "device", "native", "kernel_stats")]
+    code = ("import importlib, json, sys\n"
+            f"for m in {modules!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print(json.dumps(sorted(m for m in sys.modules if "
+            "m.split('.')[0] in ('torch', 'jax', 'tpushare'))))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 @pytest.fixture()

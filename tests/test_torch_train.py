@@ -26,6 +26,7 @@ import optax  # noqa: E402
 from tpushare.workloads import train as jtrain  # noqa: E402
 from tpushare.workloads.models import transformer as jt  # noqa: E402
 from tpushare.workloads.parallel.mesh import make_mesh  # noqa: E402
+from tpushare_torch import consts  # noqa: E402
 from tpushare_torch.workloads import bridge, train  # noqa: E402
 from tpushare_torch.workloads import train_payload  # noqa: E402
 from tpushare_torch.workloads.checkpoint import TrainCheckpointer  # noqa: E402
@@ -344,12 +345,14 @@ def test_payload_resumes_from_its_checkpoint(tmp_path, capsys):
     (["--dp", "3"], {}, "batch 8 not divisible by dp 3"),
     (["--sp", "3"], {}, "seq 64 must divide into 6 ring blocks"),
     (["--tp", "3"], {}, "n_heads 8 not divisible by tp 3"),
-    ([], {train_payload.ENV_GROUP_SIZE: "2"}, "A.10"),
+    ([], {consts.ENV_GROUP_SIZE: "2"}, "no coordinator address"),
 ])
 def test_payload_refuses_a_mesh(argv, env, said, capsys, monkeypatch):
     """A mesh the payload's model or batch does not tile exits 2 with
-    the reason; a multi-host pod group is still refused (ROADMAP A.10's
-    multihost remainder)."""
+    the reason; so does a pod group with no coordinator address, with
+    the reference's words."""
+    for name in (consts.ENV_COORDINATOR, "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
     for name, value in env.items():
         monkeypatch.setenv(name, value)
     with pytest.raises(SystemExit) as exc:

@@ -103,6 +103,20 @@ ENV_TRACE_DIR = "TPUSHARE_TRACE_DIR"
 # Memory accounting units of the env contract's unit-scaled figures.
 MIB = "MiB"
 GIB = "GiB"
+# One kubelet device per unit of HBM: ``<chipID>-_-<j>``.
+FAKE_ID_SEP = "-_-"
+
+# The pod-group contract: the group label and its size, the rank the
+# extender stamps at bind, the rendezvous address, and the envs the
+# device plugin's Allocate turns them into (the reference's names).
+GROUP_LABEL = "tpushare.aliyun.com/group"
+GROUP_SIZE_LABEL = "tpushare.aliyun.com/group-size"
+GROUP_RANK_ANNOTATION = "tpushare.aliyun.com/group-rank"
+COORDINATOR_ANNOTATION = "tpushare.aliyun.com/coordinator"
+ENV_GROUP = "TPUSHARE_GROUP"
+ENV_GROUP_RANK = "TPUSHARE_GROUP_RANK"
+ENV_GROUP_SIZE = "TPUSHARE_GROUP_SIZE"
+ENV_COORDINATOR = "TPUSHARE_COORDINATOR"
 
 # Chip pressure at which the admission watermark is cut.
 PRESSURE_ENGAGE = 0.90

@@ -22,6 +22,36 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
+def visible_cuda_env(environ) -> dict[str, str]:
+    """The CUDA envs that pin a payload to the chips Allocate granted:
+    ``CUDA_DEVICE_ORDER=PCI_BUS_ID`` (CUDA's indices in NVML's PCI bus
+    order, the index the port's device backend advertises) and
+    ``CUDA_VISIBLE_DEVICES`` = ``TPU_VISIBLE_CHIPS`` — which libtpu
+    honours and CUDA does not. Empty when Allocate set no chip list (or
+    a poisoned one) or the caller already chose ``CUDA_VISIBLE_DEVICES``.
+    Without it, a pod under the common ``NVIDIA_VISIBLE_DEVICES=all``
+    runtime would allocate on ``cuda:0``, whichever chip the extender
+    chose."""
+    chips = [c.strip() for c in
+             environ.get(consts.ENV_TPU_VISIBLE_CHIPS, "").split(",")]
+    if environ.get("CUDA_VISIBLE_DEVICES") is not None or \
+            not all(c.isdigit() for c in chips):
+        return {}
+    return {"CUDA_DEVICE_ORDER": "PCI_BUS_ID",
+            "CUDA_VISIBLE_DEVICES": ",".join(chips)}
+
+
+def apply_visible_chips(environ=None) -> dict[str, str]:
+    """Set :func:`visible_cuda_env` in this process's environment; call
+    it before the first CUDA call (CUDA reads them once, when it
+    initializes). Returns what was set."""
+    import os
+    env = os.environ if environ is None else environ
+    update = visible_cuda_env(env)
+    env.update(update)
+    return update
+
+
 def chunk_mib_for(memory_unit: str = consts.MIB, chunk_mib: int | None = None
                   ) -> int:
     """MiB one resource unit of the Allocate env contract stands for."""

@@ -8,7 +8,10 @@ reference's (``save``, ``latest_step``, ``restore``, ``close``, the last
 ``max_to_keep`` saves kept). A state trained over a mesh is saved as
 whole tensors, gathered from its shards, and ``restore`` places a save
 onto the device or mesh it is given — so a checkpoint saved on one mesh
-restores onto another, as the reference's orbax target does. The
+restores onto another, as the reference's orbax target does. A state
+over a mesh that spans processes (a pod group) is refused both ways:
+every member would write the whole state to its own disk, as the
+reference's payload refuses ``--checkpoint-dir`` under a group. The
 format is the port's own: one
 ``torch.save`` file per step, ``step_<n>.pt``, holding
 ``{"params", "opt", "step"}``, written to a temporary name and moved into
@@ -33,7 +36,8 @@ from tpushare_torch.device import resolve_device
 from tpushare_torch.workloads.models.transformer import (TransformerConfig,
                                                          param_shapes)
 from tpushare_torch.workloads.parallel.mesh import Mesh
-from tpushare_torch.workloads.train import gather_state, place_state, tree_map
+from tpushare_torch.workloads.train import (gather_state, place_state,
+                                            sharded_leaves, tree_map)
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -98,12 +102,25 @@ def _check_layout(step: int, name: str, tree, shapes, dtype, what) -> None:
                          f"{what}")
 
 
+def _state_mesh(state: dict) -> Mesh | None:
+    leaf = next(sharded_leaves(state["params"]), None)
+    return leaf.mesh if leaf is not None else None
+
+
+def _single_host(mesh: Mesh | None) -> None:
+    if mesh is not None and mesh.multiprocess:
+        raise ValueError("checkpoints are single-host only: a state over "
+                         "a mesh of several processes would need a shared "
+                         "filesystem and per-process shards")
+
+
 class TrainCheckpointer(_StepFiles):
     """Save/restore the train state, keeping the last ``max_to_keep``."""
 
     def save(self, state: dict) -> int:
         """Save ``state`` — on one device, or placed on a mesh, whose
         shards are gathered into whole tensors first."""
+        _single_host(_state_mesh(state))
         state = gather_state(state)
         return self._write({"params": state["params"], "opt": state["opt"],
                             "step": int(state["step"])})
@@ -117,6 +134,7 @@ class TrainCheckpointer(_StepFiles):
         or a :class:`Mesh`, whose shards it is placed into
         (``train.place_state``)."""
         mesh = where if isinstance(where, Mesh) else None
+        _single_host(mesh)
         step, state = self._load(step, "cpu" if mesh else where)
         shapes = param_shapes(cfg)
         for name in ("params", "mu", "nu"):

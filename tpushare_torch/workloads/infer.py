@@ -62,7 +62,9 @@ the ``ERR_SERVING_MESH_*`` message.
 
 The pod's side of the device plugin's contract, as the reference
 payload's: a ``TPU_VISIBLE_CHIPS`` poisoned by a failed Allocate exits
-3; the allocator cap (``device.apply_hbm_cap``: Allocate's
+3; a granted one becomes ``CUDA_VISIBLE_DEVICES`` (in PCI bus order,
+``device.apply_visible_chips``) unless the caller set that; the
+allocator cap (``device.apply_hbm_cap``: Allocate's
 ``XLA_PYTHON_CLIENT_MEM_FRACTION``, else the fraction of the card the
 HBM limit buys) is set on every card the run allocates on — each card
 of a ``--tp``/``--pp`` mesh — before the first allocation, unless
@@ -91,7 +93,8 @@ import numpy as np
 import torch
 
 from tpushare_torch import consts
-from tpushare_torch.device import apply_hbm_cap, resolve_device
+from tpushare_torch.device import (apply_hbm_cap, apply_visible_chips,
+                                   resolve_device)
 from tpushare_torch.workloads import usage_report
 
 # model presets by HBM budget (MiB) — the reference's table
@@ -744,6 +747,7 @@ def main(argv: list[str] | None = None) -> int:
         # the plugin poisoned the env: fail loudly
         print(f"allocation failed: {visible}", file=sys.stderr, flush=True)
         return 3
+    apply_visible_chips()
     apply_hbm_cap(payload_devices(args), hbm_limit(args))
     usage_report.start_reporter()
     run(args)

@@ -8,10 +8,18 @@ The reference is one controller over a device grid: XLA runs each
 shard's program on its chip and inserts the collectives. The port keeps
 the one controller: :class:`Mesh` names the axes of an explicit grid of
 ``torch.device``s, every shard's tensors live on their grid device, and
-the collectives are explicit copies and sums in rank order. No process
-group is involved. A grid may name one device several times — how a
-2×2 mesh runs on one card or on the CPU; NCCL, which refuses two ranks
-on one GPU, is not needed.
+the collectives are explicit copies and sums in rank order. A grid may
+name one device several times — how a 2×2 mesh runs on one card or on
+the CPU; NCCL, which refuses two ranks on one GPU, is not needed.
+
+**Across processes** (a pod group, ``multihost.make_multihost_mesh``)
+each process is that controller for its own coordinates, and the grid
+records every coordinate's process. Where a sum crosses processes, the
+operands are gathered exactly over ``torch.distributed``'s ``gloo``
+group (:func:`exchange`) and summed in the one-process rank order in
+fp32, so the result is the one-process result bit for bit
+(:func:`gather_replica_grads`); a pipeline stage handoff across
+processes is a :class:`SendStage` / :class:`RecvStage` pair.
 
 **Training.** ``make_mesh`` builds the reference's five-axis
 ``("dp", "sp", "tp", "ep", "pp")`` grid. ``place_params`` splits each
@@ -45,6 +53,8 @@ first device.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -63,30 +73,74 @@ class Mesh:
     ``Mesh(grid, ("tp", "pp"))`` with ``grid[r][s]`` the device of tp
     rank r in pipeline stage s (``("dp", "tp")`` for a slot engine's
     ragged read). ``shape`` maps each axis to its size, as a JAX mesh's
-    does."""
+    does.
 
-    def __init__(self, devices, axis_names: tuple[str, ...]) -> None:
+    A mesh over the processes of a group (``multihost.
+    make_multihost_mesh``) also carries ``processes``, the grid of the
+    process that owns each coordinate, and ``process_index``, this
+    process's rank: only this process's coordinates hold a device (the
+    others ``None``), and the collectives of the step reach the other
+    coordinates over ``torch.distributed``'s default group."""
+
+    def __init__(self, devices, axis_names: tuple[str, ...],
+                 processes=None, process_index: int = 0) -> None:
         given = np.asarray(devices, dtype=object)
         grid = np.empty(given.shape, dtype=object)
         for idx in np.ndindex(grid.shape):
-            grid[idx] = torch.device(given[idx])
+            grid[idx] = None if given[idx] is None else \
+                torch.device(given[idx])
         if grid.ndim != len(axis_names):
             raise ValueError(f"a {grid.ndim}-d device grid needs "
                              f"{grid.ndim} axis names, got {axis_names}")
         self.devices = grid
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, grid.shape))
+        self.processes = (None if processes is None else
+                          np.asarray(processes, dtype=int).reshape(
+                              grid.shape))
+        self.process_index = int(process_index)
 
     @property
     def size(self) -> int:
         return int(self.devices.size)
 
+    @property
+    def multiprocess(self) -> bool:
+        """Whether the grid spans more than one process."""
+        return self.processes is not None and \
+            len(set(self.processes.flat)) > 1
+
     def coords(self):
         """Every grid coordinate, in rank order (the last axis fastest)."""
         return list(np.ndindex(self.devices.shape))
 
+    def process_of(self, coord: tuple) -> int:
+        """The process that owns grid coordinate ``coord``."""
+        return 0 if self.processes is None else int(self.processes[coord])
+
+    def is_local(self, coord: tuple) -> bool:
+        """Whether this process owns grid coordinate ``coord``."""
+        return self.process_of(coord) == self.process_index
+
+    def owner(self, **coords: int) -> int:
+        """The process owning the given axis coordinates (absent 0)."""
+        return self.process_of(tuple(coords.get(a, 0)
+                                     for a in self.axis_names))
+
+    def local_ranks(self, axis: str) -> list[int]:
+        """The ranks along ``axis`` of which this process owns a
+        coordinate, in order."""
+        k = self.axis_names.index(axis)
+        return sorted({c[k] for c in self.coords() if self.is_local(c)})
+
+    def first_device(self) -> torch.device:
+        """This process's first grid device."""
+        return next(self.devices[c] for c in self.coords()
+                    if self.is_local(c))
+
     def device(self, **coords: int) -> torch.device:
-        """The device at the given axis coordinates (absent axes 0)."""
+        """The device at the given axis coordinates (absent axes 0);
+        ``None`` where another process owns them."""
         return self.devices[tuple(coords.get(a, 0)
                                   for a in self.axis_names)]
 
@@ -303,21 +357,34 @@ class Sharded:
 
     def groups(self) -> list[list[tuple]]:
         """The replica groups: the coordinates holding each block, in
-        rank order, blocks in rank order."""
+        rank order, blocks in rank order (every process's coordinates
+        on a mesh over several)."""
         split = [i for i, a in enumerate(self.mesh.axis_names)
                  if a in self.spec]
         keyed: dict[tuple, list] = {}
-        for c in self.shards:
+        for c in (self.mesh.coords() if self.mesh.multiprocess
+                  else self.shards):
             keyed.setdefault(tuple(c[i] for i in split), []).append(c)
         return list(keyed.values())
 
     def full(self, device=None) -> torch.Tensor:
-        """The whole array on ``device`` (default the first grid
-        device), from the first replica of every block."""
+        """The whole array on ``device`` (default this process's first
+        grid device), from the first replica of every block. On a mesh
+        over several processes each block comes from the process that
+        owns its first replica, so every process must call it, in the
+        same order."""
         dev = torch.device(device) if device is not None else \
-            self.mesh.devices.flat[0]
+            self.mesh.first_device()
         out = torch.empty(self.shape, dtype=self.dtype, device=dev)
-        for group in self.groups():
+        groups = self.groups()
+        if self.mesh.multiprocess:
+            blocks = exchange({i: self.shards[g[0]]
+                               for i, g in enumerate(groups)
+                               if self.mesh.is_local(g[0])}, device=dev)
+            for i, group in enumerate(groups):
+                out[self.index(group[0])] = blocks[i].to(dev)
+            return out
+        for group in groups:
             out[self.index(group[0])] = self.shards[group[0]].to(dev)
         return out
 
@@ -340,6 +407,8 @@ def shard_tensor(t, spec: tuple, mesh: Mesh) -> Sharded:
         t = t.full()
     shards = {}
     for c in mesh.coords():
+        if not mesh.is_local(c):
+            continue
         part = t[_shard_index(mesh, spec, tuple(t.shape), c)]
         shards[c] = torch.empty(part.shape, dtype=t.dtype,
                                 device=mesh.devices[c]).copy_(part)
@@ -384,6 +453,23 @@ def place_params(params: dict, mesh: Mesh) -> dict:
 def place_data(tokens: torch.Tensor, mesh: Mesh) -> Sharded:
     """Tokens (B, S) on ``mesh``: batch over dp, sequence over sp."""
     return shard_tensor(tokens, data_spec(), mesh)
+
+
+def rank_rows(data, d: int, rows: slice | None = None) -> torch.Tensor:
+    """Dp rank ``d``'s rows of a batch: ``data[rows]`` of a whole
+    tensor, or of a :class:`Sharded` one the rank's sp blocks side by
+    side on the first one's device (any process owning one of them has
+    them all)."""
+    if not isinstance(data, Sharded):
+        return data[rows]
+    mesh = data.mesh
+    k_dp, k_sp = mesh.axis_names.index("dp"), mesh.axis_names.index("sp")
+    blocks = {}
+    for c, t in data.shards.items():
+        if c[k_dp] == d:
+            blocks.setdefault(c[k_sp], t)
+    first = blocks[min(blocks)].device
+    return torch.cat([blocks[s].to(first) for s in sorted(blocks)], dim=1)
 
 
 def assert_divisible(cfg, mesh: Mesh) -> None:
@@ -471,24 +557,224 @@ def all_gather(parts: list, dim: int) -> list:
     return list(Broadcast.apply(whole, *(p.device for p in parts)))
 
 
+# ---------------------------------------------------------------------------
+# the cross-process half: exact gathers over torch.distributed (gloo)
+# ---------------------------------------------------------------------------
+
+# the bytes a gather moves out of one process at a time: a larger
+# gradient goes in several rounds (with exchange's ``device``, one
+# round's host buffers are alive at a time)
+BUCKET_BYTES = 64 * 2 ** 20
+
+# what this process's gathers moved (calls, bytes sent, bytes received)
+# and the host seconds they took, staging included
+EXCHANGED = {"calls": 0, "sent_bytes": 0, "received_bytes": 0,
+             "seconds": 0.0}
+
+
+def reset_exchanged() -> None:
+    for k in EXCHANGED:
+        EXCHANGED[k] = 0
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name.rsplit(".", 1)[-1])
+
+
+def _aligned(n: int) -> int:
+    """Byte offsets of the staged items stay 8-aligned, so every item's
+    bytes view back as its dtype in place."""
+    return (n + 7) // 8 * 8
+
+
+def exchange(items: dict, device=None) -> dict:
+    """Every process's ``items`` (``{key: tensor}``, keys picklable and
+    unique across processes), on every process: a collective — every
+    process of the default group calls it, in the same order. Each
+    process's tensors travel as raw bytes, copied straight into a host
+    staging buffer (page-locked when they live on a card), in rounds of
+    ``gloo`` ``all_gather``s of at most :data:`BUCKET_BYTES` from each
+    process, so a value arrives bit for bit. Own items come back as
+    given; the others as views of the received host buffers, or, with
+    ``device``, copied there at the end of their round, so the round's
+    buffers are freed before the next (on the CPU the views stay)."""
+    import time
+
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    world = dist.get_world_size()
+    meta = [(k, tuple(t.shape), str(t.dtype),
+             _aligned(t.numel() * t.element_size()))
+            for k, t in items.items()]
+    metas: list = [None] * world
+    dist.all_gather_object(metas, meta)
+    # each process's items cut into rounds of at most BUCKET_BYTES, in
+    # order (an item larger than a bucket is a round of its own)
+    rounds = []
+    for m in metas:
+        cut, size = [[]], 0
+        for entry in m:
+            if cut[-1] and size + entry[3] > BUCKET_BYTES:
+                cut.append([])
+                size = 0
+            cut[-1].append(entry)
+            size += entry[3]
+        rounds.append(cut)
+    me = dist.get_rank()
+    pin = any(t.is_cuda for t in items.values())
+    out = dict(items)
+    EXCHANGED["calls"] += 1
+    for r in range(max(len(c) for c in rounds)):
+        parts = [c[r] if r < len(c) else [] for c in rounds]
+        sizes = [sum(e[3] for e in p) for p in parts]
+        width = max(sizes)
+        if width == 0:
+            continue
+        mine = torch.empty(width, dtype=torch.uint8, pin_memory=pin)
+        at = 0
+        for key, _, _, n in parts[me]:
+            flat = items[key].detach().reshape(-1).view(torch.uint8)
+            mine[at:at + flat.numel()].copy_(flat)
+            at += n
+        bufs = [torch.empty(width, dtype=torch.uint8, pin_memory=pin)
+                for _ in range(world)]
+        dist.all_gather(bufs, mine)
+        EXCHANGED["sent_bytes"] += sizes[me]
+        for p, (part, buf) in enumerate(zip(parts, bufs)):
+            if p == me:
+                continue
+            EXCHANGED["received_bytes"] += sizes[p]
+            at = 0
+            for key, shape, dtype, n in part:
+                dt = _dtype(dtype)
+                count = math.prod(shape) * torch.empty((), dtype=dt
+                                                       ).element_size()
+                out[key] = buf[at:at + count].view(dt).reshape(shape)
+                if device is not None:
+                    out[key] = out[key].to(device)
+                at += n
+        del mine, bufs
+    EXCHANGED["seconds"] += time.perf_counter() - t0
+    return out
+
+
+# sends of the backward still in flight: (work, host buffer) pairs
+_PENDING: list = []
+
+
+def _send(x: torch.Tensor, peer: int, tag: int, wait: bool) -> None:
+    import torch.distributed as dist
+    buf = x.detach().contiguous().cpu()
+    if wait:
+        dist.send(buf, peer, tag=tag)
+    else:
+        _PENDING.append((dist.isend(buf, peer, tag=tag), buf))
+
+
+def _recv(shape, dtype, device, peer: int, tag: int) -> torch.Tensor:
+    import torch.distributed as dist
+    buf = torch.empty(shape, dtype=dtype)
+    dist.recv(buf, peer, tag=tag)
+    return buf.to(device)
+
+
+def wait_sends() -> None:
+    """Wait for every send a backward started (:class:`RecvStage`)."""
+    while _PENDING:
+        work, _ = _PENDING.pop(0)
+        work.wait()
+
+
+class SendStage(torch.autograd.Function):
+    """``SendStage.apply(peer, tag, *xs)``: a pipeline stage's outputs
+    handed to the next stage on process ``peer`` (tags ``tag + i``), in
+    order, through host memory. Returns a 0-d zero that the caller adds
+    to its loss so the backward reaches this node, which receives the
+    outputs' gradients from the peer."""
+
+    @staticmethod
+    def forward(ctx, peer, tag, *xs):
+        ctx.peer, ctx.tag = peer, tag
+        ctx.meta = [(x.shape, x.dtype, x.device) for x in xs]
+        for i, x in enumerate(xs):
+            _send(x, peer, tag + i, wait=True)
+        return torch.zeros((), dtype=torch.float32, device=xs[0].device)
+
+    @staticmethod
+    def backward(ctx, _):
+        return (None, None, *(_recv(shape, dtype, dev, ctx.peer, ctx.tag + i)
+                              for i, (shape, dtype, dev)
+                              in enumerate(ctx.meta)))
+
+
+class RecvStage(torch.autograd.Function):
+    """``RecvStage.apply(anchor, peer, tag, metas)``: the previous
+    stage's outputs from process ``peer``, one tensor per ``(shape,
+    dtype, device)`` of ``metas``. ``anchor`` is any autograd leaf of
+    the caller's backward (the backward only visits nodes that lead to
+    a leaf it was asked for); its gradient is None. The backward starts
+    the sends of the outputs' gradients to the peer without waiting
+    (:func:`wait_sends`), so the two processes' autograd engines may
+    visit the stage boundaries in any order."""
+
+    @staticmethod
+    def forward(ctx, anchor, peer, tag, metas):
+        ctx.peer, ctx.tag = peer, tag
+        return tuple(_recv(shape, dtype, dev, peer, tag + i)
+                     for i, (shape, dtype, dev) in enumerate(metas))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        for i, g in enumerate(grads):
+            _send(g, ctx.peer, ctx.tag + i, wait=False)
+        return None, None, None, None
+
+
+def gather_replica_grads(leaves: list, grads: list) -> list:
+    """``grads`` (``grads[i]`` the present gradients of ``leaves[i]``,
+    by coordinate) with the gradients of every replica group that spans
+    processes added: gathered exactly, one :func:`exchange` for all
+    leaves, so :func:`sum_replica_grads` can sum each group in the
+    one-process order. On one process ``grads`` as they are."""
+    if not leaves or not leaves[0].mesh.multiprocess:
+        return grads
+    mesh = leaves[0].mesh
+    send = {}
+    for i, (leaf, g) in enumerate(zip(leaves, grads)):
+        for group in leaf.groups():
+            if len({mesh.process_of(c) for c in group}) > 1:
+                send.update({(i, c): g[c] for c in group
+                             if mesh.is_local(c) and g.get(c) is not None})
+    got = exchange(send, device=mesh.first_device())
+    out = [dict(g) for g in grads]
+    for (i, c), t in got.items():
+        out[i][c] = t
+    return out
+
+
 def sum_replica_grads(leaf: Sharded, grads: dict) -> dict:
     """The gradient of every block of ``leaf``: its replicas' gradients
-    (``grads[coord]``, None where a replica took no part) summed in rank
-    order in fp32 — the reference's dp / tp / sp all-reduce of a
-    replicated leaf — and a copy of the sum on every replica's device,
-    so every replica takes the same update."""
+    (``grads[coord]``, None or absent where a replica took no part, or
+    lives on another process and was not gathered —
+    :func:`gather_replica_grads`) summed in rank order in fp32 — the
+    reference's dp / tp / sp all-reduce of a replicated leaf — and a
+    copy of the sum on every local replica's device, so every replica
+    takes the same update."""
     out = {}
     for group in leaf.groups():
+        local = [c for c in group if c in leaf.shards]
+        if not local:
+            continue
         present = [grads[c] for c in group if grads.get(c) is not None]
-        first = leaf.shards[group[0]]
+        first = leaf.shards[local[0]]
         if not present:
             total = torch.zeros_like(first)
         elif len(present) == 1:
             total = present[0]
         else:
             total = fp32_sum(present, first.device).to(first.dtype)
-        for c in group:
+        for c in local:
             dev = leaf.shards[c].device
-            out[c] = total if total.device == dev and c == group[0] \
+            out[c] = total if total.device == dev and c == local[0] \
                 else total.to(dev, copy=True)
     return {c: out[c] for c in leaf.shards}

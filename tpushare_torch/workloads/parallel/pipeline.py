@@ -36,6 +36,12 @@ sums in rank order — and stage-to-stage hops as ``.to`` copies.
   step). The last stage computes each microbatch's cross entropy at
   once. The backward is autograd's through the copies, as the
   reference's is ``jax.grad``'s through ``ppermute``.
+- **Stages on several processes** (pp across a pod group): each process
+  runs its own stages' steps of the same schedule; a handoff to another
+  process is a ``mesh.SendStage`` / ``RecvStage`` pair whose backward
+  carries the gradient back, and the microbatches' cross entropies and
+  auxes are gathered so every process forms the one-process loss
+  (:func:`_gather_terms`).
 - **MoE** (:func:`moe_pp_loss_fn`): attention and routing on the
   stage's first device, each ep rank's E/ep experts on its device
   (``models/moe.moe_ffn``'s ep form).
@@ -58,10 +64,12 @@ from tpushare_torch.workloads.models.transformer import (TransformerConfig,
                                                          rmsnorm,
                                                          rope_tables,
                                                          unbind_layers)
-from tpushare_torch.workloads.parallel.mesh import (Reduce, all_gather,
+from tpushare_torch.workloads.parallel.mesh import (RecvStage, Reduce,
+                                                    SendStage, all_gather,
                                                     all_reduce,
                                                     assert_divisible,
-                                                    fp32_sum, moe_param_specs,
+                                                    exchange, fp32_sum,
+                                                    moe_param_specs,
                                                     param_specs, place_tree)
 
 EXPERT_LEAVES = ("w1", "w3", "w2")
@@ -323,8 +331,12 @@ def group_loss(params: dict, d: int, inputs: torch.Tensor,
     B, S = inputs.shape
     mb = B // n_micro
     groups = [_Group(mesh, d, p) for p in range(n_stages)]
-    stage_layers = [g.layers(params["layers"], moe) for g in groups]
-    ropes = [g.ropes(cfg, S, positions) for g in groups]
+    owner = [mesh.owner(dp=d, pp=p) for p in range(n_stages)]
+    mine = [o == mesh.process_index for o in owner]
+    stage_layers = [g.layers(params["layers"], moe) if mine[p] else None
+                    for p, g in enumerate(groups)]
+    ropes = [g.ropes(cfg, S, positions) if mine[p] else None
+             for p, g in enumerate(groups)]
     capacity = cfg.expert_capacity if moe else None
     remat = cfg.remat and torch.is_grad_enabled()
 
@@ -343,50 +355,109 @@ def group_loss(params: dict, d: int, inputs: torch.Tensor,
             auxes.append(aux)
         return xs, auxes
 
-    recv, ces, auxes = {}, [], []
-    last = groups[-1]
+    def tag(p: int, m: int) -> int:
+        # the handoff into stage p of microbatch m: one tag per shard
+        return ((d * n_stages + p) * n_micro + m) * len(groups[p].keys)
+
+    # ces by microbatch; auxes by (stage, microbatch, layer), inserted in
+    # the schedule's order; zeros: the cross-process sends' anchors
+    recv, ces, auxes, zeros = {}, {}, {}, []
     for step in range(n_micro + n_stages - 1):
         for p in range(n_stages):
             m = step - p
-            if not 0 <= m < n_micro:
-                continue            # a bubble: nothing to compute
+            if not 0 <= m < n_micro or not mine[p]:
+                continue            # a bubble, or another process's stage
             rows = slice(m * mb, (m + 1) * mb)
-            xs = (groups[0].embed(params["embed"], inputs[rows], cfg.dtype)
-                  if p == 0 else recv.pop((p, m)))
-            xs, aux = run_stage(p, xs)
-            auxes += aux
-            if p == n_stages - 1:
-                ces.append(_sharded_ce(last, params, xs, targets[rows]))
+            g = groups[p]
+            if p == 0:
+                xs = g.embed(params["embed"], inputs[rows], cfg.dtype)
+            elif mine[p - 1]:
+                xs = recv.pop((p, m))
             else:
+                anchor = g.leaf(params["layers"]["ln1"], *g.keys[0])
+                metas = [((mb, S // g.sp, cfg.d_model), cfg.dtype,
+                          g.device(*k)) for k in g.keys]
+                xs = dict(zip(g.keys, RecvStage.apply(
+                    anchor, owner[p - 1], tag(p, m), metas)))
+            xs, aux = run_stage(p, xs)
+            auxes.update(((p, m, i), a) for i, a in enumerate(aux))
+            if p == n_stages - 1:
+                ces[m] = _sharded_ce(g, params, xs, targets[rows])
+            elif mine[p + 1]:
                 nxt = groups[p + 1]
                 recv[(p + 1, m)] = {k: x.to(nxt.device(*k))
                                     for k, x in xs.items()}
-    home = ces[0].device
+            else:
+                zeros.append(SendStage.apply(owner[p + 1], tag(p + 1, m),
+                                             *(xs[k] for k in g.keys)))
+    home = next(iter(ces.values())).device if ces else mesh.first_device()
+    if not all(mine):
+        _gather_terms(ces, auxes, moe, home)
+    ces = [ces[m] for m in range(n_micro)]
+    auxes = [auxes[k] for k in sorted(auxes, key=lambda k: (k[0] + k[1],
+                                                            k[0], k[2]))]
     loss = ces[0] if n_micro == 1 else fp32_sum(ces, home) / n_micro
     if aux_stats:
         return loss, [st for _, st in auxes]
     if moe:
         aux = torch.stack([a.to(home) for a, _ in auxes]).mean()
         loss = loss + cfg.router_aux_coef * aux
+    for z in zeros:
+        loss = loss + z.to(home)
     return loss
 
 
-def moe_dp_loss(params: dict, inputs: torch.Tensor, targets: torch.Tensor,
-                cfg, mesh, attn=None) -> torch.Tensor:
+def _gather_terms(ces: dict, auxes: dict, moe: bool, home) -> None:
+    """Fill in the microbatches' cross entropies and (MoE) the layers'
+    auxes that other processes' stages made, gathered on ``home``: every
+    process then forms the one-process loss from the same values — its
+    own live, the others' constant — so the gradient reaches each term
+    on the process that made it. A process without the last stage adds
+    its sends' zeros to that loss, which leaves its value as it is."""
+    values = {("ce", m): ce.detach() for m, ce in ces.items()}
+    if moe:
+        values.update({("aux", *k): a[0].detach() for k, a in auxes.items()})
+    for key, v in exchange(values).items():
+        if key[0] == "ce" and key[1] not in ces:
+            ces[key[1]] = v.to(home)
+        elif key[0] == "aux" and key[1:] not in auxes:
+            auxes[key[1:]] = (v.to(home), None)
+
+
+def moe_dp_loss(params: dict, per_rank: dict, cfg, mesh,
+                attn=None) -> torch.Tensor:
     """The MoE loss over every dp rank at once, as the reference's
     global-batch step has it: the cross entropies' rank-order mean, and
     each layer's aux from the dp ranks' mean importance and load (the
     load-balancing term is a product of batch means, so per-rank auxes
-    would not average to it)."""
+    would not average to it). ``per_rank`` is ``{dp rank: (inputs,
+    targets)}`` of this process's ranks; on a mesh over several
+    processes the other ranks' cross entropies, importances and loads
+    are gathered, so the aux is the global one, while the gradient
+    flows back only through this process's own terms — none is counted
+    twice."""
     dp = mesh.shape["dp"]
-    bs = inputs.shape[0] // dp
-    ces, stats = [], []
-    for d in range(dp):
-        rows = slice(d * bs, (d + 1) * bs)
-        ce, st = group_loss(params, d, inputs[rows], targets[rows], cfg,
-                            mesh, attn=attn, moe=True, aux_stats=True)
-        ces.append(ce)
-        stats.append(st)
+    ces, stats = {}, {}
+    for d, (i, t) in sorted(per_rank.items()):
+        ces[d], stats[d] = group_loss(params, d, i, t, cfg, mesh, attn=attn,
+                                      moe=True, aux_stats=True)
+    if len(per_rank) < dp:
+        values = {("ce", d): ce.detach() for d, ce in ces.items()}
+        for d, st in stats.items():
+            for li, (imp, load) in enumerate(st):
+                values[("imp", d, li)] = imp.detach()
+                values[("load", d, li)] = load.detach()
+        got = exchange(values)
+        dev = next(iter(ces.values())).device
+        n_layers = len(next(iter(stats.values())))
+        for d in range(dp):
+            if d not in ces:
+                ces[d] = got[("ce", d)].to(dev)
+                stats[d] = [(got[("imp", d, li)].to(dev),
+                             got[("load", d, li)].to(dev))
+                            for li in range(n_layers)]
+    ces = [ces[d] for d in range(dp)]
+    stats = [stats[d] for d in range(dp)]
     home = ces[0].device
     ce = ces[0] if dp == 1 else fp32_sum(ces, home) / dp
     auxes = []

@@ -21,6 +21,13 @@ sums every replicated leaf's gradient over its replicas in rank order
 in fp32 (the dp all-reduce, and the tp / sp ones of the norms), and
 updates every shard in place: replicas stay bitwise equal.
 
+Over a mesh that spans processes (``multihost.make_multihost_mesh``)
+each process runs its own dp ranks on its own blocks — its rows of the
+global batch, or its blocks from ``multihost.shard_host_batch`` — and
+every sum that crosses processes (replica gradients, the dp losses,
+the clip norm's terms) gathers its operands exactly and sums them in
+the one-process order: the step gives the one-process step's bits.
+
 :class:`AdamW` is optax's ``adamw`` (optionally chained after
 ``clip_by_global_norm``, with the warmup + cosine schedule), written out
 on a dict of tensors op for op: moments kept in the params' dtype
@@ -51,11 +58,13 @@ from tpushare_torch.workloads.models.transformer import (TransformerConfig,
                                                          loss_fn)
 from tpushare_torch.workloads.parallel.mesh import (Mesh, Sharded,
                                                     assert_divisible,
-                                                    fp32_sum,
+                                                    exchange, fp32_sum,
+                                                    gather_replica_grads,
                                                     moe_param_specs,
                                                     param_specs, place_tree,
-                                                    shard_tensor,
-                                                    sum_replica_grads)
+                                                    rank_rows, shard_tensor,
+                                                    sum_replica_grads,
+                                                    wait_sends)
 
 B1, B2, EPS = 0.9, 0.95, 1e-8
 
@@ -93,6 +102,39 @@ def _norm_terms(tree) -> Iterator[torch.Tensor]:
         for group in tree.groups():
             yield tree.shards[group[0]]
     else:
+        yield tree
+
+
+def _global_norm(tree) -> torch.Tensor:
+    """The global norm of a gradient tree, every logical block counted
+    once (:func:`_norm_terms`), the terms summed in tree order on the
+    first term's device. Over several processes, the process owning a
+    block's first replica computes its term and the terms are gathered,
+    so every process sums the same terms in the one-process order."""
+    meshes = [t.mesh for t in sharded_leaves(tree)]
+    if not meshes or not meshes[0].multiprocess:
+        terms = list(_norm_terms(tree))
+        dev = terms[0].device
+        return torch.sqrt(sum(torch.sum(g * g).to(dev) for g in terms))
+    mesh = meshes[0]
+    keys, mine = [], {}
+    for i, leaf in enumerate(sharded_leaves(tree)):
+        for j, group in enumerate(leaf.groups()):
+            keys.append((i, j))
+            if mesh.is_local(group[0]):
+                g = leaf.shards[group[0]]
+                mine[(i, j)] = torch.sum(g * g)
+    terms = exchange(mine)
+    dev = mesh.first_device()
+    return torch.sqrt(sum(terms[k].to(dev) for k in keys))
+
+
+def sharded_leaves(tree) -> Iterator[Sharded]:
+    """The :class:`Sharded` leaves of a nested dict, in tree order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from sharded_leaves(v)
+    elif isinstance(tree, Sharded):
         yield tree
 
 
@@ -147,9 +189,7 @@ class AdamW:
         if self.clip_norm is not None:
             # the global norm of the logical gradient: a replicated
             # block counts once, every term summed on one device
-            terms = list(_norm_terms(grads))
-            dev = terms[0].device
-            norm = torch.sqrt(sum(torch.sum(g * g).to(dev) for g in terms))
+            norm = _global_norm(grads)
             keep = norm < self.clip_norm
             gs = [torch.where(keep.to(g.device), g,
                               (g / norm.to(g.device, g.dtype))
@@ -300,54 +340,80 @@ def _dp_view(params: dict, d: int | None, flat: list) -> dict:
 
 
 def _rebuild(tree, grads: dict):
-    if isinstance(tree, dict):
-        return {k: _rebuild(v, grads) for k, v in tree.items()}
-    return Sharded(tree.mesh, tree.spec, tree.shape,
-                   sum_replica_grads(tree, grads.get(id(tree), {})))
+    """The gradient tree of ``tree``'s placed leaves from their
+    replicas' gradients (``grads[id(leaf)][coord]``): every replica
+    group summed (:func:`mesh.sum_replica_grads`), the groups that span
+    processes gathered first, in one call for every leaf."""
+    leaves = list(sharded_leaves(tree))
+    per = gather_replica_grads(
+        leaves, [grads.get(id(leaf), {}) for leaf in leaves])
+    sums = iter([sum_replica_grads(leaf, g) for leaf, g in zip(leaves, per)])
+
+    def rec(node):
+        if isinstance(node, dict):
+            return {k: rec(v) for k, v in node.items()}
+        return Sharded(node.mesh, node.spec, node.shape, next(sums))
+    return rec(tree)
 
 
 def mesh_loss_and_grads(params: dict, inputs: torch.Tensor,
                         targets: torch.Tensor, mesh: Mesh, group_loss,
-                        accum_steps: int = 1, joint=None
+                        accum_steps: int = 1, joint=None, reorder=None
                         ) -> tuple[torch.Tensor, dict]:
     """(loss, grads) over a placed state: for each of ``accum_steps``
-    equal microbatches and each dp rank's equal batch shard of it,
-    ``group_loss(view, d, inputs, targets)`` and its gradients (one
-    autograd pass per dp rank, so one rank's activations live at a
-    time); fp32 accumulators over microbatches; then every block's
-    gradient summed over its replicas in rank order
-    (:func:`mesh.sum_replica_grads`). The loss is the rank-order mean.
-    ``joint(view, inputs, targets)`` instead takes every dp rank's loss
-    at once, in one autograd pass (the MoE step's global aux)."""
-    if isinstance(inputs, Sharded):
-        inputs = inputs.full()
-    if isinstance(targets, Sharded):
-        targets = targets.full()
+    equal microbatches and each of this process's dp ranks' equal batch
+    shard of it, ``group_loss(view, d, inputs, targets)`` and its
+    gradients (one autograd pass per dp rank, so one rank's activations
+    live at a time); fp32 accumulators over microbatches; then every
+    block's gradient summed over its replicas in rank order
+    (:func:`_rebuild`). The loss is the rank-order mean of every dp
+    rank's loss, the other processes' gathered. ``joint(view, {dp rank:
+    (inputs, targets)})`` instead takes this process's dp ranks' losses
+    at once, in one autograd pass (the MoE step's global aux).
+    ``reorder`` is applied to each rank's rows (the zigzag).
+
+    On a mesh over several processes each process runs its own dp ranks
+    (``mesh.local_ranks``), on its rows of the global batch or on its
+    blocks of a ``shard_host_batch``."""
+    if not mesh.multiprocess:
+        inputs, targets = (x.full() if isinstance(x, Sharded) else x
+                           for x in (inputs, targets))
     dp = mesh.shape["dp"]
     B = inputs.shape[0]
     if B % (accum_steps * dp):
         raise ValueError(f"batch {B} not divisible by accum_steps*dp "
                          f"{accum_steps}*{dp}")
+    if accum_steps > 1 and isinstance(inputs, Sharded):
+        raise ValueError("accum_steps > 1 over several processes takes "
+                         "the global batch, not shard_host_batch's blocks")
+    local_dp = mesh.local_ranks("dp")
     mb = B // accum_steps
     bs = mb // dp
+
+    def rows(x, a, d):
+        r = rank_rows(x, d, slice(a * mb + d * bs, a * mb + (d + 1) * bs))
+        return reorder(r) if reorder is not None else r
+
     acc: dict[int, dict] = {}
     losses = []
     for a in range(accum_steps):
-        dl = []
-        for d in range(1 if joint else dp):
+        dl = {}
+        for d in ([None] if joint else local_dp):
             flat: list = []
-            view = _dp_view(params, None if joint else d, flat)
+            view = _dp_view(params, d, flat)
             with torch.enable_grad():
                 if joint:
-                    rows = slice(a * mb, (a + 1) * mb)
-                    loss = joint(view, inputs[rows], targets[rows])
+                    loss = joint(view, {r: (rows(inputs, a, r),
+                                            rows(targets, a, r))
+                                        for r in local_dp})
                 else:
-                    rows = slice(a * mb + d * bs, a * mb + (d + 1) * bs)
-                    loss = group_loss(view, d, inputs[rows], targets[rows])
+                    loss = group_loss(view, d, rows(inputs, a, d),
+                                      rows(targets, a, d))
             gs = torch.autograd.grad(loss / dp if dp > 1 and not joint
                                      else loss,
                                      [t for _, _, t in flat],
                                      allow_unused=True)
+            wait_sends()
             for (leaf, c, _), g in zip(flat, gs):
                 if g is None:
                     continue
@@ -356,10 +422,17 @@ def mesh_loss_and_grads(params: dict, inputs: torch.Tensor,
                     per[c] = g
                 else:
                     per[c] = per[c] + g.float() if c in per else g.float()
-            dl.append(loss.detach())
+            dl[d] = loss.detach()
             del view, flat, gs, loss
-        losses.append(dl[0] if len(dl) == 1
-                      else fp32_sum(dl, dl[0].device) / dp)
+        if joint:
+            losses.append(dl[None])
+            continue
+        if len(local_dp) < dp:
+            dev = dl[local_dp[0]].device
+            dl = {d: t.to(dev) for d, t in exchange(dl).items()}
+        ranked = [dl[d] for d in range(dp)]
+        losses.append(ranked[0] if dp == 1
+                      else fp32_sum(ranked, ranked[0].device) / dp)
     loss = losses[0]
     if accum_steps > 1:
         loss = fp32_sum(losses, loss.device) / accum_steps
@@ -481,27 +554,27 @@ def mesh_grad_fn(cfg, mesh: Mesh, ring_attention: bool = False,
     zigzag = ring_attention and cfg.attn_window is None
 
     def grad_fn(params: dict, inputs, targets):
-        if isinstance(inputs, Sharded):
-            inputs, targets = inputs.full(), targets.full()
         S = inputs.shape[1]
         if S % sp:
             raise ValueError(f"sequence {S} not divisible by sp {sp}")
-        positions = None
+        positions = reorder = None
         if zigzag:
             from tpushare_torch.workloads.ops.ring_attention import (
                 zigzag_split)
-            inputs = zigzag_split(inputs, sp, axis=1)
-            targets = zigzag_split(targets, sp, axis=1)
+
+            def reorder(x):
+                return zigzag_split(x, sp, axis=1)
             positions = zigzag_split(torch.arange(S), sp, axis=0)
 
         def one(params, d, i, t):
             return group_loss(params, d, i, t, cfg, mesh, attn=attn,
                               positions=positions)
 
-        def joint(params, i, t):
-            return moe_dp_loss(params, i, t, cfg, mesh, attn=attn)
+        def joint(params, per_rank):
+            return moe_dp_loss(params, per_rank, cfg, mesh, attn=attn)
         return mesh_loss_and_grads(params, inputs, targets, mesh, one,
-                                   accum_steps, joint=joint if moe else None)
+                                   accum_steps, joint=joint if moe else None,
+                                   reorder=reorder)
 
     return grad_fn
 

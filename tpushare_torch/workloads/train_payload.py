@@ -23,10 +23,20 @@ a mesh the model does not tile exits 2. A checkpoint saved on one mesh
 resumes on another. Under the plugin's grant (``TPUSHARE_HBM_LIMIT_MIB``
 or ``XLA_PYTHON_CLIENT_MEM_FRACTION`` set) the allocator is capped on
 every card of the mesh (``device.apply_hbm_cap``) and the usage
-reporter runs. A multi-host pod group exits 2: multi-host training
-(ROADMAP A.10's multihost remainder) is not ported yet. ``--device
-cpu`` runs the plain-PyTorch path; the default is the card, and a host
-without CUDA raises.
+reporter runs. ``--device cpu`` runs the plain-PyTorch path; the
+default is the card, and a host without CUDA raises.
+
+A pod group (the ``TPUSHARE_GROUP_*`` envs Allocate injects) brings up
+the ``gloo`` process group first (``multihost.init_from_env``; a group
+with no coordinator or no rank exits 2 with the reference's words),
+then trains over ``multihost.make_multihost_mesh``: dp across the
+members, sp / tp inside each; every rank derives the same global batch
+and feeds its own dp rows through ``shard_host_batch``. A member names
+its visible cards (``--mesh-devices`` its own list; under ``--device
+cpu`` the CPU dp*sp*tp / members times). ``--checkpoint-dir`` is
+refused under a group, as the reference refuses it. Before the first
+CUDA call a granted ``TPU_VISIBLE_CHIPS`` becomes
+``CUDA_VISIBLE_DEVICES`` (``device.apply_visible_chips``).
 """
 
 from __future__ import annotations
@@ -41,20 +51,18 @@ import time
 import torch
 
 from tpushare_torch import consts
-from tpushare_torch.device import apply_hbm_cap, resolve_device
+from tpushare_torch.device import (apply_hbm_cap, apply_visible_chips,
+                                   resolve_device)
 from tpushare_torch.workloads import usage_report
 from tpushare_torch.workloads.checkpoint import TrainCheckpointer
 from tpushare_torch.workloads.models.transformer import (TransformerConfig,
                                                          init_params)
+from tpushare_torch.workloads.parallel import multihost
 from tpushare_torch.workloads.parallel.mesh import (assert_divisible,
                                                     make_mesh)
 from tpushare_torch.workloads.profiling import trace
 from tpushare_torch.workloads.train import (init_state, make_optimizer,
                                             make_train_step, place_state)
-
-# the multi-host pod-group envs the device plugin's Allocate injects
-# (the port's copy of the reference's consts)
-ENV_GROUP_SIZE = "TPUSHARE_GROUP_SIZE"
 
 
 def install_signal_queue(signals: tuple[int, ...]) -> "queue.Queue[int]":
@@ -88,10 +96,6 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="comma-separated devices of the mesh, in mesh "
                         "order (may repeat a device)")
     args = p.parse_args(argv)
-    group = os.environ.get(ENV_GROUP_SIZE, "")
-    if group not in ("", "0", "1"):
-        p.error(f"{ENV_GROUP_SIZE}={group}: multi-host training is not "
-                "ported yet (ROADMAP A.10, its multihost remainder)")
     args.error = p.error
     return args
 
@@ -102,27 +106,36 @@ def payload_config(seq: int) -> TransformerConfig:
                              d_ff=256, max_seq=seq)
 
 
-def payload_mesh(args: argparse.Namespace, cfg, mesh_devices=None):
-    """The mesh of ``--dp/--sp/--tp`` (None when none is given): over
-    ``mesh_devices``, ``--mesh-devices``, or the first dp*sp*tp devices
-    (the one CPU device named that often under ``--device cpu``). A
+def payload_mesh(args: argparse.Namespace, cfg, mesh_devices=None,
+                 group: bool = False):
+    """The mesh of ``--dp/--sp/--tp`` (None when none is given and there
+    is no ``group``): over ``mesh_devices``, ``--mesh-devices``, or the
+    first dp*sp*tp devices (the one CPU device named that often under
+    ``--device cpu``); under a pod group this member's devices of
+    ``multihost.make_multihost_mesh`` (its visible cards by default). A
     mesh that cannot be built or tiled exits 2."""
     if mesh_devices is None and args.mesh_devices:
         mesh_devices = [torch.device(d) for d in
                         args.mesh_devices.split(",")]
     if mesh_devices is None and args.dp is None and args.tp is None \
-            and args.sp == 1:
+            and args.sp == 1 and not group:
         return None
     dp, tp = args.dp, args.tp
-    if mesh_devices is None:
+    dev = resolve_device(args.device)
+    if mesh_devices is None and group and dev.type != "cuda":
+        n = (dp or 1) * args.sp * (tp or 1)
+        mesh_devices = [dev] * max(1, n // multihost.process_count())
+    elif mesh_devices is None and not group:
         dp, tp = dp or 1, tp or 1
         n = dp * args.sp * tp
-        dev = resolve_device(args.device)
         mesh_devices = ([dev] * n if dev.type != "cuda" else
                         [torch.device("cuda", i) for i in
                          range(min(n, torch.cuda.device_count()))])
     try:
-        mesh = make_mesh(dp=dp, sp=args.sp, tp=tp, devices=mesh_devices)
+        mesh = (multihost.make_multihost_mesh(dp=dp, sp=args.sp, tp=tp,
+                                              devices=mesh_devices)
+                if group else
+                make_mesh(dp=dp, sp=args.sp, tp=tp, devices=mesh_devices))
         assert_divisible(cfg, mesh)
         if args.batch % mesh.shape["dp"]:
             raise ValueError(f"batch {args.batch} not divisible by dp "
@@ -140,9 +153,24 @@ def main(argv: list[str] | None = None, mesh_devices=None) -> int:
     devices (in mesh order, repeats allowed) as ``infer.run`` takes
     them."""
     args = parse_args(argv)
+    # the chips Allocate granted, before the first CUDA call
+    apply_visible_chips()
+    # a pod group: the TPUSHARE_GROUP_* envs Allocate injected bring up
+    # the process group; the mesh then spans every member's devices
+    try:
+        distributed = multihost.init_from_env()
+    except ValueError as e:
+        args.error(str(e))
     cfg = payload_config(args.seq)
-    mesh = payload_mesh(args, cfg, mesh_devices)
-    device = (mesh.devices.flat[0] if mesh is not None
+    if distributed:
+        if args.checkpoint_dir:
+            raise SystemExit("--checkpoint-dir is single-host only (the "
+                             "multi-host checkpoint story needs a shared "
+                             "filesystem + orbax multiprocess arrays)")
+        print(f"distributed: rank {multihost.process_index()}/"
+              f"{multihost.process_count()}", flush=True)
+    mesh = payload_mesh(args, cfg, mesh_devices, group=distributed)
+    device = (mesh.first_device() if mesh is not None
               else resolve_device(args.device))
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
@@ -153,7 +181,8 @@ def main(argv: list[str] | None = None, mesh_devices=None) -> int:
               f"{device.type} devices ({name})", flush=True)
     if os.environ.get(consts.ENV_HBM_LIMIT_MIB) or \
             os.environ.get(consts.ENV_XLA_MEM_FRACTION):
-        apply_hbm_cap(list(mesh.devices.flat) if mesh is not None
+        apply_hbm_cap([mesh.devices[c] for c in mesh.coords()
+                       if mesh.is_local(c)] if mesh is not None
                       else device,
                       float(os.environ.get(consts.ENV_HBM_LIMIT_MIB, 0)))
     reporter = usage_report.start_reporter()
@@ -179,6 +208,18 @@ def main(argv: list[str] | None = None, mesh_devices=None) -> int:
     inputs = torch.randint(0, cfg.vocab, (args.batch, args.seq),
                            generator=gen, device=device)
     targets = torch.roll(inputs, -1, dims=1)
+    if distributed:
+        # every rank derives the same global batch; each places only its
+        # own dp rows (process-major mesh order: rank r owns rows
+        # [r*B/nproc, (r+1)*B/nproc))
+        nproc, rank = multihost.process_count(), multihost.process_index()
+        if args.batch % nproc:
+            raise SystemExit(f"--batch {args.batch} must divide by the "
+                             f"{nproc} group members")
+        rows = slice(rank * args.batch // nproc,
+                     (rank + 1) * args.batch // nproc)
+        inputs = multihost.shard_host_batch(inputs[rows], mesh)
+        targets = multihost.shard_host_batch(targets[rows], mesh)
 
     start = int(state["step"])
     if start >= args.steps:
