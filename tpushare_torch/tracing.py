@@ -9,6 +9,23 @@ link); a trace is every span sharing one ``trace_id``. Wall times are
 causally. The reference's Prometheus feeds (traces recorded, per-phase
 scheduling latency) belong to the daemon's registry and are not
 carried: the ring counts what it recorded in ``recorded``.
+
+Step spans (:func:`step_span`) put the same :class:`Span` inside the
+port's hot loops: each serving engine step and each train step is one
+trace, its admission wave, per-request admissions, prefill chunks, page
+installs, first-token read, decode dispatch and harvest (or its
+forward-backward and optimizer update) the trace's child spans. They
+are off by default, and then a hook costs one read of a module global.
+:func:`start_step_spans` turns them on into a ring of their own;
+:func:`stop_step_spans` turns them off and returns the export. While on,
+a span also enters ``torch.profiler.record_function`` under its name,
+so a profile taken meanwhile shows the engine's and the train step's
+phases by name, on the clock the spans stamp; a span marked
+device-timed on a CUDA device also records a pair of CUDA events on the
+current stream, resolved into ``attrs["device_ms"]`` at export.
+``start_step_spans(record=False)`` enters the ``record_function``s
+alone, with no ring, clock read or event: what a profile needs
+(``workloads/profiling.trace`` turns spans on so for its region).
 """
 
 from __future__ import annotations
@@ -18,12 +35,13 @@ import threading
 import time
 import uuid
 from collections import OrderedDict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Iterator
 
 __all__ = ["Span", "TraceRing", "Tracer", "RequestTrace", "RECORDER",
-           "new_trace_id", "new_span_id"]
+           "new_trace_id", "new_span_id", "StepSpans", "step_span",
+           "start_step_spans", "stop_step_spans", "NO_SPAN"]
 
 
 def new_trace_id() -> str:
@@ -37,8 +55,9 @@ def new_span_id() -> str:
 
 @dataclass
 class Span:
-    """One timed step. ``process`` names who produced it; ``phase`` is
-    not serialized."""
+    """One timed step. ``process`` names who produced it; ``phase`` and
+    ``events`` (a device-timed step span's CUDA event pair until export)
+    are not serialized."""
 
     name: str
     trace_id: str
@@ -50,6 +69,7 @@ class Span:
     attrs: dict[str, Any] = field(default_factory=dict)
     error: str | None = None
     phase: str | None = None
+    events: tuple | None = None
 
     @property
     def duration_ms(self) -> float:
@@ -273,3 +293,174 @@ class RequestTrace:
                              parent_id=root.span_id, process=self.process,
                              start_ns=ts, end_ns=ts, attrs=attrs))
         return self.trace_id
+
+
+# ---------------------------------------------------------------------------
+# step spans
+# ---------------------------------------------------------------------------
+
+class StepSpans:
+    """One recording of step spans: a ring of their traces (one trace a
+    step), each thread's stack of open spans (a span opened inside
+    another is its child; a step span opens a new trace), and the count
+    of spans finished, against which the export tells whether the ring
+    dropped any."""
+
+    # spans a trace may hold: an engine step's wave admits at most its
+    # lanes, a handful of spans each
+    MAX_SPANS_PER_TRACE = 4096
+
+    def __init__(self, capacity: int) -> None:
+        import torch
+        self._torch = torch
+        self.ring = TraceRing(capacity, self.MAX_SPANS_PER_TRACE)
+        self.tracer = Tracer("step", self.ring)
+        self.finished = 0
+        self._local = threading.local()
+
+    def stack(self) -> list[Span]:
+        st = getattr(self._local, "stack", None)
+        if st is None:
+            st = self._local.stack = []
+        return st
+
+    def export(self) -> dict[str, Any]:
+        """``{"spans": [Span.to_dict(), ...], "complete": bool}``. The
+        caller synchronises the device first: a device-timed span whose
+        events have not completed gets no ``device_ms``, and the export
+        then reads incomplete, as it does when the ring evicted a trace
+        or capped a trace's spans, or a span was still open."""
+        docs = []
+        complete = not self.stack()
+        for tid in self.ring.trace_ids():
+            for sp in self.ring.trace(tid) or ():
+                doc = sp.to_dict()
+                if sp.events is not None:
+                    start, end = sp.events
+                    if start.query() and end.query():
+                        doc["attrs"]["device_ms"] = start.elapsed_time(end)
+                    else:
+                        complete = False
+                docs.append(doc)
+        return {"spans": docs,
+                "complete": complete and len(docs) == self.finished}
+
+
+class _StepSpan:
+    """The context manager :func:`step_span` returns while spans are on.
+    Stamps ``time.time_ns()`` at both edges, next to the entry and the
+    exit of the ``record_function`` it holds open, so a profiler's event
+    for it lies inside the span, as close to its edges as the host
+    allows."""
+
+    __slots__ = ("_on", "_name", "_device", "_root", "_span", "_rf")
+
+    def __init__(self, on: StepSpans, name: str, device, root: bool) -> None:
+        self._on, self._name, self._root = on, name, root
+        self._device = (device if getattr(device, "type", None) == "cuda"
+                        else None)
+
+    def __enter__(self) -> Span:
+        on = self._on
+        stack = on.stack()
+        parent = stack[-1] if stack and not self._root else None
+        sp = on.tracer.begin(
+            self._name,
+            parent.trace_id if parent is not None else new_trace_id(),
+            parent=parent)
+        rf = self._rf = on._torch.profiler.record_function(self._name)
+        if self._device is not None:
+            cuda = on._torch.cuda
+            sp.events = (cuda.Event(enable_timing=True),
+                         cuda.Event(enable_timing=True))
+        stack.append(sp)
+        self._span = sp
+        # the edge the span keeps, taken again next to the profiler's
+        sp.start_ns = time.time_ns()
+        rf.__enter__()
+        if sp.events is not None:
+            sp.events[0].record(on._torch.cuda.current_stream(self._device))
+        return sp
+
+    def __exit__(self, typ, exc, tb) -> bool:
+        on, sp = self._on, self._span
+        if sp.events is not None:
+            sp.events[1].record(on._torch.cuda.current_stream(self._device))
+        self._rf.__exit__(typ, exc, tb)
+        on.tracer.finish(sp)
+        on.stack().pop()
+        if exc is not None:
+            sp.error = f"{type(exc).__name__}: {exc}"
+        on.finished += 1
+        return False
+
+
+class _Names:
+    """Step spans that only name a profile's regions: each span enters
+    its ``record_function`` and records nothing."""
+
+    def __init__(self) -> None:
+        import torch
+        self.record_function = torch.profiler.record_function
+
+
+class _NamedSpan:
+    """The context manager :func:`step_span` returns while spans only
+    name a profile's regions: the span's ``record_function``, binding
+    None as when spans are off."""
+
+    __slots__ = ("_rf",)
+
+    def __init__(self, rf) -> None:
+        self._rf = rf
+
+    def __enter__(self) -> None:
+        self._rf.__enter__()
+
+    def __exit__(self, typ, exc, tb) -> bool:
+        self._rf.__exit__(typ, exc, tb)
+        return False
+
+
+# where step spans go: a recording, names for a profile only, or None
+# while they are off
+_STEP_SPANS: StepSpans | _Names | None = None
+
+# what a hook enters while step spans are off (binds None)
+NO_SPAN = nullcontext()
+
+
+def step_span(name: str, device=None, root: bool = False):
+    """A context manager over one step or phase, binding its
+    :class:`Span` (to set ``attrs`` on) while step spans are on, else
+    None at the cost of one global read. ``device``: time the span on
+    the device too, where it is a CUDA device. ``root``: start a new
+    trace (a step) whatever span is open."""
+    on = _STEP_SPANS
+    if on is None:
+        return NO_SPAN
+    if on.__class__ is _Names:
+        return _NamedSpan(on.record_function(name))
+    return _StepSpan(on, name, device, root)
+
+
+def start_step_spans(capacity: int = 16384, record: bool = True) -> bool:
+    """Turn step spans on, into a ring of ``capacity`` traces (steps);
+    with ``record=False`` they only enter their ``record_function``s,
+    for a profile. False, and nothing changed, when they are on
+    already."""
+    global _STEP_SPANS
+    if _STEP_SPANS is not None:
+        return False
+    _STEP_SPANS = StepSpans(capacity) if record else _Names()
+    return True
+
+
+def stop_step_spans() -> dict[str, Any] | None:
+    """Turn step spans off and return their export
+    (:meth:`StepSpans.export`); None when they were off or recorded
+    nothing. Synchronise the device first where spans were
+    device-timed."""
+    global _STEP_SPANS
+    on, _STEP_SPANS = _STEP_SPANS, None
+    return on.export() if isinstance(on, StepSpans) else None

@@ -11,6 +11,16 @@ in Perfetto or ``chrome://tracing``. A payload pod sets
 ``TPUSHARE_TRACE_DIR`` on a debug run and takes the file from its
 volume, with no code change. ``trace(None)`` with the env unset is a
 no-op, so the hook stays in production paths.
+
+The region runs with step spans naming the profile
+(``tracing.start_step_spans(record=False)``: their
+``record_function``s alone, no ring and no CUDA events), so the trace
+names the serving engine's and the train step's phases
+(``serve.step``, ``serve.admit_wave``, ``serve.prefill_chunk``,
+``serve.decode_dispatch``, ``train.loss_and_grads``,
+``train.optimizer_update``, ...) on the host timeline, and a gap on the
+card sits under the phase that left it idle. Where step spans were
+already on, the region leaves them to whoever turned them on.
 """
 
 from __future__ import annotations
@@ -19,7 +29,7 @@ import contextlib
 import os
 import time
 
-from tpushare_torch import consts
+from tpushare_torch import consts, tracing
 
 __all__ = ["trace", "env_trace_dir"]
 
@@ -54,11 +64,14 @@ def trace(directory: str | None = None, *, block: bool = True):
     os.makedirs(directory, exist_ok=True)
     prof = profile(activities=activities)
     prof.__enter__()
+    spans = tracing.start_step_spans(record=False)
     try:
         yield directory
     finally:
         if block and torch.cuda.is_available():
             torch.cuda.synchronize()
+        if spans:
+            tracing.stop_step_spans()
         prof.__exit__(None, None, None)
         prof.export_chrome_trace(os.path.join(
             directory, f"trace_{os.getpid()}_{time.time_ns()}.json"))

@@ -75,6 +75,18 @@ lane's device state ahead of its host mirror: the engines quarantine
 the chunk's whole snapshot then, as the reference does for an OOM at
 the harvest. A copy-on-write page copy is queued before the table row
 that points at the copy, on the same stream.
+
+Step spans (``tracing.step_span``; off unless ``tracing.
+start_step_spans`` or ``profiling.trace`` turned them on): each
+``step()`` of either engine is one trace, ``serve.step``. Under it the
+paged engine records ``serve.admit_wave`` (a wave over a non-empty
+queue), one ``serve.admit`` a request popped, with its
+``serve.prefill_chunk`` spans (device-timed; the real prompt
+``tokens`` they carry; over a mesh one a dispatched group of chunks)
+and its ``serve.page_install``, the wave's ``serve.first_tokens``,
+``serve.decode_dispatch`` (``steps``; ``launched``: whether a chunk
+went out) and ``serve.harvest``; the slot engine records
+``serve.step``, ``serve.first_tokens`` and ``serve.harvest``.
 """
 
 from __future__ import annotations
@@ -978,18 +990,19 @@ class _EngineCore:
         """One host sync for a whole admission wave: credit each admitted
         request its first token (sampled by admission; TTFT closes here)
         and retire those that are already done."""
-        firsts, flogps = tokens.tolist(), logps.tolist()
-        now = time.monotonic()
-        for lane, req in wave:
-            first = int(firsts[lane])
-            req.output.append(first)
-            req.logprobs.append(float(flogps[lane]))
-            req.first_token_at = now
-            self.telemetry.first_token(id(req))
-            self._trace_mark(req, "first")
-            if ((req.eos is not None and first == req.eos)
-                    or len(req.output) >= req.max_new):
-                self._retire(lane)
+        with tracing.step_span("serve.first_tokens"):
+            firsts, flogps = tokens.tolist(), logps.tolist()
+            now = time.monotonic()
+            for lane, req in wave:
+                first = int(firsts[lane])
+                req.output.append(first)
+                req.logprobs.append(float(flogps[lane]))
+                req.first_token_at = now
+                self.telemetry.first_token(id(req))
+                self._trace_mark(req, "first")
+                if ((req.eos is not None and first == req.eos)
+                        or len(req.output) >= req.max_new):
+                    self._retire(lane)
 
     def _host_read(self, *tensors: torch.Tensor) -> tuple[list, ...]:
         """The harvest's blocking device read (the engine's one sync per
@@ -1021,33 +1034,35 @@ class _EngineCore:
         tokens to the request that owned it at dispatch time; then retire
         requests whose deadline passed (partial output kept) and credit
         the admission controller one clean chunk."""
-        toks, lps = self._host_read(toks, lps)
-        kept = 0
-        for lane, req in snapshot.items():
-            if req.done:
-                continue            # retired after dispatch: dead lanes
-            if req._trace is not None:
-                req._trace.bump("decode_chunks")
-            for t, lp in zip(toks[lane], lps[lane]):
-                req.output.append(int(t))
-                req.logprobs.append(float(lp))
-                kept += 1
-                if ((req.eos is not None and int(t) == req.eos)
-                        or len(req.output) >= req.max_new):
-                    self._retire(lane)
-                    break
-        # dispatch -> harvest wall over the chunk's steps: the per-token
-        # decode latency a caller sees
-        if t0 is not None:
-            self.telemetry.decode_chunk(n_steps, time.monotonic() - t0,
-                                        kept)
-        now = time.monotonic()
-        for lane, req in list(self.running.items()):
-            if req._deadline is not None and now >= req._deadline:
-                self._retire(lane, status=overload.STATUS_DEADLINE_EXCEEDED)
-        if self.admission is not None:
-            self.admission.on_progress()
-            self.telemetry.set_watermark(self.admission.watermark())
+        with tracing.step_span("serve.harvest"):
+            toks, lps = self._host_read(toks, lps)
+            kept = 0
+            for lane, req in snapshot.items():
+                if req.done:
+                    continue            # retired after dispatch: dead lanes
+                if req._trace is not None:
+                    req._trace.bump("decode_chunks")
+                for t, lp in zip(toks[lane], lps[lane]):
+                    req.output.append(int(t))
+                    req.logprobs.append(float(lp))
+                    kept += 1
+                    if ((req.eos is not None and int(t) == req.eos)
+                            or len(req.output) >= req.max_new):
+                        self._retire(lane)
+                        break
+            # dispatch -> harvest wall over the chunk's steps: the
+            # per-token decode latency a caller sees
+            if t0 is not None:
+                self.telemetry.decode_chunk(n_steps, time.monotonic() - t0,
+                                            kept)
+            now = time.monotonic()
+            for lane, req in list(self.running.items()):
+                if req._deadline is not None and now >= req._deadline:
+                    self._retire(lane,
+                                 status=overload.STATUS_DEADLINE_EXCEEDED)
+            if self.admission is not None:
+                self.admission.on_progress()
+                self.telemetry.set_watermark(self.admission.watermark())
 
     # ---- OOM recovery --------------------------------------------------
 
@@ -1589,37 +1604,38 @@ class ServingEngine(_EngineCore):
         runs) costs one heuristic victim; one at the harvest, or inside
         the chunk, the chunk's whole snapshot. A round runs at single
         occupancy, so its one request is the victim either way."""
-        self._admit_waiting()
-        if not self.running:
-            if self.queue:
-                # admission deferred everything with nothing in flight:
-                # yield so run()'s bound spans real time
-                time.sleep(0.01)
-            return
-        slot = self._spec_slot()
-        if slot is not None:
+        with tracing.step_span("serve.step", root=True):
+            self._admit_waiting()
+            if not self.running:
+                if self.queue:
+                    # admission deferred everything with nothing in
+                    # flight: yield so run()'s bound spans real time
+                    time.sleep(0.01)
+                return
+            slot = self._spec_slot()
+            if slot is not None:
+                try:
+                    self._spec_round(slot)
+                except Exception as e:
+                    if not overload.is_resource_exhausted(e):
+                        raise
+                    self._recover_dispatch_oom()
+                return
             try:
-                self._spec_round(slot)
+                pending = self._dispatch()
             except Exception as e:
                 if not overload.is_resource_exhausted(e):
                     raise
                 self._recover_dispatch_oom()
-            return
-        try:
-            pending = self._dispatch()
-        except Exception as e:
-            if not overload.is_resource_exhausted(e):
-                raise
-            self._recover_dispatch_oom()
-            return
-        if pending is None:
-            return
-        try:
-            self._harvest(*pending)
-        except Exception as e:
-            if not overload.is_resource_exhausted(e):
-                raise
-            self._recover_harvest_oom(pending[2])
+                return
+            if pending is None:
+                return
+            try:
+                self._harvest(*pending)
+            except Exception as e:
+                if not overload.is_resource_exhausted(e):
+                    raise
+                self._recover_harvest_oom(pending[2])
 
     def run(self, max_iters: int = 10_000) -> None:
         """Drain queue and running requests. With ``pipeline=True`` chunk
@@ -2350,13 +2366,17 @@ class PagedServingEngine(_EngineCore):
             return self._run_sharded_prefill(sk, sv, prompt, off)
         logits = None
         for start, piece, padded_len in self._prefill_chunks(len(prompt)):
-            arr = torch.zeros((1, padded_len), dtype=torch.int64,
-                              device=self.device)
-            arr[0, :piece] = torch.tensor(prompt[start:start + piece],
-                                          dtype=torch.int64)
-            logits, sk, sv = _paged_prefill_chunk(
-                self.params, arr, sk, sv, off + start, piece - 1, self.cfg,
-                mm=self.mm)
+            with tracing.step_span("serve.prefill_chunk",
+                                   device=self.device) as sp:
+                if sp is not None:
+                    sp.attrs["tokens"] = piece
+                arr = torch.zeros((1, padded_len), dtype=torch.int64,
+                                  device=self.device)
+                arr[0, :piece] = torch.tensor(prompt[start:start + piece],
+                                              dtype=torch.int64)
+                logits, sk, sv = _paged_prefill_chunk(
+                    self.params, arr, sk, sv, off + start, piece - 1,
+                    self.cfg, mm=self.mm)
             self.stats["prefill_chunks"] += 1
             self.telemetry.prefill_chunk(padded_len)
         return logits, sk, sv
@@ -2367,124 +2387,147 @@ class PagedServingEngine(_EngineCore):
         for g0 in range(0, len(full), self._PREFILL_MICRO):
             grp = full[g0:g0 + self._PREFILL_MICRO]
             w = grp[0][2]
-            toks = torch.tensor([[prompt[s:s + p]] for s, p, _ in grp],
-                                dtype=torch.int64, device=self.device)
-            sk, sv = self._shp.sharded_prefill_chunks(
-                self.params, toks, sk, sv, off + grp[0][0], w - 1, self.cfg,
-                mesh=self.mesh, with_logits=False)
+            # one span a dispatched group: its chunks run as one program
+            with tracing.step_span("serve.prefill_chunk",
+                                   device=self.device) as sp:
+                if sp is not None:
+                    sp.attrs["tokens"] = sum(p for _, p, _ in grp)
+                toks = torch.tensor([[prompt[s:s + p]] for s, p, _ in grp],
+                                    dtype=torch.int64, device=self.device)
+                sk, sv = self._shp.sharded_prefill_chunks(
+                    self.params, toks, sk, sv, off + grp[0][0], w - 1,
+                    self.cfg, mesh=self.mesh, with_logits=False)
             for _s, _p, padded_len in grp:
                 self.stats["prefill_chunks"] += 1
                 self.telemetry.prefill_chunk(padded_len)
-        arr = torch.zeros((1, 1, lpad), dtype=torch.int64,
-                          device=self.device)
-        arr[0, 0, :lpiece] = torch.tensor(prompt[lstart:lstart + lpiece],
-                                          dtype=torch.int64)
-        logits, sk, sv = self._shp.sharded_prefill_chunks(
-            self.params, arr, sk, sv, off + lstart, lpiece - 1, self.cfg,
-            mesh=self.mesh, with_logits=True)
+        with tracing.step_span("serve.prefill_chunk",
+                               device=self.device) as sp:
+            if sp is not None:
+                sp.attrs["tokens"] = lpiece
+            arr = torch.zeros((1, 1, lpad), dtype=torch.int64,
+                              device=self.device)
+            arr[0, 0, :lpiece] = torch.tensor(
+                prompt[lstart:lstart + lpiece], dtype=torch.int64)
+            logits, sk, sv = self._shp.sharded_prefill_chunks(
+                self.params, arr, sk, sv, off + lstart, lpiece - 1,
+                self.cfg, mesh=self.mesh, with_logits=True)
         self.stats["prefill_chunks"] += 1
         self.telemetry.prefill_chunk(lpad)
         return logits, sk, sv
 
     def _admit_waiting(self) -> None:
-        self._expire_queued()
-        if self._draining:
-            # stop admitting: queued work is shed, in-flight lanes finish
-            self._shed_queue()
-            return
-        free = [i for i in range(self.n_lanes) if i not in self.running]
-        wave: list[tuple[int, Request]] = []
-        while free and self.queue:
-            if not self._admit_gate(len(self.running)):
-                break
-            lane, req = free.pop(0), self.queue.pop(0)
-            self.telemetry.admit_start(id(req))
-            self._trace_mark(req, "admit")
-            plen = len(req.prompt)
-            padded = self._padded_end(plen)
-            off = self._prefix_len(req)
-            ps = self.alloc.page_size
-            try:
-                self._fire_fault("admit")
-                n_shared = 0
-                if off:
-                    # the full prefix pages join this lane's table by
-                    # reference; the partial tail page, where the
-                    # suffix's first write lands, is not spliced: it
-                    # materializes privately with the suffix install
-                    # (copy-on-write at the page boundary)
-                    _, p_ids = self.prefixes[req.prefix]
-                    n_shared = off // ps
-                    if n_shared:
-                        self.alloc.share(lane, p_ids[:n_shared])
-                self.alloc.ensure(lane, off + padded)
-                gen = self._sampling_generator(lane, req)
-                # page-rounded scratch: the transient prefill band costs
-                # O(prefix + prompt), not O(max_seq)
-                scratch = init_cache(self.cfg, 1,
-                                     paging.page_rounded_rows(off + padded,
-                                                              ps),
-                                     device=self.device)
-                sk, sv = scratch["k"], scratch["v"]
-                if self._sharded:
-                    sk, sv = self._shp.place_scratch(sk, sv, self.mesh)
-                if off:
-                    # the prefix's K/V by device gather, no recompute: the
-                    # suffix chunks attend over these rows as the slot
-                    # engine's copied prefix
-                    sk, sv = self._load_prefix(sk, sv, self._ids(p_ids))
-                self.telemetry.prefill_start(id(req))
-                self._trace_mark(req, "prefill")
-                if req._trace is not None:
-                    req._trace.bump("prefill_chunks",
-                                    len(self._prefill_chunks(plen)))
-                logits, sk, sv = self._run_prefill_chunks(
-                    sk, sv, req.prompt, off)
-                table = self.alloc.table(lane)
-                self._install_scratch(sk, sv, self._ids(table[n_shared:]),
-                                      skip_pages=n_shared)
-                _paged_admit_commit(self.state, lane,
-                                    self._table_row(self.alloc, lane),
-                                    off + plen, logits, req.temperature,
-                                    req.top_p, gen, top_k=self.top_k,
-                                    use_top_p=self._use_top_p)
-            except paging.PagePoolExhausted:
-                # raced below the gate's estimate: put the head back (a
-                # spliced prefix reference unwinds with the release) and
-                # let the next step's retirements free room
-                if self.alloc.owned_pages(lane):
-                    self.alloc.release(lane)
-                self.queue.insert(0, req)
-                free.append(lane)
-                break
-            except Exception as e:
-                if not overload.is_resource_exhausted(e):
-                    raise
-                # the lane's table row is committed last, so a failed
-                # admission's writes sit in its own pages (released by
-                # the scrub) or the trash page
-                self._quarantine_admit_oom(lane, req)
-                free.append(lane)
-                continue
-            self.running[lane] = req
-            self._lengths[lane] = off + plen
-            self.alloc.note_rows(lane, off + plen)
-            self._charged_pages[lane] = self._forecast_pages(req)
-            self._mirror_admit(lane, req, off, plen)
-            if off:
-                self.stats["prefix_hits"] += 1
-                if off % ps:
-                    # the prefix tail page was materialized privately
-                    # with the suffix install: the page-boundary CoW
-                    self.stats["cow_copies"] += 1
-            self.telemetry.admitted(id(req))
-            wave.append((lane, req))
-        self.stats["peak_running"] = max(self.stats["peak_running"],
-                                         len(self.running))
-        self._publish_pages()
-        if wave:
-            self._credit_first_tokens(wave, self.state["tokens"],
-                                      self.state["logps"])
+        # a wave's span opens only over a queue that holds requests
+        with (tracing.step_span("serve.admit_wave") if self.queue
+              else tracing.NO_SPAN):
+            self._expire_queued()
+            if self._draining:
+                # stop admitting: queued work is shed, in-flight lanes
+                # finish
+                self._shed_queue()
+                return
+            free = [i for i in range(self.n_lanes)
+                    if i not in self.running]
+            wave: list[tuple[int, Request]] = []
+            while free and self.queue:
+                if not self._admit_gate(len(self.running)):
+                    break
+                lane, req = free.pop(0), self.queue.pop(0)
+                with tracing.step_span("serve.admit"):
+                    self.telemetry.admit_start(id(req))
+                    self._trace_mark(req, "admit")
+                    plen = len(req.prompt)
+                    padded = self._padded_end(plen)
+                    off = self._prefix_len(req)
+                    ps = self.alloc.page_size
+                    try:
+                        self._fire_fault("admit")
+                        n_shared = 0
+                        if off:
+                            # the full prefix pages join this lane's table
+                            # by reference; the partial tail page, where
+                            # the suffix's first write lands, is not
+                            # spliced: it materializes privately with the
+                            # suffix install (copy-on-write at the page
+                            # boundary)
+                            _, p_ids = self.prefixes[req.prefix]
+                            n_shared = off // ps
+                            if n_shared:
+                                self.alloc.share(lane, p_ids[:n_shared])
+                        self.alloc.ensure(lane, off + padded)
+                        gen = self._sampling_generator(lane, req)
+                        # page-rounded scratch: the transient prefill band
+                        # costs O(prefix + prompt), not O(max_seq)
+                        scratch = init_cache(
+                            self.cfg, 1,
+                            paging.page_rounded_rows(off + padded, ps),
+                            device=self.device)
+                        sk, sv = scratch["k"], scratch["v"]
+                        if self._sharded:
+                            sk, sv = self._shp.place_scratch(sk, sv,
+                                                             self.mesh)
+                        if off:
+                            # the prefix's K/V by device gather, no
+                            # recompute: the suffix chunks attend over
+                            # these rows as the slot engine's copied prefix
+                            sk, sv = self._load_prefix(sk, sv,
+                                                       self._ids(p_ids))
+                        self.telemetry.prefill_start(id(req))
+                        self._trace_mark(req, "prefill")
+                        if req._trace is not None:
+                            req._trace.bump("prefill_chunks",
+                                            len(self._prefill_chunks(plen)))
+                        logits, sk, sv = self._run_prefill_chunks(
+                            sk, sv, req.prompt, off)
+                        with tracing.step_span("serve.page_install"):
+                            table = self.alloc.table(lane)
+                            self._install_scratch(
+                                sk, sv, self._ids(table[n_shared:]),
+                                skip_pages=n_shared)
+                            _paged_admit_commit(
+                                self.state, lane,
+                                self._table_row(self.alloc, lane),
+                                off + plen, logits, req.temperature,
+                                req.top_p, gen, top_k=self.top_k,
+                                use_top_p=self._use_top_p)
+                    except paging.PagePoolExhausted:
+                        # raced below the gate's estimate: put the head
+                        # back (a spliced prefix reference unwinds with the
+                        # release) and let the next step's retirements
+                        # free room
+                        if self.alloc.owned_pages(lane):
+                            self.alloc.release(lane)
+                        self.queue.insert(0, req)
+                        free.append(lane)
+                        break
+                    except Exception as e:
+                        if not overload.is_resource_exhausted(e):
+                            raise
+                        # the lane's table row is committed last, so a
+                        # failed admission's writes sit in its own pages
+                        # (released by the scrub) or the trash page
+                        self._quarantine_admit_oom(lane, req)
+                        free.append(lane)
+                        continue
+                    self.running[lane] = req
+                    self._lengths[lane] = off + plen
+                    self.alloc.note_rows(lane, off + plen)
+                    self._charged_pages[lane] = self._forecast_pages(req)
+                    self._mirror_admit(lane, req, off, plen)
+                    if off:
+                        self.stats["prefix_hits"] += 1
+                        if off % ps:
+                            # the prefix tail page was materialized
+                            # privately with the suffix install: the
+                            # page-boundary CoW
+                            self.stats["cow_copies"] += 1
+                    self.telemetry.admitted(id(req))
+                    wave.append((lane, req))
+            self.stats["peak_running"] = max(self.stats["peak_running"],
+                                             len(self.running))
+            self._publish_pages()
+            if wave:
+                self._credit_first_tokens(wave, self.state["tokens"],
+                                          self.state["logps"])
 
     # ---- speculative decoding: the draft block-table mirror -----------
 
@@ -2782,28 +2825,35 @@ class PagedServingEngine(_EngineCore):
     def _dispatch(self, n: int):
         """Launch one decode chunk (device-async); the slot engine's
         pending-harvest contract."""
-        self._fire_fault("dispatch")
-        if not self._ensure_pages(n):
-            return None
-        self._publish_pages()
-        snapshot = dict(self.running)
-        t0 = time.monotonic()
-        out = self._run_chunk(lambda: paged_decode_chunk(
-            self.params, self.state, self.cfg, n, mm=self.mm,
-            top_k=self.top_k, use_top_p=self._use_top_p,
-            rope_len=self.max_seq, impl=self.attn_impl,
-            gather_pages_w=self._gather_rung(n),
-            generators=self._generators, mesh=self.mesh), snapshot)
-        if out is None:
-            return None
-        toks, lps, self.state = out
-        self.stats["chunks"] += 1
-        self.stats["lane_steps"] += n * self.n_lanes
-        for lane in self.running:
-            self._lengths[lane] += n
-            self.alloc.note_rows(lane, min(self._lengths[lane],
-                                           self.max_seq))
-        return toks, lps, snapshot, t0, n
+        with tracing.step_span("serve.decode_dispatch") as sp:
+            self._fire_fault("dispatch")
+            if not self._ensure_pages(n):
+                if sp is not None:
+                    sp.attrs["launched"] = False
+                return None
+            self._publish_pages()
+            snapshot = dict(self.running)
+            if sp is not None:
+                sp.attrs["steps"] = n
+            t0 = time.monotonic()
+            out = self._run_chunk(lambda: paged_decode_chunk(
+                self.params, self.state, self.cfg, n, mm=self.mm,
+                top_k=self.top_k, use_top_p=self._use_top_p,
+                rope_len=self.max_seq, impl=self.attn_impl,
+                gather_pages_w=self._gather_rung(n),
+                generators=self._generators, mesh=self.mesh), snapshot)
+            if sp is not None:
+                sp.attrs["launched"] = out is not None
+            if out is None:
+                return None
+            toks, lps, self.state = out
+            self.stats["chunks"] += 1
+            self.stats["lane_steps"] += n * self.n_lanes
+            for lane in self.running:
+                self._lengths[lane] += n
+                self.alloc.note_rows(lane, min(self._lengths[lane],
+                                               self.max_seq))
+            return toks, lps, snapshot, t0, n
 
     def step(self) -> None:
         """Admit (every step), decode one chunk or one batched
@@ -2811,35 +2861,36 @@ class PagedServingEngine(_EngineCore):
         out-of-memory split; pool exhaustion is handled in
         ``_ensure_pages`` (victim quarantine), and a round that cannot
         grow its tables falls through to the chunk path."""
-        self._fire_fault("step")
-        self._admit_waiting()
-        if not self.running:
-            if self.queue:
-                time.sleep(0.01)
-            return
-        if self._spec_ready():
-            try:
-                if self._spec_round_paged():
+        with tracing.step_span("serve.step", root=True):
+            self._fire_fault("step")
+            self._admit_waiting()
+            if not self.running:
+                if self.queue:
+                    time.sleep(0.01)
+                return
+            if self._spec_ready():
+                try:
+                    if self._spec_round_paged():
+                        return
+                except Exception as e:
+                    if not overload.is_resource_exhausted(e):
+                        raise
+                    # raised at the round's dispatch, before its programs:
+                    # a chunk dispatch's heuristic victim
+                    self._recover_dispatch_oom()
                     return
+            try:
+                pending = self._dispatch(self._next_chunk())
             except Exception as e:
                 if not overload.is_resource_exhausted(e):
                     raise
-                # raised at the round's dispatch, before its programs:
-                # a chunk dispatch's heuristic victim
                 self._recover_dispatch_oom()
                 return
-        try:
-            pending = self._dispatch(self._next_chunk())
-        except Exception as e:
-            if not overload.is_resource_exhausted(e):
-                raise
-            self._recover_dispatch_oom()
-            return
-        if pending is None:
-            return
-        try:
-            self._harvest(*pending)
-        except Exception as e:
-            if not overload.is_resource_exhausted(e):
-                raise
-            self._recover_harvest_oom(pending[2])
+            if pending is None:
+                return
+            try:
+                self._harvest(*pending)
+            except Exception as e:
+                if not overload.is_resource_exhausted(e):
+                    raise
+                self._recover_harvest_oom(pending[2])

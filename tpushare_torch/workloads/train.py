@@ -44,6 +44,11 @@ optax.
 (``models/moe.moe_loss_fn``: cross entropy plus ``router_aux_coef`` x
 the load-balancing term), on one device or over a (dp, tp, ep) mesh:
 the experts split over ep (``models/moe.moe_ffn``'s ep form).
+
+Step spans (``tracing.step_span``, off by default): each one-device
+step of :func:`make_train_step` is one trace, ``train.step``, with a
+``train.loss_and_grads`` span a microbatch and one
+``train.optimizer_update``, both device-timed on a CUDA device.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from typing import Callable, Iterator, Sequence
 
 import torch
 
+from tpushare_torch import tracing
 from tpushare_torch.device import resolve_device
 from tpushare_torch.workloads.models.transformer import (TransformerConfig,
                                                          loss_fn)
@@ -484,35 +490,44 @@ def make_train_step(cfg: TransformerConfig, optimizer: AdamW,
     dev = _one_device(device)
 
     def body(state: dict, inputs: torch.Tensor, targets: torch.Tensor):
-        params = state["params"]
-        inputs, targets = inputs.to(dev), targets.to(dev)
-        if accum_steps == 1:
-            loss, grads = loss_and_grads(params, inputs, targets, cfg)
-        else:
-            # fp32 accumulators over equal microbatches: the mean of the
-            # means is the full-batch mean, in 1/accum the activations
-            B = inputs.shape[0]
-            if B % accum_steps:
-                raise ValueError(f"batch {B} not divisible by "
-                                 f"accum_steps {accum_steps}")
-            mb = B // accum_steps
-            gsum = tree_map(
-                lambda p: torch.zeros_like(p, dtype=torch.float32), params)
-            lsum = torch.zeros((), dtype=torch.float32, device=dev)
-            for a in range(accum_steps):
-                rows = slice(a * mb, (a + 1) * mb)
-                loss, grads = loss_and_grads(params, inputs[rows],
-                                             targets[rows], cfg)
-                for acc, g in zip(tree_leaves(gsum), tree_leaves(grads)):
-                    acc.add_(g.float())
-                lsum = lsum + loss
-                del grads
-            grads = tree_map(lambda g, p: (g / accum_steps).to(p.dtype),
-                             gsum, params)
-            loss = lsum / accum_steps
-        optimizer.update(grads, state["opt"], params)
-        state["step"] += 1
-        return state, loss
+        with tracing.step_span("train.step", root=True):
+            params = state["params"]
+            inputs, targets = inputs.to(dev), targets.to(dev)
+            if accum_steps == 1:
+                with tracing.step_span("train.loss_and_grads", device=dev):
+                    loss, grads = loss_and_grads(params, inputs, targets,
+                                                 cfg)
+            else:
+                # fp32 accumulators over equal microbatches: the mean of
+                # the means is the full-batch mean, in 1/accum the
+                # activations
+                B = inputs.shape[0]
+                if B % accum_steps:
+                    raise ValueError(f"batch {B} not divisible by "
+                                     f"accum_steps {accum_steps}")
+                mb = B // accum_steps
+                gsum = tree_map(
+                    lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
+                lsum = torch.zeros((), dtype=torch.float32, device=dev)
+                for a in range(accum_steps):
+                    rows = slice(a * mb, (a + 1) * mb)
+                    with tracing.step_span("train.loss_and_grads",
+                                           device=dev):
+                        loss, grads = loss_and_grads(params, inputs[rows],
+                                                     targets[rows], cfg)
+                    for acc, g in zip(tree_leaves(gsum),
+                                      tree_leaves(grads)):
+                        acc.add_(g.float())
+                    lsum = lsum + loss
+                    del grads
+                grads = tree_map(lambda g, p: (g / accum_steps).to(p.dtype),
+                                 gsum, params)
+                loss = lsum / accum_steps
+            with tracing.step_span("train.optimizer_update", device=dev):
+                optimizer.update(grads, state["opt"], params)
+            state["step"] += 1
+            return state, loss
 
     return body
 
