@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (flash forward, flash backward dQ and
-dK/dV, paged decode and ragged decode, each decode read with its int8
-rung, splash forward, dQ and dK/dV) from the sources in this checkout,
-holds each against its plain-PyTorch twin at the shapes the main paths
-give it (phases ``flash-vs-plain``, ``flash-bwd-vs-plain``,
+Builds the port's CUDA kernels (flash forward, the cached chunk's
+offset flash forward, flash backward dQ and dK/dV, paged decode and
+ragged decode, each decode read with its int8 rung, splash forward, dQ
+and dK/dV) from the sources in this checkout, holds each against its
+plain-PyTorch twin at the shapes the main paths give it (phases
+``flash-vs-plain``, ``chunk-vs-plain``, ``flash-bwd-vs-plain``,
 ``splash-vs-plain``, ``splash-bwd-vs-plain``, ``paged-vs-plain``,
 ``paged-int8-vs-plain``, ``ragged-vs-plain``, ``ragged-int8-vs-plain``),
 then drives the main paths through their entry points at full width
@@ -26,7 +27,8 @@ then drives the main paths through their entry points at full width
   to 128 new tokens, greedy) — paged-decode kernel, one launch per layer
   per decode step;
 - ``infer --mode serve`` (the slot engine: 16 requests, 4 slots, same
-  traffic) — the dense einsum read, no kernel; ``serve --ragged`` — the
+  traffic) — the dense einsum read, admission's chunks through the
+  cached chunk's kernel, no other kernel; ``serve --ragged`` — the
   ragged-decode kernel, one launch per layer per decode step;
   ``serve --window 128 --ring-rows 256`` (8 requests of up to 384 new
   tokens) — a ring cache that wraps;
@@ -328,6 +330,30 @@ def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+CHUNK_KERNEL = "flash_fwd_chunk"
+
+
+def without_chunks(label: str, launches: dict, chunks: int,
+                   per_chunk: int) -> dict:
+    """``launches`` without the cached chunk's kernel, which must have run
+    exactly ``per_chunk`` times (once a layer, or once a layer per tp
+    shard on a sharded prefill; 0 where the chunks keep the einsum core)
+    for each of the ``chunks`` admission chunks the engines recorded
+    (``stats["prefill_chunks"]``). Raises on any other count: a chunk
+    routed back to the einsum, or a launch twice."""
+    n = launches.get(CHUNK_KERNEL, 0)
+    if n != chunks * per_chunk:
+        raise RuntimeError(f"{label}: {n} {CHUNK_KERNEL} launches != "
+                           f"{per_chunk} x {chunks} admission chunks")
+    return {k: c for k, c in launches.items() if k != CHUNK_KERNEL}
+
+
+def only_codec_chunk_fallbacks(fallbacks: dict) -> bool:
+    """The one fallback an int8 slot cache's admission counts on the card:
+    its chunks keep the einsum core (``flash:codec:int8``)."""
+    return set(fallbacks) == {("flash", "codec:int8")}
+
+
 def elem_rel_err(got, want) -> float:
     """Largest |got - want| as a share of max(|want|, FWD_FLOOR x the
     largest |want|)."""
@@ -476,6 +502,108 @@ BWD_CASES = [  # (label, B, S, H, Hkv, hd, dtype, causal, window)
 ]
 # the rows whose 4-bit rounding control must fail the check
 BWD_CONTROL_CASES = ("main-path", "moe-hd64")
+
+
+# the cached chunk's kernel at the document-QA model's heads (Mistral-7B,
+# 32:8 of 128): a 2048-token admission chunk at pos 0 (the median
+# prompt's bucket) and at pos 4096 (the last chunk at the 6144 clip)
+CHUNK_CASES = [  # (label, Q, pos, H, Hkv, hd)
+    ("docqa-median", 2048, 0, 32, 8, 128),
+    ("docqa-clip", 2048, 4096, 32, 8, 128),
+]
+
+
+def chunk_cases(torch):
+    """The cached chunk's kernel (``attention.flash_chunk_attention``)
+    against its plain twin, the einsum core (``decode.cached_attn_einsum``),
+    on the same bf16 cache view: layer 1 of a two-layer scratch whose
+    rows are pos + Q rounded up to the 32-row page, random everywhere
+    (the rows past pos + Q are the scratch's stale tail, which the einsum
+    masks and the kernel never reads). Each element within FWD_TOL of
+    max(|einsum|, FWD_FLOOR x its largest |value|), and of a plain fp32
+    reference; the output rounded to CONTROL_BITS_FWD bits, and the
+    einsum with the diagonal one key late, must fail that check. Times kernel, einsum and SDPA with the offset's boolean
+    mask over the first pos + Q rows; the bound is the larger of the
+    causal operations over the bf16 peak and the bytes (q, o, the K/V
+    rows read) over HBM bandwidth."""
+    from tpushare_torch.workloads.decode import cached_attn_einsum, kv_view
+    from tpushare_torch.workloads.models.transformer import TransformerConfig
+    from tpushare_torch.workloads.ops.attention import flash_chunk_attention
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dtype, tol = "bfloat16", FWD_TOL["bfloat16"]
+    rows_out = []
+    for label, Q, pos, H, Hkv, hd in CHUNK_CASES:
+        n = pos + Q
+        rows = -(-n // 32) * 32
+        q = torch.randn((1, Q, H, hd), generator=gen,
+                        device="cuda").bfloat16()
+        kc, vc = (torch.randn((2, 1, rows, Hkv, hd), generator=gen,
+                              device="cuda").bfloat16() for _ in range(2))
+        k, v = kv_view(kc, 1), kv_view(vc, 1)
+        cfg = TransformerConfig(d_model=H * hd, n_heads=H, n_kv_heads=Hkv,
+                                max_seq=rows, dtype=torch.bfloat16)
+        slot_ids = torch.arange(rows, device="cuda")
+
+        def kernel():
+            return flash_chunk_attention(q, k, v, pos)
+
+        def plain():
+            return cached_attn_einsum(q, k, v, pos, cfg, slot_ids)
+        keep = (torch.arange(n, device="cuda")[None, :]
+                <= pos + torch.arange(Q, device="cuda")[:, None])
+        qt = q.transpose(1, 2)
+        kt, vt = (x[:, :n].transpose(1, 2) for x in (k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep,
+                                                  enable_gqa=Hkv != H)
+        got, want = kernel(), plain()
+        kf, vf = (x[:, :n].float().repeat_interleave(H // Hkv, dim=2)
+                  for x in (k, v))
+        sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * hd ** -0.5
+        ref = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(
+            torch.where(keep, sc, -torch.inf), dim=-1), vf)
+        del kf, vf, sc
+        torch.cuda.synchronize()
+        rel = elem_rel_err(got, want)
+        ref_rel = elem_rel_err(got, ref)
+        plain_ref_rel = elem_rel_err(want, ref)
+        control = elem_rel_err(round_to_bits(torch, got, CONTROL_BITS_FWD),
+                               want)
+        # the diagonal one key late: the offset a wrong mask would give
+        shifted = elem_rel_err(got, cached_attn_einsum(q, k, v, pos + 1, cfg,
+                                                       slot_ids))
+        if not (rel <= tol and ref_rel <= tol):
+            raise RuntimeError(f"chunk {label} Q={Q} pos={pos}: {rel} of the "
+                               f"einsum's value, {ref_rel} of the fp32 "
+                               f"reference's > {tol}")
+        if not (control > tol and shifted > tol):
+            raise RuntimeError(f"chunk {label}: a control passes the check "
+                               f"({CONTROL_BITS_FWD} bits {control}, the "
+                               f"diagonal one key late {shifted})")
+        err = max_err(got, want)
+        del got, want, ref
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain)
+        library_ms = time_ms(library)
+        flops = 4 * H * hd * (Q * pos + Q * (Q + 1) // 2)
+        n_bytes = q.element_size() * (2 * Q * H * hd + 2 * n * Hkv * hd)
+        bms, by = bound_ms(n_bytes, flops, dtype)
+        row = dict(case=label, B=1, Q=Q, pos=pos, rows=rows, H=H, Hkv=Hkv,
+                   hd=hd, dtype=dtype, max_abs_err=err, rel_err=rel,
+                   ref_rel_err=ref_rel, plain_ref_rel_err=plain_ref_rel,
+                   tol=tol, **{f"control_rel_err_b{CONTROL_BITS_FWD}":
+                               control}, control_rel_err_offset1=shifted,
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bms, bound_by=by,
+                   tflops=flops / (ms * 1e-3) / 1e12, over_bound=ms / bms,
+                   over_plain=ms / plain_ms, over_library=ms / library_ms)
+        phase("chunk-vs-plain", **row)
+        rows_out.append(row)
+        del q, kc, vc, k, v, keep, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows_out
 
 
 def bwd_inputs(torch, gen, B, S, H, Hkv, hd, dtype):
@@ -1505,8 +1633,8 @@ def paged_serve(torch, build, infer, extra):
     """One ``infer --mode serve --paged`` run at the serve traffic with
     the counts and fallbacks zeroed just before it: 8 lanes reading
     through the paged kernel, every request completed with its
-    ``max_new`` tokens, no page leaked, no fallback, no flash launch
-    (admission runs chunk_step's einsums)."""
+    ``max_new`` tokens, no page leaked, no fallback, no flash launch,
+    and the cached chunk's kernel once a layer per admission chunk."""
     from tpushare_torch.workloads.ops import registry
     build.reset_launches()
     registry.reset_fallbacks()
@@ -1525,6 +1653,8 @@ def paged_serve(torch, build, infer, extra):
     if fallbacks or launches["flash_fwd"]:
         raise RuntimeError(f"paged serve {extra} fell back {fallbacks} or "
                            f"launched flash: {launches}")
+    without_chunks(f"paged serve {extra}", launches, res["prefill_chunks"],
+                   eng.cfg.n_layers)
     steps = res["warmup_decode_steps"] + res["decode_steps"]
     ttft = res["ttft_s"]
     fields = dict(tokens_per_s=res["tokens_per_s"], tokens=res["tokens"],
@@ -1618,13 +1748,17 @@ def slot_serve(torch, build, infer, extra):
 
 
 def serve_slot_path(torch, build, infer):
-    """The slot engine's dense read: the reference's einsum core, and
-    admission runs chunk_step — no kernel launches at all."""
-    res, launches, _, _, fields = slot_serve(torch, build, infer, [])
+    """The slot engine's dense read: the reference's einsum core on every
+    decode step, and admission's chunks through the cached chunk's
+    kernel — no other kernel launch, no fallback."""
+    res, launches, _, fallbacks, fields = slot_serve(torch, build, infer, [])
     if res["engine"].attn_impl != "xla":
         raise RuntimeError(f"slot engine read {res['engine'].attn_impl}")
-    if any(launches.values()):
-        raise RuntimeError(f"the dense slot engine launched {launches}")
+    others = without_chunks("serve-slot", launches, res["prefill_chunks"],
+                            res["engine"].cfg.n_layers)
+    if any(others.values()) or fallbacks:
+        raise RuntimeError(f"the dense slot engine launched {launches}, "
+                           f"fell back {fallbacks}")
     phase("serve-slot", **fields)
     return launches
 
@@ -1643,6 +1777,7 @@ def serve_ragged_path(torch, build, infer):
                            f"{n_layers} layers x {steps} decode steps")
     if launches["flash_fwd"] or launches["paged_decode"]:
         raise RuntimeError(f"serve --ragged launched {launches}")
+    without_chunks("serve-ragged", launches, res["prefill_chunks"], n_layers)
     if fallbacks:
         raise RuntimeError(f"serve --ragged fell back: {fallbacks}")
     phase("serve-ragged", **fields, fallbacks=len(fallbacks))
@@ -1685,8 +1820,9 @@ def serve_ragged_int8_path(torch, build, infer, ragged_res):
         raise RuntimeError(f"serve-ragged-int8 launches {launches} != "
                            f"{n_layers} layers x {steps} decode steps on "
                            "the int8 rung alone")
-    if fallbacks:
-        raise RuntimeError(f"serve-ragged-int8 fell back: {fallbacks}")
+    if not only_codec_chunk_fallbacks(fallbacks):
+        raise RuntimeError(f"serve-ragged-int8 fell back: {fallbacks} "
+                           "(want only the int8 admission chunks')")
     ttft = res["ttft_s"]
     phase("serve-ragged-int8", tokens_per_s=res["tokens_per_s"],
           tokens=res["tokens"], seconds=res["seconds"],
@@ -1711,6 +1847,7 @@ def serve_ring_path(torch, build, infer):
         raise RuntimeError(f"ring rows {eng.cache_rows}, not 256")
     if longest <= eng.cache_rows:
         raise RuntimeError(f"no request wrapped the ring ({longest} rows)")
+    without_chunks("serve-ring", launches, res["prefill_chunks"], 0)
     phase("serve-ring", **fields, longest_request=longest)
     return launches
 
@@ -1774,7 +1911,8 @@ def replay_phase(torch, build, infer, label, extra, scenario, rate, name,
     the counts zeroed just before and read just after: every decode step
     reads each layer through ``name``; each prefix the replay registers
     (``prefix_len`` rows) prefills once through the flash forward, one
-    launch a layer; no other kernel runs, nothing falls back."""
+    launch a layer; admission chunks run the cached chunk's kernel; no
+    other kernel runs, nothing falls back."""
     from tpushare_torch.workloads import traffic
     from tpushare_torch.workloads.ops import registry
     setup = infer.serve_engine(infer.parse_args(SERVE_ARGS + extra))
@@ -1794,7 +1932,9 @@ def replay_phase(torch, build, infer, label, extra, scenario, rate, name,
     steps = eng.stats["lane_steps"] // setup["n_lanes"]
     want = {name: cfg.n_layers * steps,
             "flash_fwd": cfg.n_layers * len(eng.prefixes)}
-    if any(n != want.get(k, 0) for k, n in launches.items()) or fallbacks:
+    if any(n != want.get(k, 0) for k, n in without_chunks(
+            label, launches, eng.stats["prefill_chunks"],
+            cfg.n_layers).items()) or fallbacks:
         raise RuntimeError(f"{label}: launches {launches} != {cfg.n_layers} "
                            f"layers x {steps} decode steps of {name} and "
                            f"one flash prefill a layer per registered "
@@ -2034,7 +2174,9 @@ def serve_overload_path(torch, build, params, cfg):
                            f"{nxt.status}")
     steps = eng.stats["lane_steps"] // eng.n_lanes
     steps8 = eng8.stats["lane_steps"] // eng8.n_lanes
-    others = {k: n for k, n in launches.items()
+    others = {k: n for k, n in without_chunks(
+        "serve-overload", launches, eng.stats["prefill_chunks"]
+        + eng8.stats["prefill_chunks"], cfg.n_layers).items()
               if k not in ("paged_decode", "paged_decode_int8") and n}
     if launches["paged_decode"] != cfg.n_layers * steps or \
             launches["paged_decode_int8"] != cfg.n_layers * steps8 or \
@@ -3024,7 +3166,10 @@ def serve_ragged_w8_path(torch, build, infer, ragged_res):
     res, launches, steps, fallbacks, fields = slot_serve(
         torch, build, infer, ["--ragged", "--int8"])
     eng = res["engine"]
-    others = {k: n for k, n in launches.items() if k != "ragged_decode"}
+    others = {k: n for k, n in without_chunks(
+        "serve-ragged-w8", launches, res["prefill_chunks"],
+        eng.cfg.n_layers).items()
+              if k != "ragged_decode"}
     if eng.attn_impl != "ragged" or eng.mm is None:
         raise RuntimeError("serve-ragged-w8 is not a ragged int8-weight "
                            "engine")
@@ -3267,7 +3412,9 @@ def moe_serve_path(torch, build, infer, cfg, params):
     """The serve traffic (16 requests, prompt 128, up to 128 new tokens)
     through the paged engine (8 lanes, K5 at head_dim 64: 8 launches per
     decode step) and the slot engine (4 slots, the einsum read: no
-    kernel), every request completed, no page leaked, no fallback."""
+    decode kernel), admission's chunks through the cached chunk's
+    kernel on both, every request completed, no page leaked, no
+    fallback."""
     from tpushare_torch.workloads.ops import registry
     from tpushare_torch.workloads.serving import (PagedServingEngine,
                                                   ServingEngine)
@@ -3301,7 +3448,10 @@ def moe_serve_path(torch, build, infer, cfg, params):
                                f"{fallbacks})")
         want = ({"paged_decode": cfg.n_layers * steps} if label == "paged"
                 else {})
-        if {k: c for k, c in launches.items() if c} != want:
+        if {k: c for k, c in without_chunks(
+                f"moe-serve {label}", launches, res["prefill_chunks"],
+                cfg.n_layers).items()
+                if c} != want:
             raise RuntimeError(f"moe-serve {label} launches {launches} != "
                                f"{want}")
         if label == "paged" and (eng.attn_impl != "paged"
@@ -3731,7 +3881,10 @@ def serve_fleet_path(torch, build, infer):
         steps = sum(w + s for w, s in zip(
             res["member_warmup_decode_steps"][first:],
             res["member_decode_steps"][first:]))
-        others = {k: n for k, n in launches.items() if n and k != k5}
+        others = {k: n for k, n in without_chunks(
+            f"serve-fleet {label}", launches, res["prefill_chunks"],
+            cfg.n_layers).items()
+                  if n and k != k5}
         if launches[k5] != cfg.n_layers * steps or others or \
                 prefill.get(k5) or (router.disaggregate and (
                     res["member_decode_steps"][0]
@@ -3773,8 +3926,9 @@ def fleet_ab_arm(torch, build, params, cfg, n_engines=2, disagg=False,
     (32, 128), chunk 8, forecast fraction 0.8, the K5 read; a warm burst
     of 8, then the 48 requests timed. ``affinity`` registers the system
     prompt and names it; otherwise it is inlined in every prompt.
-    Returns the arm's fields, its launches and the K1 launches counted
-    inside replications."""
+    Returns the arm's fields, its K1 launches at registration, those
+    counted inside replications and the admission chunks its members
+    recorded."""
     from tpushare_torch import consts
     from tpushare_torch.workloads import paging
     from tpushare_torch.workloads.fleet import FleetRouter
@@ -3806,6 +3960,7 @@ def fleet_ab_arm(torch, build, params, cfg, n_engines=2, disagg=False,
         front.submit(r)
     front.run()
     warm_replications = front.stats["replications"]
+    chunks = sum(e.stats["prefill_chunks"] for e in members)
     front.reset_stats()
     reqs = [req(i) for i in range(FLEET_AB_N)]
     torch.cuda.synchronize()
@@ -3817,6 +3972,7 @@ def fleet_ab_arm(torch, build, params, cfg, n_engines=2, disagg=False,
     dt = time.perf_counter() - t0
     snap = front.snapshot()
     rs = front.stats
+    chunks += sum(e.stats["prefill_chunks"] for e in members)
     statuses = sorted({r.status for r in reqs})
     fields = {"tokens_per_s": sum(len(r.output) for r in reqs) / dt,
               "seconds": dt,
@@ -3839,7 +3995,7 @@ def fleet_ab_arm(torch, build, params, cfg, n_engines=2, disagg=False,
                            f"{disagg}, affinity {affinity}): statuses "
                            f"{statuses}, pages left {leaks}, fields "
                            f"{fields}")
-    return fields, home_k1, replica_k1.get("flash_fwd", 0)
+    return fields, home_k1, replica_k1.get("flash_fwd", 0), chunks
 
 
 def fleet_ab_path(torch, build, params, cfg):
@@ -3856,13 +4012,14 @@ def fleet_ab_path(torch, build, params, cfg):
     build.reset_launches()
     registry.reset_fallbacks()
     arms = {}
-    homes = 0
+    homes = chunks = 0
     for label, kw in (("affinity", {}), ("affinity_off",
                                          {"affinity": False}),
                       ("disagg", {"disagg": True}),
                       ("single", {"n_engines": 1})):
-        fields, home_k1, replica_k1 = fleet_ab_arm(torch, build, params,
-                                                   cfg, **kw)
+        fields, home_k1, replica_k1, arm_chunks = fleet_ab_arm(
+            torch, build, params, cfg, **kw)
+        chunks += arm_chunks
         registered = kw.get("affinity", True)
         homes += registered
         if home_k1 != cfg.n_layers * registered or replica_k1:
@@ -3875,7 +4032,8 @@ def fleet_ab_path(torch, build, params, cfg):
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
     fallbacks = registry.fallback_counts()
-    others = {k: n for k, n in launches.items()
+    others = {k: n for k, n in without_chunks(
+        "fleet-ab", launches, chunks, cfg.n_layers).items()
               if n and k not in ("paged_decode", "flash_fwd")}
     if launches["flash_fwd"] != cfg.n_layers * homes or others or \
             fallbacks or not launches["paged_decode"]:
@@ -4032,8 +4190,8 @@ def serve_fleet_remote_path(torch, build, infer, disagg_outputs, hosts):
     before the fleet phases): an ``infer --listen 127.0.0.1:0`` host with
     the serve flags and seed, and the f32 check's child. ``serve``'s
     requests run from this process with ``--join ADDR --disaggregate``:
-    prefill local (no K5 here), decode remote, every handoff across the
-    wire. Its greedy tokens are reported against the in-process
+    prefill local (its chunks through the cached chunk's kernel, no K5
+    here), decode remote, every handoff across the wire. Its greedy tokens are reported against the in-process
     disaggregated run's (bf16: the in-process decode members have 4
     lanes, the host 8, so batch composition may part them) and held
     equal in f32, with a sampler's CUDA generator stream continuing
@@ -4078,7 +4236,9 @@ def serve_fleet_remote_path(torch, build, infer, disagg_outputs, hosts):
         outs = [r.output for r in reqs]
         agree = sum(a == b for a, b in zip(outs, disagg_outputs))
         bad = [r.status for r in reqs if r.status != "completed"]
-        if bad or any(launches.values()) or \
+        local = without_chunks("serve-fleet-remote", launches,
+                               res["prefill_chunks"], setup["cfg"].n_layers)
+        if bad or any(local.values()) or \
                 router.engines[0].alloc.pages_in_use() or \
                 router.stats["handoffs"] < len(reqs) or \
                 router.member_states() != ["closed", "closed"]:
@@ -4376,6 +4536,8 @@ def serve_mesh_path(torch, build, infer, serve_fields):
                 eng.alloc.leaked():
             raise RuntimeError(f"serve-mesh {codec}: statuses {bad}, mesh "
                                f"{(eng._tp, eng._pp)}, read {eng.attn_impl}")
+        without_chunks(f"serve-mesh {codec}", launches,
+                       res["prefill_chunks"], per_step)
         if launches[name] != per_step * steps or launches[other] or \
                 launches["flash_fwd"] or fallbacks:
             raise RuntimeError(f"serve-mesh {codec}: launches {launches} != "
@@ -4404,8 +4566,9 @@ def serve_ragged_mesh_path(torch, build, infer, ragged_res):
     (``ServingEngine(mesh=)``, the ``serve-ragged`` engine's weights and
     traffic), then the same with int8 caches: each layer's read runs K4
     (K4-int8) once per tp shard — n_layers x tp launches a decode step,
-    no other kernel —, the dense run with the unsharded ragged run's
-    tokens, request for request."""
+    no other kernel but the dense run's admission chunks (the int8 run's
+    keep the einsum core, its one fallback) —, the dense run with the
+    unsharded ragged run's tokens, request for request."""
     from tpushare_torch.workloads.ops import registry
     from tpushare_torch.workloads.parallel.mesh import make_serving_mesh
     from tpushare_torch.workloads.serving import ServingEngine
@@ -4433,8 +4596,13 @@ def serve_ragged_mesh_path(torch, build, infer, ragged_res):
         steps = res["warmup_decode_steps"] + res["decode_steps"]
         per_step = cfg.n_layers * MESH_TP
         others = {k: n for k, n in launches.items() if k != name and n}
-        if bad or launches[name] != per_step * steps or others or \
-                fallbacks:
+        if not int8:
+            others = without_chunks("serve-ragged-mesh", others,
+                                    res["prefill_chunks"], cfg.n_layers)
+        fell_back = (not only_codec_chunk_fallbacks(fallbacks) if int8
+                     else bool(fallbacks))
+        if bad or launches[name] != per_step * steps or \
+                any(others.values()) or fell_back:
             raise RuntimeError(f"serve-ragged-mesh int8={int8}: statuses "
                                f"{bad}, launches {launches} != {per_step} "
                                f"x {steps} on {name} (fallbacks "
@@ -5873,6 +6041,7 @@ def main() -> int:
           **{f"build_{k}_s": v for k, v in built.items()})
 
     flash_rows = flash_cases(torch)
+    chunk_rows = chunk_cases(torch)
     bwd_rows = bwd_cases(torch)
     torch.cuda.empty_cache()    # the S=2048 plain twins' score matrices
     splash_rows = splash_cases(torch)
@@ -6007,7 +6176,7 @@ def main() -> int:
     serve_spec_cost(torch, infer)
 
     def by_path(name):
-        return {p: n[name] for p, n in paths.items() if n[name]}
+        return {p: n[name] for p, n in paths.items() if n.get(name)}
 
     def kernel_line(name, source, replaces, row, checked_in, **fields):
         counts = by_path(name)
@@ -6019,8 +6188,9 @@ def main() -> int:
             line[key] = row[fields.get(key, key)]
         line["plain_ms"] = row["plain_ms"]
         line["library_ms"] = row["library_ms"]
-        line["shape"] = {k: row[k] for k in ("B", "S", "H", "Hkv", "hd",
-                                               "ps", "P", "dtype")
+        line["shape"] = {k: row[k] for k in ("B", "S", "Q", "pos", "rows",
+                                               "H", "Hkv", "hd", "ps", "P",
+                                               "dtype")
                          if k in row}
         return line
 
@@ -6037,6 +6207,10 @@ def main() -> int:
                     "prefix-f32-identity, fleet-f32-identity, "
                     "spec-f32-identity, "
                     "train-f32-parity, moe-train-f32-parity"),
+        kernel_line(CHUNK_KERNEL,
+                    "tpushare_torch/workloads/kernels/flash_fwd.cu",
+                    "tpushare/workloads/decode.py:166",
+                    chunk_rows[0], "chunk-vs-plain"),
         kernel_line("flash_bwd_dq",
                     "tpushare_torch/workloads/kernels/flash_bwd.cu",
                     "tpushare/workloads/ops/attention.py:245", bwd,
@@ -6176,6 +6350,12 @@ def main() -> int:
         line_of[name]["serve_shape"] = {k: rows[0][k] for k in fields}
     # the forward on the training path: the LSE launch at the train shape
     line_of["flash_fwd"]["train_shape"] = {k: train_fwd[k] for k in fields}
+    # the cached chunk at the 6144 clip's last chunk
+    line_of[CHUNK_KERNEL]["clip_shape"] = {
+        k: chunk_rows[1][k] for k in ("Q", "pos", "rows", "H", "Hkv", "hd",
+                                      "dtype", "max_abs_err", "ms",
+                                      "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")}
     # the splash forward's LSE launch, which the training path runs
     line_of["splash_fwd"]["train_shape"] = {k: splash_lse[k]
                                             for k in fields}

@@ -45,6 +45,7 @@ from tpushare_torch.workloads.models.transformer import (
 )
 from tpushare_torch.workloads.ops.paged_attention import (
     paged_attention_read)
+from tpushare_torch.workloads.ops.registry import KIND_CHUNK, select_attention
 from tpushare_torch.workloads.quant import (rowwise_absmax_decode,
                                             rowwise_absmax_encode)
 
@@ -192,13 +193,55 @@ def kv_scale_bhgqk(scales: torch.Tensor) -> torch.Tensor:
     return scales.transpose(1, 2)[:, :, None, None, :]
 
 
+def cached_attn_einsum(q: torch.Tensor, kc, vc, pos, cfg: TransformerConfig,
+                       slot_ids: torch.Tensor) -> torch.Tensor:
+    """The einsum core of :func:`make_cached_attn_core`: q (B, Q, H, hd)
+    at ``pos`` against every row of a cache that already holds the
+    chunk's K/V, grouped fp32 einsums with the rows a query may not see
+    masked at -1e30 — the reference's core op for op, and the plain twin
+    of the offset flash kernel. Returns (B, Q, H, hd) in q's dtype."""
+    hd = cfg.head_dim
+    G = cfg.n_heads // cfg.kv_heads
+    R = slot_ids.shape[0]                 # cache rows (== max_seq dense)
+    B, Q = q.shape[:2]
+    if torch.is_tensor(pos):
+        qpos = pos[:, None, None]                              # (B, 1, 1)
+    else:
+        qpos = (pos + torch.arange(Q, device=q.device))[None, :, None]
+    if cfg.attn_window is not None:
+        p = qpos - ((qpos - slot_ids[None, None, :]) % R)
+        mask = (p >= 0) & (p > qpos - cfg.attn_window)
+    else:
+        mask = slot_ids[None, None, :] <= qpos                 # (B|1, Q, S)
+    kmat, vmat = kv_data(kc).float(), kv_data(vc).float()
+    qg = q.float().reshape(B, Q, kmat.shape[2], G, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kmat) * (hd ** -0.5)
+    if isinstance(kc, dict):
+        s = s * kv_scale_bhgqk(kc["s"])
+    s = torch.where(mask[:, None, None, :, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    if isinstance(vc, dict):
+        # the V scales fold into the probabilities; the values read stay
+        # int8
+        p = p * kv_scale_bhgqk(vc["s"])
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, vmat)
+    return o.reshape(B, Q, cfg.n_heads, hd).to(q.dtype)
+
+
 def make_cached_attn_core(kc, vc, pos, cfg: TransformerConfig,
                           slot_ids: torch.Tensor):
     """The per-layer cached-attention closure shared by the dense decode
     loop, the chunk step and the slot engine: write this step's K/V into
-    the cache at ``pos`` (in place), then attend over the whole static
-    cache with grouped fp32 einsums, masking rows a query may not see at
-    -1e30 — the reference's core op for op.
+    the cache at ``pos`` (in place), then attend over the cache.
+
+    The read is the registry's chunk kind (``KIND_CHUNK``), decided from
+    the inputs alone: on the card a chunk of Q >= 2 queries at an int
+    ``pos`` over a dense bf16 cache with no window runs the offset flash
+    kernel, which reads the cache's first pos + Q rows in place
+    (``attention.flash_chunk_attention``); decode steps, per-row
+    positions, codec and ring caches, other dtypes and CPU tensors keep
+    the reference's grouped fp32 einsums over the whole static cache
+    (:func:`cached_attn_einsum`).
 
     A codec cache (``{q, s}`` leaves) quantizes on write and is read at
     int8 width with its scales folded in: the scores are
@@ -218,8 +261,6 @@ def make_cached_attn_core(kc, vc, pos, cfg: TransformerConfig,
     this is the banded causal mask. Callers that wrap (the ring cache)
     keep R >= attn_window + Q - 1. Returns attn_core(q, k, v) ->
     (o, (kc, vc))."""
-    hd = cfg.head_dim
-    G = cfg.n_heads // cfg.kv_heads
     per_row = torch.is_tensor(pos)
     quantized = isinstance(kc, dict)
     R = slot_ids.shape[0]                 # cache rows (== max_seq dense)
@@ -238,31 +279,17 @@ def make_cached_attn_core(kc, vc, pos, cfg: TransformerConfig,
         return kv_store(cache, (slice(None), slice(wpos, wpos + Q)), new)
 
     def attn_core(q, k, v):
-        B, Q = q.shape[:2]
         write(kc, k)
         write(vc, v)
-        if per_row:
-            qpos = pos[:, None, None]                          # (B, 1, 1)
-        else:
-            qpos = (pos + torch.arange(Q, device=q.device))[None, :, None]
-        if ring:
-            p = qpos - ((qpos - slot_ids[None, None, :]) % R)
-            mask = (p >= 0) & (p > qpos - cfg.attn_window)
-        else:
-            mask = slot_ids[None, None, :] <= qpos             # (B|1, Q, S)
-        kmat, vmat = kv_data(kc).float(), kv_data(vc).float()
-        qg = q.float().reshape(B, Q, kmat.shape[2], G, hd)
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kmat) * (hd ** -0.5)
-        if quantized:
-            s = s * kv_scale_bhgqk(kc["s"])
-        s = torch.where(mask[:, None, None, :, :], s, -1e30)
-        p = torch.softmax(s, dim=-1)
-        if quantized:
-            # the V scales fold into the probabilities; the values read
-            # stay int8
-            p = p * kv_scale_bhgqk(vc["s"])
-        o = torch.einsum("bhgqk,bkhd->bqhgd", p, vmat)
-        return o.reshape(B, Q, cfg.n_heads, hd).to(q.dtype), (kc, vc)
+        read = select_attention(
+            KIND_CHUNK, seq=q.shape[1], window=cfg.attn_window,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.kv_heads,
+            head_dim=cfg.head_dim, platform=q.device.type,
+            codec="int8" if quantized else None, dtype=kv_data(kc).dtype,
+            per_row=per_row).fn
+        if read is not None:
+            return read(q, kc, vc, pos), (kc, vc)
+        return cached_attn_einsum(q, kc, vc, pos, cfg, slot_ids), (kc, vc)
 
     return attn_core
 

@@ -654,6 +654,12 @@ def _decode_steps(members, n_lanes: int) -> list[int]:
             for m in members]
 
 
+def _prefill_chunks(members) -> int:
+    """Admission chunks the members recorded (``stats["prefill_chunks"]``,
+    0 where a member keeps no such count)."""
+    return sum(m.stats.get("prefill_chunks", 0) for m in members)
+
+
 def serve_traffic(eng, args, cfg, device, plen: int, max_seq: int,
                   n_lanes: int) -> dict:
     """Drive a serving engine (or a ``FleetRouter``) with the payload's
@@ -662,7 +668,8 @@ def serve_traffic(eng, args, cfg, device, plen: int, max_seq: int,
     one warm-up request, print the throughput lines and return the
     measurements, the engine, the requests and its telemetry snapshot
     (a fleet's merged one, with ``fleet_stats()`` and each member's
-    decode steps)."""
+    decode steps), and the admission chunks of the warm-up and the run
+    together (``prefill_chunks``)."""
     fleet = getattr(eng, "fleet_stats", None) is not None
     members = eng.engines if fleet else [eng]
     from tpushare_torch.workloads.serving import Request, lane_efficiency
@@ -676,6 +683,7 @@ def serve_traffic(eng, args, cfg, device, plen: int, max_seq: int,
     eng.submit(warm)
     eng.run()
     warm_steps = _decode_steps(members, n_lanes)
+    warm_chunks = _prefill_chunks(members)
     eng.reset_stats()
     for r in reqs:
         eng.submit(r)
@@ -728,6 +736,7 @@ def serve_traffic(eng, args, cfg, device, plen: int, max_seq: int,
            "tokens": total, "ttft_s": ttft, "engine": eng,
            "requests": reqs, "warmup_decode_steps": sum(warm_steps),
            "decode_steps": sum(steps),
+           "prefill_chunks": warm_chunks + _prefill_chunks(members),
            "telemetry": (eng.snapshot() if fleet
                          else eng.telemetry.snapshot())}
     if fleet:

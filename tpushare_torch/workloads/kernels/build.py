@@ -20,10 +20,11 @@ tests import every module of the port and have no ``nvcc``.
 all started together.
 
 ``LAUNCHES`` counts kernel launches by kernel name (``KERNELS``; the
-``flash_bwd`` and ``splash_bwd`` libraries hold two kernels each, and
-the decode libraries count their int8 rungs apart): each wrapper adds one exactly where it launches
-its kernel, so a run can show that the main path went through the
-kernels.
+``flash_fwd`` library holds two kernels, K1 and the cached chunk's,
+the ``flash_bwd`` and ``splash_bwd`` libraries two each, and the
+decode libraries count their int8 rungs apart): each wrapper adds one
+exactly where it launches its kernel, so a run can show that the main
+path went through the kernels.
 """
 
 from __future__ import annotations
@@ -49,13 +50,18 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # exported entry points and their argument types, per library
 _SIGNATURES = {
-    # q, k, v, o, lse (null = none), B, S, H, Hkv, hd, causal, window,
-    # is_bf16, scale, stream
-    "flash_fwd": {"tpushare_flash_fwd":
-                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                   _P]},
+    "flash_fwd": {
+        # q, k, v, o, lse (null = none), B, S, H, Hkv, hd, causal, window,
+        # is_bf16, scale, stream
+        "tpushare_flash_fwd":
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        # q, k, v (one layer's cache view), o, B, Q, pos, H, Hkv, hd,
+        # kv_batch, kv_row (element strides), scale, stream
+        "tpushare_flash_fwd_chunk":
+            [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _F, _P]},
     "flash_bwd": {
         # q, k, v, dout, lse, delta, dq, B, S, H, Hkv, hd, causal, window,
         # is_bf16, scale, stream
@@ -101,12 +107,13 @@ _SIGNATURES = {
 # instantiation for (anything else non-zero is a cudaError_t)
 UNSUPPORTED = -1
 
-# launch counters, one per kernel (the flash_bwd and splash_bwd
-# libraries hold two each; the decode libraries' int8 rungs count under
-# their own names)
-KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "paged_decode",
-           "paged_decode_int8", "ragged_decode", "ragged_decode_int8",
-           "splash_fwd", "splash_bwd_dq", "splash_bwd_dkv")
+# launch counters, one per kernel (the flash_fwd, flash_bwd and
+# splash_bwd libraries hold two each; the decode libraries' int8 rungs
+# count under their own names)
+KERNELS = ("flash_fwd", "flash_fwd_chunk", "flash_bwd_dq", "flash_bwd_dkv",
+           "paged_decode", "paged_decode_int8", "ragged_decode",
+           "ragged_decode_int8", "splash_fwd", "splash_bwd_dq",
+           "splash_bwd_dkv")
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 # libraries this process compiled and the wall seconds nvcc took —
 # the serving telemetry's compile pair (it has no jax.monitoring)

@@ -49,6 +49,19 @@
 // tile is masked.
 //
 // Both launch query tiles heaviest first.
+//
+// The cached chunk (tpushare_flash_fwd_chunk, bf16 only) replaces no TPU
+// kernel: the reference attends a multi-token chunk against its KV cache
+// with fp32 einsums over every cache row (decode.make_cached_attn_core),
+// which the port keeps on the CPU. On the card a chunk of Q queries at
+// absolute positions pos .. pos + Q - 1 runs K1's bf16 rung with a query
+// offset: key j is kept for query i exactly when j <= pos + i, the K/V
+// tiles come straight from one layer's view of the cache (its own row
+// and batch strides, only the first pos + Q rows read), tiles wholly
+// above the offset diagonal are skipped, and there is no fp32 copy of
+// K or V, no score tensor and no mask tensor. Bound as K1: at a prefill
+// chunk (Q 256-2048) the causal FLOPs over the tensor-core peak exceed
+// the bytes over HBM bandwidth.
 
 #include "attn_fwd_tile.cuh"
 #include "common.cuh"
@@ -219,22 +232,35 @@ __global__ void __launch_bounds__(THREADS)
 
 using mma::bf16;
 
-// which (query, key) scores live: keys before S, and with ``causal`` at
-// or before the query and, with a window, inside its band
+// Where a forward's rows lie: Sq query rows at absolute positions pos ..
+// pos + Sq - 1 against the first Skv key rows (K1: pos 0, Sq = Skv = S;
+// a cached chunk: Skv = pos + Sq), and the element strides between batch
+// rows of q / o, between batch rows of k / v, and between k / v
+// positions (a cache layer's view keeps its own).
+struct Rows {
+  int Sq, Skv, pos;
+  size_t q_batch, kv_batch, kv_row;
+};
+
+// which (query, key) scores live: keys before Skv, and with ``causal`` at
+// or before the query's absolute position and, with a window, inside its
+// band; q is the query's row, its position pos + q
 struct Keep {
-  int S, window;
+  int Skv, pos, window;
   bool causal;
   __device__ bool operator()(int q, int k) const {
-    return k < S && (!causal || (k <= q && (window <= 0 || k > q - window)));
+    const int p = q + pos;
+    return k < Skv && (!causal || (k <= p && (window <= 0 || k > p - window)));
   }
 };
 
+// One CTA's forward over its 64 query rows: the body of K1's bf16 rung
+// and of the cached chunk's kernel, which differ only in their Rows.
 template <int HD>
-__global__ void __launch_bounds__(fwd::Tiles<HD>::THREADS, 1)
-    flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                  float* __restrict__ lse, int S, int H, int Hkv, int causal,
-                  int window, float scale) {
+__device__ __forceinline__ void fwd_mma_rows(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+    const Rows& R, int H, int Hkv, int causal, int window, float scale) {
   using C = fwd::Tiles<HD>;
   static_assert(C::WC == 1, "one warp holds a strip's O up to hd 128");
   constexpr int LD = C::LD;
@@ -248,33 +274,35 @@ __global__ void __launch_bounds__(fwd::Tiles<HD>::THREADS, 1)
   const int q0 = (gridDim.x - 1 - blockIdx.x) * C::BM;   // heaviest first
   const int r0 = q0 + wr * 16;                  // the strip's first row
   const int r_last = r0 + 15;                   // and its last
+  const int p0 = R.pos + r0, p_last = R.pos + r_last;    // their positions
   const int row = blockIdx.y;                   // b * H + h
   const int b = row / H;
   const int h = row - b * H;
   const int hk = h / (H / Hkv);
 
   const size_t q_step = (size_t)H * HD;         // between positions
-  const size_t kv_step = (size_t)Hkv * HD;
-  const size_t q_off = (size_t)b * S * q_step + (size_t)h * HD;
-  const size_t kv_off = (size_t)b * S * kv_step + (size_t)hk * HD;
+  const size_t q_off = (size_t)b * R.q_batch + (size_t)h * HD;
+  const size_t kv_off = (size_t)b * R.kv_batch + (size_t)hk * HD;
 
   auto slot_k = [&](int i) { return ring + (i % C::STAGES) * 2 * BN * LD; };
   auto fill = [&](int i, int t) {
     bf16* sk = slot_k(i);
-    const size_t at = kv_off + (size_t)t * BN * kv_step;
-    mma::load_tile_rows<BN, HD, C::THREADS>(sk, k + at, kv_step, S - t * BN);
-    mma::load_tile_rows<BN, HD, C::THREADS>(sk + BN * LD, v + at, kv_step,
-                                            S - t * BN);
+    const size_t at = kv_off + (size_t)t * BN * R.kv_row;
+    mma::load_tile_rows<BN, HD, C::THREADS>(sk, k + at, R.kv_row,
+                                            R.Skv - t * BN);
+    mma::load_tile_rows<BN, HD, C::THREADS>(sk + BN * LD, v + at, R.kv_row,
+                                            R.Skv - t * BN);
   };
 
-  const int q_last = min(q0 + C::BM, S) - 1;
+  const int q_last = min(q0 + C::BM, R.Sq) - 1;
   const int t_first =
-      causal && window > 0 ? max(q0 - window + 1, 0) / BN : 0;
-  const int t_end = causal ? q_last / BN + 1 : (S + BN - 1) / BN;
+      causal && window > 0 ? max(R.pos + q0 - window + 1, 0) / BN : 0;
+  const int t_end =
+      causal ? (R.pos + q_last) / BN + 1 : (R.Skv + BN - 1) / BN;
 
   // Q is its own commit group, ahead of the ring's
   mma::load_tile_rows<C::BM, HD, C::THREADS>(sq, q + q_off + q0 * q_step,
-                                             q_step, S - q0);
+                                             q_step, R.Sq - q0);
   mma::commit();
 #pragma unroll
   for (int s = 0; s < C::STAGES - 1; ++s) {
@@ -285,7 +313,7 @@ __global__ void __launch_bounds__(fwd::Tiles<HD>::THREADS, 1)
   __syncthreads();
   const fwd::QFrags<HD, C::Q_IN_REGISTERS> qf(sq, wr * 16);
   fwd::Strip<C::N8> st(MASKED);
-  const Keep keep{S, window, causal != 0};
+  const Keep keep{R.Skv, R.pos, window, causal != 0};
   const float c = fwd::LOG2E * scale;
 
   for (int t = t_first, i = 0; t < t_end; ++t, ++i) {
@@ -294,14 +322,14 @@ __global__ void __launch_bounds__(fwd::Tiles<HD>::THREADS, 1)
     mma::commit();
     const bf16* sk = slot_k(i);
     const int k0 = t * BN;
-    // tiles this strip sees nothing of: rows all past S, keys all past
+    // tiles this strip sees nothing of: rows all past Sq, keys all past
     // its diagonal or all before its window
-    if (r0 >= S || (causal && (k0 > r_last ||
-                               (window > 0 && k0 + BN - 1 <= r0 - window))))
+    if (r0 >= R.Sq || (causal && (k0 > p_last ||
+                                  (window > 0 && k0 + BN - 1 <= p0 - window))))
       continue;
-    const bool masked = k0 + BN > S ||
-                        (causal && (k0 + BN - 1 > r0 ||
-                                    (window > 0 && k0 <= r_last - window)));
+    const bool masked = k0 + BN > R.Skv ||
+                        (causal && (k0 + BN - 1 > p0 ||
+                                    (window > 0 && k0 <= p_last - window)));
     if (masked)
       fwd::tile<true, HD>(st, qf, sk, sk + BN * LD, 0, c, r0 + g, k0 + fc,
                           keep);
@@ -312,13 +340,35 @@ __global__ void __launch_bounds__(fwd::Tiles<HD>::THREADS, 1)
 
   st.finish();
   mma::store_acc<C::N8>(o + q_off + (size_t)r0 * q_step, q_step, st.o,
-                        S - r0);
+                        R.Sq - r0);
   if (lse != nullptr && fc == 0) {
-    if (r0 + g < S)
-      lse[(size_t)row * S + r0 + g] = st.m[0] * scale + logf(st.l[0]);
-    if (r0 + g + 8 < S)
-      lse[(size_t)row * S + r0 + g + 8] = st.m[1] * scale + logf(st.l[1]);
+    if (r0 + g < R.Sq)
+      lse[(size_t)row * R.Sq + r0 + g] = st.m[0] * scale + logf(st.l[0]);
+    if (r0 + g + 8 < R.Sq)
+      lse[(size_t)row * R.Sq + r0 + g + 8] = st.m[1] * scale + logf(st.l[1]);
   }
+}
+
+// K1's bf16 rung: q, k, v of S rows each, contiguous
+template <int HD>
+__global__ void __launch_bounds__(fwd::Tiles<HD>::THREADS, 1)
+    flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                  float* __restrict__ lse, int S, int H, int Hkv, int causal,
+                  int window, float scale) {
+  const Rows R{S, S, 0, (size_t)S * H * HD, (size_t)S * Hkv * HD,
+               (size_t)Hkv * HD};
+  fwd_mma_rows<HD>(q, k, v, o, lse, R, H, Hkv, causal, window, scale);
+}
+
+// A cached chunk: Q queries at positions pos .. pos + Q - 1, causal over
+// the cache's first pos + Q rows, read in place
+template <int HD>
+__global__ void __launch_bounds__(fwd::Tiles<HD>::THREADS, 1)
+    flash_fwd_chunk_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, bf16* __restrict__ o,
+                        Rows R, int H, int Hkv, float scale) {
+  fwd_mma_rows<HD>(q, k, v, o, nullptr, R, H, Hkv, 1, 0, scale);
 }
 
 template <typename T, int HD>
@@ -374,6 +424,22 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+template <int HD>
+int launch_chunk(const void* q, const void* k, const void* v, void* o,
+                 const Rows& R, int B, int H, int Hkv, float scale,
+                 cudaStream_t stream) {
+  using C = fwd::Tiles<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_chunk_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)C::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((R.Sq + C::BM - 1) / C::BM, B * H);
+  flash_fwd_chunk_mma<HD><<<grid, C::THREADS, C::SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), R, H, Hkv, scale);
+  return cudaGetLastError();
+}
+
 // cp.async copies 16-byte chunks: every bf16 tensor and row must start
 // 16-byte aligned, as a tensor from the caching allocator does
 bool misaligned(const void* q, const void* k, const void* v, const void* o,
@@ -416,4 +482,34 @@ extern "C" int tpushare_flash_fwd(const void* q, const void* k,
   }
   return dispatch<float>(q, k, v, o, l, B, S, H, Hkv, hd, causal, window,
                          scale, st);
+}
+
+// A cached chunk's attention (bf16): q, o (B, Q, H, hd) contiguous, the
+// queries at absolute positions pos .. pos + Q - 1; k, v one layer's
+// cache view (B, rows, Hkv, hd) with rows >= pos + Q, positions kv_row
+// elements apart and batch rows kv_batch apart, of which the first
+// pos + Q rows are read; causal by absolute position
+extern "C" int tpushare_flash_fwd_chunk(const void* q, const void* k,
+                                        const void* v, void* o, int B, int Q,
+                                        int pos, int H, int Hkv, int hd,
+                                        long long kv_batch, long long kv_row,
+                                        float scale, void* stream) {
+  if (B < 1 || Q < 1 || pos < 0 || Hkv < 1 || H % Hkv != 0 ||
+      B * H > 65535 || kv_row < (long long)Hkv * hd || kv_batch < 0)
+    return -1;
+  if (misaligned(q, k, v, o, H, Hkv, hd) ||
+      (size_t)kv_row * sizeof(bf16) % 16 != 0 ||
+      (size_t)kv_batch * sizeof(bf16) % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  const Rows R{Q, pos + Q, pos, (size_t)Q * H * hd, (size_t)kv_batch,
+               (size_t)kv_row};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return launch_chunk<16>(q, k, v, o, R, B, H, Hkv, scale, st);
+    case 32: return launch_chunk<32>(q, k, v, o, R, B, H, Hkv, scale, st);
+    case 64: return launch_chunk<64>(q, k, v, o, R, B, H, Hkv, scale, st);
+    case 96: return launch_chunk<96>(q, k, v, o, R, B, H, Hkv, scale, st);
+    case 128: return launch_chunk<128>(q, k, v, o, R, B, H, Hkv, scale, st);
+  }
+  return -1;
 }

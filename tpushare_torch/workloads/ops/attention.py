@@ -14,6 +14,10 @@ The kernels live in ``kernels/flash_fwd.cu`` and ``kernels/flash_bwd.cu``.
   ``delta = rowsum(dO * O)`` in plain PyTorch (as the reference does
   outside Pallas) and launches the dQ and dK/dV kernels. dK/dV come
   back grouped, at the K/V heads' width.
+- :func:`flash_chunk_attention` is the forward with a query offset over
+  a KV cache read in place (the cached chunk's kernel in
+  ``flash_fwd.cu``); the reference has no kernel there, and its plain
+  form is ``decode.make_cached_attn_core``'s einsum core.
 - :func:`flash_attention_plain` (with its ``lse``) and
   :func:`flash_attention_bwd_plain` compute the same functions in plain
   PyTorch. A CPU tensor gets them; a CUDA tensor gets the kernels or an
@@ -200,6 +204,47 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(lib, "flash_fwd", rc)
     build.LAUNCHES["flash_fwd"] += 1
     return (out, lse) if with_lse else out
+
+
+def flash_chunk_attention(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, pos: int) -> torch.Tensor:
+    """A cached chunk's attention through the offset flash kernel (bf16
+    CUDA tensors): q (B, Q, H, hd) at absolute positions pos .. pos+Q-1
+    against the first pos + Q rows of one layer's cache view k / v (B,
+    rows, Hkv, hd), read in place at their own row and batch strides;
+    key j is kept for query i exactly when j <= pos + i. Returns (B, Q,
+    H, hd) in q's dtype. The registry routes a chunk here
+    (``KIND_CHUNK``); its plain twin is the einsum core of
+    ``decode.make_cached_attn_core``."""
+    B, Q, H, hd = q.shape
+    Hkv = k.shape[2]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != torch.bfloat16:
+            raise ValueError(f"{name} must be bf16 on q's device")
+    if k.shape != v.shape or k.stride() != v.stride() or k.shape[0] != B \
+            or k.shape[3] != hd:
+        raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
+                         f"not match q {tuple(q.shape)}")
+    if k.stride(3) != 1 or k.stride(2) != hd:
+        raise ValueError("k/v rows must hold their heads' values packed "
+                         "(strides (..., hd, 1))")
+    if H % Hkv or hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the chunk kernel takes H % Hkv == 0 and head_dim "
+                         f"in {KERNEL_HEAD_DIMS}, got {H}:{Hkv} / {hd}")
+    if pos < 0 or pos + Q > k.shape[1]:
+        raise ValueError(f"chunk rows {pos}..{pos + Q} past the cache's "
+                         f"{k.shape[1]}")
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    lib = build.library("flash_fwd")
+    with torch.cuda.device(q.device):
+        rc = lib.tpushare_flash_fwd_chunk(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Q,
+            pos, H, Hkv, hd, k.stride(0), k.stride(1), hd ** -0.5,
+            cuda_stream())
+    build.check(lib, "flash_fwd_chunk", rc)
+    build.LAUNCHES["flash_fwd_chunk"] += 1
+    return out
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,

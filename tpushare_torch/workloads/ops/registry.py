@@ -45,6 +45,16 @@ decode rows keep the reference's gates (``RAGGED_HEAD_DIM``,
 ``RAGGED_BLOCK``) so the same configs are refused with the same
 reasons.
 
+The chunk kind (``KIND_CHUNK``) is the port's own: the reference
+attends a multi-token chunk against its KV cache with the masked fp32
+einsums of ``decode.make_cached_attn_core`` and asks no registry. On the
+card a chunk of two or more queries at one position for the batch, over
+a dense bf16 cache with no window, at a head_dim the flash kernel takes
+and grouped heads, runs the offset flash kernel
+(``attention.flash_chunk_attention``); every other input keeps the
+einsum core, and only a chunk on the card that cannot take the kernel
+counts as a fallback.
+
 The sharded forms (the reference's ``shard_mapped`` kernel forms) are
 the same kernels launched once per shard on the shard's device, their
 outputs concatenated in rank order; per-head softmax makes the
@@ -73,10 +83,12 @@ from typing import Any, Callable, Mapping
 import torch
 
 from tpushare_torch import consts
-from tpushare_torch.workloads.ops.attention import (ShardedAttention,
+from tpushare_torch.workloads.ops.attention import (KERNEL_HEAD_DIMS,
+                                                    ShardedAttention,
                                                     check_window,
                                                     flash_attention,
-                                                    flash_attention_plain)
+                                                    flash_attention_plain,
+                                                    flash_chunk_attention)
 from tpushare_torch.workloads.ops.paged_attention import (paged_decode,
                                                           xla_paged_read)
 from tpushare_torch.workloads.ops.ragged_decode import (
@@ -98,7 +110,11 @@ KIND_PREFILL = "prefill"
 KIND_DECODE = "decode"    # single-token read over the contiguous slot cache
 KIND_PAGED = "paged"
 KIND_RING = "ring"        # sequence-parallel ring attention over sp
-KINDS = (KIND_PREFILL, KIND_DECODE, KIND_PAGED, KIND_RING)
+KIND_CHUNK = "chunk"      # a multi-token chunk's read of a dense KV cache
+KINDS = (KIND_PREFILL, KIND_DECODE, KIND_PAGED, KIND_RING, KIND_CHUNK)
+# the chunk kind's einsum rows that are no fallback: a single token at
+# one or per-row positions is a decode step, the decode kind's read
+CHUNK_DECODE_STEPS = ("chunk:single-token", "pos:per-row")
 
 SPLASH_MIN_SEQ = 4096
 SPLASH_HEAD_DIM = 128
@@ -129,7 +145,8 @@ class KernelChoice:
     fn(q1, k, v, lengths, layer=) over the stacked slot cache, xla
     ``decode.make_cached_attn_core`` (the dense masked einsum stays where
     the cache layout lives); paged: fn(q1, kp, vp, tables, kv_lens) over
-    one layer's pool."""
+    one layer's pool; chunk: flash fn(q, k, v, pos) over one layer's
+    cache view, xla None (the caller's masked einsum core)."""
 
     kind: str
     impl: str
@@ -197,13 +214,17 @@ def decide(kind: str, *, seq: int | None = None, window: int | None = None,
            n_heads: int | None = None, n_kv_heads: int | None = None,
            head_dim: int | None = None, platform: str | None = None,
            impl: str = IMPL_AUTO, codec: str | None = None,
-           batch: int | None = None) -> tuple[str, str]:
+           batch: int | None = None, dtype: torch.dtype | None = None,
+           per_row: bool = False) -> tuple[str, str]:
     """(impl, reason) for one attention site; raises
     :class:`KernelUnavailable` for explicit impls the table cannot
     honour. ``mesh_shape`` is a plain ``{axis: size}`` map (its ``tp``
     shards heads, ``dp`` the ``batch`` rows, ``sp`` the sequence);
     ``platform`` is the tensors' device type ("cuda" / "cpu"); ``codec``
-    the paged pool's storage codec (``consts.KV_CODECS``)."""
+    the paged pool's or the chunk's cache's storage codec
+    (``consts.KV_CODECS``). The chunk kind reads ``seq`` as the chunk's
+    query count, ``dtype`` as the cache's and ``per_row`` as positions
+    given per batch row."""
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r} not in {KINDS}")
     if impl not in IMPLS + (IMPL_AUTO, IMPL_KERNEL):
@@ -211,9 +232,10 @@ def decide(kind: str, *, seq: int | None = None, window: int | None = None,
             f"impl {impl!r} not in {IMPLS + (IMPL_AUTO, IMPL_KERNEL)}")
     if codec is not None and codec not in consts.KV_CODECS:
         raise ValueError(f"codec {codec!r} not in {consts.KV_CODECS}")
-    if codec == "int8" and kind != KIND_PAGED:
+    if codec == "int8" and kind not in (KIND_PAGED, KIND_CHUNK):
         raise ValueError("codec='int8' applies to the paged pool read "
-                         "(kind='paged'); a slot cache's int8 rung "
+                         "(kind='paged') and a chunk's cache read "
+                         "(kind='chunk'); a slot cache's int8 rung "
                          "follows its leaf type")
     if n_kv_heads is None:
         n_kv_heads = n_heads
@@ -297,6 +319,32 @@ def decide(kind: str, *, seq: int | None = None, window: int | None = None,
         if platform != PLATFORM:
             return IMPL_XLA, "platform:" + (platform or "none")
         return IMPL_RAGGED, "auto:ragged"
+
+    if kind == KIND_CHUNK:
+        # Q >= 2 queries at one position for the batch against a dense
+        # bf16 cache: the offset flash kernel; anything else keeps the
+        # reference's masked einsum core. The inputs alone decide.
+        if impl != IMPL_AUTO:
+            raise KernelUnavailable(
+                impl, kind, "a cached chunk's read is chosen by its inputs "
+                "alone", advice="use impl='auto'")
+        if per_row:
+            return IMPL_XLA, "pos:per-row"
+        if seq is None or seq < 2:
+            return IMPL_XLA, "chunk:single-token"
+        if codec == "int8":
+            return IMPL_XLA, "codec:int8"
+        if window is not None:
+            return IMPL_XLA, "window:ring-cache"
+        if dtype != torch.bfloat16:
+            return IMPL_XLA, "dtype:" + str(dtype).removeprefix("torch.")
+        if head_dim not in KERNEL_HEAD_DIMS:
+            return IMPL_XLA, "head_dim:flash-set"
+        if n_heads is None or not n_kv_heads or n_heads % n_kv_heads:
+            return IMPL_XLA, "heads:ungrouped"
+        if platform != PLATFORM:
+            return IMPL_XLA, "platform:" + (platform or "none")
+        return IMPL_FLASH, "auto:flash-chunk"
 
     # ---- kind == KIND_PREFILL ------------------------------------------
     if impl in (IMPL_PAGED, IMPL_RAGGED):
@@ -499,7 +547,8 @@ def select_attention(kind: str, *, seq: int | None = None,
                      batch: int | None = None, causal: bool = True,
                      codec: str | None = None, batch_axis: str = "dp",
                      head_axis: str = "tp", seq_axis: str = "sp",
-                     zigzag: bool = False, reorder: bool = True
+                     zigzag: bool = False, reorder: bool = True,
+                     dtype: torch.dtype | None = None, per_row: bool = False
                      ) -> KernelChoice:
     """Run :func:`decide` and return the ready-to-call implementation;
     an ``auto`` degradation to the plain path is recorded against the
@@ -510,14 +559,18 @@ def select_attention(kind: str, *, seq: int | None = None,
     ``batch`` slots), and the ring kind builds the ring over the mesh's
     ``seq_axis`` (``zigzag`` / ``reorder`` / ``window`` its schedule); a
     sharded paged engine reads each pool shard through the mesh-less
-    paged read."""
+    paged read. The chunk kind counts a fallback only on the card and
+    only for a chunk: a decode step (:data:`CHUNK_DECODE_STEPS`) is no
+    chunk, and a CPU tensor keeps the reference's einsum core, whose
+    telemetry counts nothing there."""
     check_window(causal, window)
     chosen, reason = decide(kind, seq=seq, window=window,
                             mesh_shape=_mesh_shape(mesh, batch_axis,
                                                    head_axis, seq_axis),
                             n_heads=n_heads, n_kv_heads=n_kv_heads,
                             head_dim=head_dim, platform=platform, impl=impl,
-                            codec=codec, batch=batch)
+                            codec=codec, batch=batch, dtype=dtype,
+                            per_row=per_row)
     if kind == KIND_RING:
         if seq_axis not in mesh.shape:
             raise KernelUnavailable(
@@ -532,6 +585,13 @@ def select_attention(kind: str, *, seq: int | None = None,
             head_axis=head_axis, causal=causal, zigzag=zigzag,
             reorder=reorder, window=window)
         return KernelChoice(kind=kind, impl=chosen, reason=reason, fn=fn)
+    if kind == KIND_CHUNK:
+        if chosen == IMPL_XLA and platform == PLATFORM \
+                and reason not in CHUNK_DECODE_STEPS:
+            record_fallback(IMPL_FLASH, reason)
+        return KernelChoice(kind=kind, impl=chosen, reason=reason,
+                            fn=flash_chunk_attention
+                            if chosen == IMPL_FLASH else None)
     if chosen == IMPL_XLA and impl == IMPL_AUTO:
         # charged to the kernel the table would have picked for this
         # shape: splash only where splash could serve it

@@ -1243,9 +1243,10 @@ class ServingEngine(_EngineCore):
     running request, for a sampling request or without k+1 rows of
     headroom it runs the normal chunk. Not with ``pipeline=True``; under
     a ring cache the draft must be windowed with the same floor. The
-    rounds read the target through ``chunk_step``'s einsum, also under
-    ``cfg.ragged_decode``: exact in f32, bf16 near-ties may break
-    differently across the two reads.
+    rounds read the target through ``chunk_step``'s cached read (the
+    offset flash kernel for a bf16 cache on the card, else the einsum),
+    also under ``cfg.ragged_decode``: exact in f32, bf16 near-ties may
+    break differently across the two reads.
 
     ``mm=quant.qmm`` with ``quant.quantize_params``' int8 mirror serves
     int8 weights on every program above (not with ``draft``: the
